@@ -1,0 +1,132 @@
+"""Build the hand-written CUDA kernels at first use and load them.
+
+All sources in csrc/ compile in one `nvcc` call for sm_90a into one shared
+library with a plain C interface (csrc/ofdm_kernels.h), loaded with
+ctypes. No PyTorch header is compiled, so the build takes seconds. The
+library lands in build/ofdm_uhd_tpu_torch/ beside the package (listed in
+.gitignore), named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the existing file.
+
+Nothing here runs at import: `library()` builds on its first call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu")
+HEADERS = ("ofdm_kernels.h",)
+FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+         "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C interface: every entry point returns a cudaError_t (0 = launched)
+_SIGNATURES = {
+    # llr, dec, bits, batch, n, stream
+    "ofdm_viterbi": [_P, _P, _P, _I, _I, _P],
+    # x, y, twiddles, rows, log2n, inverse, stream
+    "ofdm_fft": [_P, _P, _P, _I, _I, _I, _P],
+    # m, p, cand, d, eps, caps, nd, mf, span, cp_half, rel, stream
+    "ofdm_localize": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      ctypes.c_float, _P],
+    # capture, ds, out, caps, n, mf, frame_len, stream
+    "ofdm_extract": [_P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+
+class _Loaded:
+    lib: ctypes.CDLL | None = None
+    log: str = ""                     # nvcc's output (ptxas -v when verbose)
+
+
+_LOADED = _Loaded()
+
+
+def build_dir() -> Path:
+    """build/ofdm_uhd_tpu_torch/ under the checkout holding the package."""
+    return Path(__file__).resolve().parents[2] / "build" / "ofdm_uhd_tpu_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(needs the CUDA toolkit and an sm_90a card)")
+
+
+def library(verbose: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library; built from csrc/ on the first call.
+
+    verbose=True adds `-Xptxas -v` to a build, so `build_log()` shows each
+    kernel's registers, shared memory and spills.
+    """
+    if _LOADED.lib is not None:
+        return _LOADED.lib
+    flags = FLAGS + (("-Xptxas", "-v") if verbose else ())
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in HEADERS + SOURCES:
+        h.update((CSRC / name).read_bytes())
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"libofdm_kernels_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *flags, "-o", tmp,
+               *(str(CSRC / s) for s in SOURCES)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        _LOADED.log = res.stdout + res.stderr
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{_LOADED.log}")
+        os.replace(tmp, so)            # atomic: concurrent builds agree
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in _SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.ofdm_error_string.argtypes = [ctypes.c_int]
+    lib.ofdm_error_string.restype = ctypes.c_char_p
+    _LOADED.lib = lib
+    return lib
+
+
+def build_log() -> str:
+    return _LOADED.log
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a C entry point reported a CUDA error (launch refused)."""
+    if err != 0:
+        msg = _LOADED.lib.ofdm_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
+
+
+def check_inputs(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous and on the first one's CUDA
+    device (the kernels index raw row-major memory)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{kernel}: inputs must share one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: inputs must be contiguous")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on `device`, as a pointer value."""
+    return torch.cuda.current_stream(device).cuda_stream

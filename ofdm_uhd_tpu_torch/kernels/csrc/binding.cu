@@ -1,0 +1,6 @@
+// Shared part of the C interface bound by kernels/build.py.
+#include "ofdm_kernels.h"
+
+OFDM_API const char* ofdm_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,35 @@
+// C interface of the hand-written Hopper kernels (bound with ctypes by
+// kernels/build.py). Every entry point launches on the given stream,
+// allocates nothing, does not synchronise, and returns cudaGetLastError()
+// right after the launch (0 = launched). Pointers are device pointers
+// whose shapes, types and contiguity the Python wrappers have checked.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define OFDM_API extern "C" __attribute__((visibility("default")))
+
+// Rate-1/2 K=7 Viterbi, whole-sequence: llr [batch, 2n] f32 (a/b
+// interleaved) -> bits [batch, n] u8; dec [batch, n] x 2 u32 scratch.
+OFDM_API int ofdm_viterbi(const float* llr, uint32_t* dec, uint8_t* bits,
+                          int batch, int n, void* stream);
+
+// Orthonormal radix-2 FFT/IFFT along rows: x, y [rows, 2^log2n] complex64
+// (float2), twiddles [2^log2n / 2] = exp(-2 pi i k / 2^log2n).
+OFDM_API int ofdm_fft(const float2* x, float2* y, const float2* twiddles,
+                      int rows, int log2n, int inverse, void* stream);
+
+// Schmidl-Cox plateau localization: m [caps, nd] f32, p [caps, nd]
+// complex64, cand [caps, mf] i32 -> d [caps, mf] i32, eps [caps, mf] f32.
+OFDM_API int ofdm_localize(const float* m, const float2* p, const int* cand,
+                           int* d, float* eps, int caps, int nd, int mf,
+                           int span, int cp_half, float rel, void* stream);
+
+// Frame extraction: capture [caps, n] complex64, ds [caps, mf] i32 ->
+// out [caps, mf, frame_len] complex64, zeros past the capture's end.
+OFDM_API int ofdm_extract(const float2* capture, const int* ds, float2* out,
+                          int caps, int n, int mf, int frame_len,
+                          void* stream);
+
+OFDM_API const char* ofdm_error_string(int err);

@@ -1,0 +1,68 @@
+"""Kernel dispatch by the tensor's device, and launch counts.
+
+The reference picked a kernel tier from a global backend string and a
+table of TPU measurements. Here the input tensor decides:
+
+  * a CPU tensor takes the kernel's plain PyTorch version;
+  * a CUDA tensor launches the hand-written kernel, and a failed build or
+    launch raises; it never falls back to the plain version quietly;
+  * any other device raises.
+
+`plain_versions()` is the one explicit exception: inside it, CUDA tensors
+take the plain versions too, so a caller can time the same chain without
+the hand kernels (chip_smoke.py does). Each wrapper adds one to its count
+in `launches()` where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+KERNELS = ("localize", "extract", "fft", "viterbi")
+
+
+class _Dispatch:
+    """Process-wide dispatch state: the plain-forcing switch and counts."""
+
+    def __init__(self):
+        self.forced_plain = False
+        self.launches = dict.fromkeys(KERNELS, 0)
+
+
+_STATE = _Dispatch()
+
+
+def use_kernel(x: torch.Tensor) -> bool:
+    """True -> launch the hand kernel on x; False -> the plain version."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel route for a tensor on {x.device}")
+    return not _STATE.forced_plain
+
+
+def count_launch(kernel: str) -> None:
+    _STATE.launches[kernel] += 1
+
+
+def launches() -> dict[str, int]:
+    """Launches per kernel since the last reset_launches()."""
+    return dict(_STATE.launches)
+
+
+def reset_launches() -> None:
+    for k in _STATE.launches:
+        _STATE.launches[k] = 0
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route CUDA tensors to the plain PyTorch versions inside the block."""
+    prev = _STATE.forced_plain
+    _STATE.forced_plain = True
+    try:
+        yield
+    finally:
+        _STATE.forced_plain = prev

@@ -1,0 +1,48 @@
+"""Batched TX pipeline: scramble -> FEC -> interleave -> QAM -> frame
+build -> IFFT + CP. The counterpart of ofdm_uhd_tpu/pipeline/tx.py.
+
+In the port the TX is a data generator for tests and the chip smoke run:
+it runs on whatever device its input lies on, through the same kernel
+dispatch as the RX (the IFFT is the FFT kernel's inverse on CUDA).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.spec import WaveformSpec, TAIL_BITS
+from ..phy import bits as PB
+from ..phy import frame as PF
+from ..phy import qam as PQ
+
+
+class TxPipeline:
+    """payloads [B, payload_bits_per_frame] -> frames [B, frame_len]."""
+
+    def __init__(self, spec: WaveformSpec):
+        if spec.resample_l != 1 or spec.resample_m != 1:
+            raise NotImplementedError(
+                "resampled waveforms need the polyphase FIR kernels, which "
+                "are not ported yet")
+        self.spec = spec
+
+    def encode(self, payloads: torch.Tensor) -> torch.Tensor:
+        """payloads -> interleaved coded bits [B, coded_bits_per_frame]."""
+        return _encode(self.spec, payloads)
+
+    def __call__(self, payloads: torch.Tensor) -> torch.Tensor:
+        spec = self.spec
+        syms = PQ.qam_map(_encode(spec, payloads), spec.modulation)
+        grid = PF.build_grid(spec, syms.reshape(-1, spec.n_data_syms,
+                                                spec.n_data_sc))
+        return PF.ofdm_modulate(spec, grid)
+
+
+def _encode(spec: WaveformSpec, payloads: torch.Tensor) -> torch.Tensor:
+    payloads = payloads.to(torch.uint8)
+    crc = PB.crc32(payloads)
+    body = PB.scramble(torch.cat([payloads, crc], dim=-1))
+    tail = body.new_zeros(body.shape[:-1] + (TAIL_BITS,))
+    coded = PB.conv_encode(torch.cat([body, tail], dim=-1))
+    coded = PB.puncture(coded, spec.fec_rate)
+    return PB.interleave(coded, spec.coded_bits_per_sym)
