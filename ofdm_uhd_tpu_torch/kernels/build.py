@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them.
 
-All sources in csrc/ compile in one `nvcc` call for sm_90a into one shared
+Each source in csrc/ compiles for sm_90a in its own `nvcc` process, all
+started together; one more `nvcc` links the objects into one shared
 library with a plain C interface (csrc/ofdm_kernels.h), loaded with
 ctypes. No PyTorch header is compiled, so the build takes seconds. The
 library lands in build/ofdm_uhd_tpu_torch/ beside the package (listed in
@@ -23,10 +24,11 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu")
+SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
+           "fir.cu", "scfront.cu")
 HEADERS = ("ofdm_kernels.h",)
-FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-         "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C interface: every entry point returns a cudaError_t (0 = launched)
@@ -40,6 +42,12 @@ _SIGNATURES = {
                       ctypes.c_float, _P],
     # capture, ds, out, caps, n, mf, frame_len, stream
     "ofdm_extract": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, y, rows, n_in, n_out, nt, stride, pad_left, stream
+    "ofdm_fir_strided": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, g, y, rows, n, l, nd, d_max, stream
+    "ofdm_fir_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # r, p, m, rows, n, l, stream
+    "ofdm_scfront": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -83,17 +91,7 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"libofdm_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *flags, "-o", tmp,
-               *(str(CSRC / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        _LOADED.log = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{_LOADED.log}")
-        os.replace(tmp, so)            # atomic: concurrent builds agree
+        _compile_and_link(flags, so)
     lib = ctypes.CDLL(str(so))
     for fn, argtypes in _SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes
@@ -102,6 +100,33 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     lib.ofdm_error_string.restype = ctypes.c_char_p
     _LOADED.lib = lib
     return lib
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; wait for every one; raise if any
+    failed. Their output goes to build_log()."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    _LOADED.log += "".join(outs)
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
+def _compile_and_link(flags: tuple, so: Path) -> None:
+    """One nvcc per source into objects, then one link into `so`,
+    replaced atomically so that concurrent builds agree."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
+        _run_all([[nvcc, *flags, "-c", "-o", o, str(CSRC / s)]
+                  for s, o in zip(SOURCES, objs)])
+        lib = str(Path(tmp) / so.name)
+        _run_all([[nvcc, ARCH, "-shared", "-o", lib, *objs]])
+        os.replace(lib, so)
 
 
 def build_log() -> str:

@@ -32,4 +32,24 @@ OFDM_API int ofdm_extract(const float2* capture, const int* ds, float2* out,
                           int caps, int n, int mf, int frame_len,
                           void* stream);
 
+// Strided real-tap FIR over complex rows ('same' FIR at stride 1, M-fold
+// decimation at stride M): x [rows, n_in] complex64, w [nt] f32 (the
+// correlation weights, i.e. the taps reversed) -> y [rows, n_out],
+// y[r, i] = sum_t w[t] * x[r, i*stride + t - pad_left], zeros outside.
+OFDM_API int ofdm_fir_strided(const float2* x, const float* w, float2* y,
+                              int rows, int n_in, int n_out, int nt,
+                              int stride, int pad_left, void* stream);
+
+// L-fold polyphase interpolation: x [rows, n] complex64, g [l, nd] f32
+// branch matrix over d = d_max - nd + 1 .. d_max -> y [rows, n * l],
+// y[r, k] = sum_d g[k % l, d - d_min] * x[r, k / l - d], zeros outside.
+OFDM_API int ofdm_fir_interp(const float2* x, const float* g, float2* y,
+                             int rows, int n, int l, int nd, int d_max,
+                             void* stream);
+
+// Schmidl-Cox front end: r [rows, n] complex64 -> p [rows, nd] complex64,
+// m [rows, nd] f32, nd = n - 2l + 1, l a power of two.
+OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
+                          int n, int l, void* stream);
+
 OFDM_API const char* ofdm_error_string(int err);

@@ -1,0 +1,197 @@
+"""Real-tap FIR, polyphase decimation and interpolation of complex rows:
+two hand kernels + plain versions.
+
+Replaces ofdm_uhd_tpu/kernels/pallas_fir_mxu.py (fir_mxu_pallas and
+polyphase_decim_mxu_pallas through _fir_rows_mxu, and
+polyphase_interp_mxu_pallas); CUDA source csrc/fir.cu. The public
+functions mirror ofdm_uhd_tpu/kernels/fir.py (fir_filter, polyphase_interp,
+polyphase_decim); the plain versions are the counterparts of
+ofdm_uhd_tpu/kernels/conv_backend.py (fir_same, polyphase_interp_xla,
+polyphase_decim_xla): a 1-D correlation over the (re, im) float32 planes.
+
+Coefficients are bit-equal to the reference's: fir and decimation take the
+taps as float32, reversed (correlation weights); interpolation takes the
+branch matrix `_branch_matrix` (float64 times L, cast to float32). Every
+row is filtered on its own with zeros past both ends. Sums run in another
+order than the reference's banded matmul, so results agree to float32
+rounding, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..phy import tables as T
+from . import build, policy
+
+
+@functools.lru_cache(maxsize=32)
+def _branch_matrix(taps_key: tuple, l: int) -> tuple[np.ndarray, int, int]:
+    """Polyphase branch decomposition of the prototype -> (G [L, D] f32,
+    d_min, d_max): y[n*L + p] = sum_d G[p, d - d_min] * x[n - d]."""
+    h = np.asarray(taps_key, dtype=np.float64) * l
+    nt = len(h)
+    half = (nt - 1) // 2
+    d_min = -((half + l - 1) // l)
+    d_max = (nt - 1 - half) // l
+    dd = np.arange(d_min, d_max + 1)
+    g = np.zeros((l, len(dd)), dtype=np.float32)
+    for p in range(l):
+        idx = dd * l + p + half
+        ok = (idx >= 0) & (idx < nt)
+        g[p, ok] = h[idx[ok]]
+    return g, d_min, d_max
+
+
+def _f64_key(taps) -> tuple:
+    """The taps as a hashable float64 cache key (the branch matrix scales
+    them in float64, as the reference does)."""
+    return tuple(np.asarray(taps, dtype=np.float64).tolist())
+
+
+def branch_matrix(taps, l: int) -> tuple[np.ndarray, int, int]:
+    return _branch_matrix(_f64_key(taps), l)
+
+
+@functools.lru_cache(maxsize=32)
+def _reversed_taps(taps_key: tuple) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(taps_key, np.float32)[::-1])
+
+
+def _corr_weights(taps) -> tuple[tuple, np.ndarray, int]:
+    """(cache key, float32 taps reversed, i.e. the correlation weights,
+    left zero pad nt - 1 - half of the 'same' alignment)."""
+    key = tuple(np.asarray(taps, dtype=np.float32).tolist())
+    nt = len(key)
+    return key, _reversed_taps(key), nt - 1 - (nt - 1) // 2
+
+
+# ------------------------------------------------------------------ plain
+
+def _correlate_planes(x: torch.Tensor, kern: np.ndarray, pad_left: int,
+                      pad_right: int, stride: int = 1) -> torch.Tensor:
+    """x [..., n] complex -> [2B, C, n_out] float32, B = prod(batch):
+    out[b, c, i] = sum_t kern[c, t] * xpad[b, i*stride + t], the re planes
+    first, then the im planes."""
+    flat = x.reshape(-1, x.shape[-1])
+    planes = torch.cat([flat.real, flat.imag]).float()[:, None, :]
+    planes = F.pad(planes, (pad_left, pad_right))
+    w = torch.from_numpy(np.ascontiguousarray(kern, dtype=np.float32)).to(
+        x.device)[:, None, :]
+    return F.conv1d(planes, w, stride=stride)
+
+
+def _merge(planes: torch.Tensor, x: torch.Tensor, n_out: int
+           ) -> torch.Tensor:
+    b = planes.shape[0] // 2
+    return torch.complex(planes[:b], planes[b:]).reshape(
+        x.shape[:-1] + (n_out,))
+
+
+def decim_plain(x: torch.Tensor, m: int, taps) -> torch.Tensor:
+    """The 'same' FIR at every m-th sample; m = 1 is fir_filter's plain
+    version."""
+    _, w, pad_l = _corr_weights(taps)
+    n_out = x.shape[-1] // m
+    out = _correlate_planes(x, w[None], pad_l, len(w) - 1 - pad_l, stride=m)
+    return _merge(out[:, 0, :n_out], x, n_out)
+
+
+def interp_plain(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+    g, d_min, d_max = branch_matrix(taps, l)
+    n = x.shape[-1]
+    # branch p: y_p[q] = sum_d g[p, d] x[q - d], a correlation with g_p
+    # reversed; the L branches are output channels, interleaved after
+    out = _correlate_planes(x, g[:, ::-1], d_max, -d_min)    # [2B, L, n]
+    inter = out.transpose(1, 2).reshape(out.shape[0], n * l)
+    return _merge(inter, x, n * l)
+
+
+# ------------------------------------------------------------------ kernels
+
+def _rows(x: torch.Tensor, kernel: str) -> torch.Tensor:
+    if x.dtype != torch.complex64 or x.dim() < 1:
+        raise ValueError(f"{kernel}: need complex64 [..., n], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    flat = x.reshape(-1, x.shape[-1])
+    build.check_inputs(kernel, flat)
+    return flat
+
+
+def _strided_cuda(x: torch.Tensor, taps, stride: int) -> torch.Tensor:
+    """The 'same' FIR of every row at stride `stride`: [..., n_in] ->
+    [..., n_in // stride] (stride 1: fir_filter; stride M: decimation)."""
+    flat = _rows(x, "fir")
+    key, w, pad_l = _corr_weights(taps)
+    if stride < 1 or len(w) < 1:
+        raise ValueError(f"fir: need stride >= 1 and taps, got {stride}, "
+                         f"{len(w)}")
+    rows, n_in = flat.shape
+    n_out = n_in // stride
+    y = torch.empty((rows, n_out), dtype=torch.complex64, device=x.device)
+    wt = T.on_device(_reversed_taps, (key,), None, x.device)
+    lib = build.library()
+    err = lib.ofdm_fir_strided(flat.data_ptr(), wt.data_ptr(), y.data_ptr(),
+                               rows, n_in, n_out, len(w), stride, pad_l,
+                               build.stream_ptr(x.device))
+    build.check(err, "fir")
+    policy.count_launch("fir")
+    return y.reshape(x.shape[:-1] + (n_out,))
+
+
+def _interp_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+    flat = _rows(x, "interp")
+    if l < 1:
+        raise ValueError(f"interp: need l >= 1, got {l}")
+    key = _f64_key(taps)
+    g, _, d_max = _branch_matrix(key, l)
+    rows, n = flat.shape
+    y = torch.empty((rows, n * l), dtype=torch.complex64, device=x.device)
+    gt = T.on_device(_branch_matrix, (key, l), 0, x.device)
+    lib = build.library()
+    err = lib.ofdm_fir_interp(flat.data_ptr(), gt.data_ptr(), y.data_ptr(),
+                              rows, n, l, g.shape[1], d_max,
+                              build.stream_ptr(x.device))
+    build.check(err, "interp")
+    policy.count_launch("interp")
+    return y.reshape(x.shape[:-1] + (n * l,))
+
+
+# ------------------------------------------------------------------ dispatch
+
+def check_filter_precision(spec) -> None:
+    """Refuse the reference's 1-pass bf16 filter tier (a TPU MXU
+    precision, not ported); 'exact' float32 filtering is the default."""
+    resampled = spec.resample_l != 1 or spec.resample_m != 1
+    if resampled and spec.filter_precision != "exact":
+        raise NotImplementedError(
+            f"filter_precision={spec.filter_precision!r} is not ported; "
+            "the port filters in exact float32")
+
+
+def fir_filter(x: torch.Tensor, taps) -> torch.Tensor:
+    """'Same'-aligned real-taps FIR of complex signals, [..., n] -> [..., n]:
+    y[i] = sum_j taps[j] * x[i + half - j], half = (len(taps) - 1) // 2."""
+    if policy.use_kernel(x):
+        return _strided_cuda(x, taps, 1)
+    return decim_plain(x, 1, taps)
+
+
+def polyphase_interp(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+    """L-fold polyphase interpolation, [..., n] -> [..., n*l]; taps = the
+    prototype low-pass (gain L applied here)."""
+    if policy.use_kernel(x):
+        return _interp_cuda(x, l, taps)
+    return interp_plain(x, l, taps)
+
+
+def polyphase_decim(x: torch.Tensor, m: int, taps) -> torch.Tensor:
+    """M-fold polyphase decimation, [..., n*m] -> [..., n]: the 'same' FIR
+    evaluated at every m-th sample only."""
+    if policy.use_kernel(x):
+        return _strided_cuda(x, taps, m)
+    return decim_plain(x, m, taps)

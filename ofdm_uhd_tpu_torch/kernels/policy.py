@@ -20,7 +20,9 @@ import contextlib
 
 import torch
 
-KERNELS = ("localize", "extract", "fft", "viterbi")
+# "fir" counts the strided kernel: 'same' FIR and decimation launches
+KERNELS = ("localize", "extract", "fft", "viterbi", "fir", "interp",
+           "scfront")
 
 
 class _Dispatch:

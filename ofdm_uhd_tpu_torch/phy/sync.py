@@ -4,6 +4,7 @@ The counterpart of ofdm_uhd_tpu/phy/sync.py, with the capture batch
 written out: every function takes [C, ...] captures where the reference
 vmapped over them. Detection is the reference's parallel formulation:
 
+  0. the S&C correlation P and metric M in one pass: kernels/scfront.py;
   1. candidates: rising edges of (M >= threshold), the first `max_cand`
      kept with the reference's per-512-block capacity of 8 edges
      (`_first_k_indices`; overflow shows only in `det_sat`);
@@ -27,7 +28,7 @@ import torch
 from ..core.spec import WaveformSpec
 from ..kernels.extract import extract_frames as _extract
 from ..kernels.localize import localize
-from ..kernels.sync import sc_correlate, sc_metric
+from ..kernels.scfront import sc_frontend
 from . import tables as T
 
 _EXTRACT_BS = 512      # block size of the hierarchical index extraction
@@ -46,8 +47,7 @@ def detect_frames(spec: WaveformSpec, capture: torch.Tensor, max_frames: int,
     """
     l = spec.n_sc // 2
     n = capture.shape[-1]
-    p, rr = sc_correlate(capture, l)
-    m = sc_metric(p, rr)
+    p, m = sc_frontend(capture, l)
     nd = m.shape[-1]
     span = spec.sym_len
     max_cand = min(4 * max_frames + 16, nd)

@@ -1,15 +1,17 @@
 """Batched RX pipeline: capture-mode and frame-aligned receive.
 
 The counterpart of ofdm_uhd_tpu/pipeline/rx.py. Call stack: sc16 ->
-complex64 -> AGC -> S&C detection -> frame extraction -> fractional +
-integer CFO -> CP strip + FFT -> chanest -> EQ -> phase track -> LLR demap
--> deinterleave -> Viterbi -> descramble -> CRC.
+complex64 -> [decimation to baseband] -> AGC -> S&C detection -> frame
+extraction -> fractional + integer CFO -> CP strip + FFT -> chanest -> EQ
+-> phase track -> LLR demap -> deinterleave -> Viterbi -> descramble ->
+CRC.
 
 The reference vmapped the chain over captures; here the capture axis C
 is written out and every kernel takes it, so one call processes [C, n]
 captures with C * max_frames frame slots. Kernels are chosen by the
-input's device (kernels/policy.py): on CUDA the four hand kernels
-(localize, extract, FFT, Viterbi) run, on the CPU their plain versions.
+input's device (kernels/policy.py): on CUDA the hand kernels (decimation
+FIR, S&C front end, localize, extract, FFT, Viterbi) run, on the CPU
+their plain versions.
 The decoder takes every batch through the whole-sequence Viterbi.
 """
 
@@ -18,11 +20,13 @@ from __future__ import annotations
 import torch
 
 from ..core.spec import WaveformSpec, CRC_BITS, TAIL_BITS
+from ..kernels import fir as KF
 from ..phy import agc as PA
 from ..phy import bits as PB
 from ..phy import frame as PF
 from ..phy import qam as PQ
 from ..phy import sync as PS
+from ..phy import tables as T
 
 
 class RxPipeline:
@@ -32,18 +36,17 @@ class RxPipeline:
 
     def __init__(self, spec: WaveformSpec, shift: int = 0,
                  sync_threshold: float = 0.5, diag: bool = True):
-        if spec.resample_l != 1 or spec.resample_m != 1:
-            raise NotImplementedError(
-                "resampled waveforms need the polyphase FIR kernels, which "
-                "are not ported yet")
+        KF.check_filter_precision(spec)
         self.spec = spec
         self.shift = shift
         self.sync_threshold = sync_threshold
         self.diag = diag
 
     def rx_aligned(self, frames: torch.Tensor) -> dict:
-        """frames [B, frame_len] complex64 -> result dict (all [B, ...])."""
-        return _demod_frames(self.spec, frames, self.shift, self.diag)
+        """frames [B, frame_len_radio] complex64 -> result dict (all
+        [B, ...]); resampled waveforms are brought to baseband first."""
+        return _demod_frames(self.spec, _to_baseband(self.spec, frames),
+                             self.shift, self.diag)
 
     def rx_capture(self, capture: torch.Tensor, max_frames: int) -> dict:
         """capture [n] or [C, n] complex64 -> result dict with
@@ -60,6 +63,31 @@ class RxPipeline:
         [2, C, n] (real/imag planes, full scale 32767), converted to
         complex64 on the input's device."""
         return self.rx_capture(_sc16_to_complex(iq), max_frames)
+
+
+def _to_baseband(spec: WaveformSpec, x: torch.Tensor) -> torch.Tensor:
+    """Radio rate -> baseband along the last axis (inverse of the TX
+    resampling): interpolate by M, then decimate by L."""
+    l, m = spec.resample_l, spec.resample_m
+    if l == 1 and m == 1:
+        return x
+    taps = T.resample_filter(l, m)
+    if m > 1:
+        x = KF.polyphase_interp(x, m, taps)
+    if l > 1:
+        x = KF.polyphase_decim(x, l, taps)
+    return x
+
+
+def _capture_to_baseband(spec: WaveformSpec, capture: torch.Tensor
+                         ) -> torch.Tensor:
+    """Radio-rate captures [C, n] -> baseband [C, ceil(n / L)]: zero-padded
+    to a multiple of L first, so that n // L keeps the tail."""
+    pad = (-capture.shape[-1]) % spec.resample_l
+    if pad:
+        capture = torch.cat(
+            [capture, capture.new_zeros(capture.shape[:-1] + (pad,))], -1)
+    return _to_baseband(spec, capture)
 
 
 def _sc16_to_complex(iq: torch.Tensor) -> torch.Tensor:
@@ -131,7 +159,7 @@ def _rx_capture(spec: WaveformSpec, threshold: float, diag: bool,
     """capture [C, n] complex64 -> dict of [C, max_frames, ...] leaves
     (and det_sat [C] when diag)."""
     caps = capture.shape[0]
-    capture, _ = PA.agc_normalize(capture)
+    capture, _ = PA.agc_normalize(_capture_to_baseband(spec, capture))
     ds, eps_f, valid, det_sat = PS.detect_frames(spec, capture, max_frames,
                                                  threshold=threshold)
     frames = PS.extract_frames(spec, capture, ds)            # [C, mf, fl]

@@ -1,9 +1,11 @@
 """Batched TX pipeline: scramble -> FEC -> interleave -> QAM -> frame
-build -> IFFT + CP. The counterpart of ofdm_uhd_tpu/pipeline/tx.py.
+build -> IFFT + CP -> polyphase resampling to the radio rate. The
+counterpart of ofdm_uhd_tpu/pipeline/tx.py.
 
 In the port the TX is a data generator for tests and the chip smoke run:
 it runs on whatever device its input lies on, through the same kernel
-dispatch as the RX (the IFFT is the FFT kernel's inverse on CUDA).
+dispatch as the RX (the IFFT is the FFT kernel's inverse on CUDA, the
+interpolation the interp kernel).
 """
 
 from __future__ import annotations
@@ -11,31 +13,41 @@ from __future__ import annotations
 import torch
 
 from ..core.spec import WaveformSpec, TAIL_BITS
+from ..kernels import fir as KF
 from ..phy import bits as PB
 from ..phy import frame as PF
 from ..phy import qam as PQ
+from ..phy import tables as T
 
 
 class TxPipeline:
-    """payloads [B, payload_bits_per_frame] -> frames [B, frame_len]."""
+    """payloads [B, payload_bits_per_frame] -> frames
+    [B, frame_len_radio]."""
 
     def __init__(self, spec: WaveformSpec):
-        if spec.resample_l != 1 or spec.resample_m != 1:
-            raise NotImplementedError(
-                "resampled waveforms need the polyphase FIR kernels, which "
-                "are not ported yet")
+        KF.check_filter_precision(spec)
         self.spec = spec
 
     def encode(self, payloads: torch.Tensor) -> torch.Tensor:
         """payloads -> interleaved coded bits [B, coded_bits_per_frame]."""
         return _encode(self.spec, payloads)
 
-    def __call__(self, payloads: torch.Tensor) -> torch.Tensor:
+    def baseband(self, payloads: torch.Tensor) -> torch.Tensor:
+        """payloads -> frames [B, frame_len] before any resampling."""
         spec = self.spec
         syms = PQ.qam_map(_encode(spec, payloads), spec.modulation)
         grid = PF.build_grid(spec, syms.reshape(-1, spec.n_data_syms,
                                                 spec.n_data_sc))
         return PF.ofdm_modulate(spec, grid)
+
+    def __call__(self, payloads: torch.Tensor) -> torch.Tensor:
+        frames = self.baseband(payloads)
+        l, m = self.spec.resample_l, self.spec.resample_m
+        if l > 1:
+            frames = KF.polyphase_interp(frames, l, T.resample_filter(l, m))
+        if m > 1:
+            frames = KF.polyphase_decim(frames, m, T.resample_filter(l, m))
+        return frames
 
 
 def _encode(spec: WaveformSpec, payloads: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from ofdm_uhd_tpu_torch.core.spec import config
-from ofdm_uhd_tpu_torch.kernels import extract, fft, localize, policy, viterbi
+from ofdm_uhd_tpu_torch.kernels import (extract, fft, fir, localize, policy,
+                                        scfront, viterbi)
+from ofdm_uhd_tpu_torch.phy.tables import resample_filter
 
 pytestmark = pytest.mark.cuda
 
@@ -27,6 +29,9 @@ def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
+C3_PATH = ("scfront", "localize", "extract", "fft", "viterbi")
+
+
 def _coded_llrs(bsz, n, snr_db, dev, seed):
     from ofdm_uhd_tpu_torch.phy import bits
     g = torch.Generator().manual_seed(seed)
@@ -38,7 +43,8 @@ def _coded_llrs(bsz, n, snr_db, dev, seed):
     return (2 * y / sigma**2).to(dev), info
 
 
-@pytest.mark.parametrize("bsz,n", [(1, 7), (5, 100), (37, 6912)])
+@pytest.mark.parametrize("bsz,n", [(1, 7), (5, 100), (37, 6912),
+                                   (4, 18432)])
 def test_viterbi_kernel_exact(dev, bsz, n):
     llr, info = _coded_llrs(bsz, n, 5.0, dev, seed=n)
     policy.reset_launches()
@@ -102,6 +108,11 @@ def test_wrappers_reject_bad_input(dev):
                                            device=dev),
                                torch.zeros((1, 2), dtype=torch.int64,
                                            device=dev), 10)
+    with pytest.raises(ValueError):
+        fir.fir_filter(torch.zeros((2, 100), device=dev), [0.5, 0.5])
+    with pytest.raises(ValueError):
+        scfront.sc_frontend(torch.zeros((2, 1000), dtype=torch.complex64,
+                                        device=dev), 100)
 
 
 def test_slice_on_card_matches_cpu(dev):
@@ -116,10 +127,109 @@ def test_slice_on_card_matches_cpu(dev):
     policy.reset_launches()
     gpu = rx.rx_capture_sc16(iq.to(dev), max_frames=5)
     torch.cuda.synchronize()
-    assert all(v > 0 for v in policy.launches().values())
+    launched = policy.launches()
+    assert all(launched[k] > 0 for k in C3_PATH), launched
+    assert launched["fir"] == launched["interp"] == 0
     for k in ("crc_ok", "valid", "d", "det_sat"):
         assert torch.equal(gpu[k].cpu(), cpu[k]), k
     assert torch.equal(gpu["payload"].cpu()[cpu["valid"]],
                        cpu["payload"][cpu["valid"]])
+    assert np.array_equal(gpu["payload"][:, :3].cpu().numpy(), pays)
+    assert (gpu["eps"].cpu() - cpu["eps"]).abs().max() <= 1e-4
+
+
+def _within(got, ref, rel=1e-5):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    err = float((got - ref).abs().max())
+    assert err <= rel * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("stride", [1, 2, 8])
+@pytest.mark.parametrize("ntaps", [3, 193])
+def test_fir_strided_kernel_close(dev, stride, ntaps):
+    taps = resample_filter(8, 1) if ntaps == 193 else [0.25, 0.5, 0.25]
+    # ragged rows: n_in not a multiple of the stride or the 256-output tile
+    x = torch.randn((3, 20011), dtype=torch.complex64, generator=_gen(ntaps),
+                    device=dev)
+    policy.reset_launches()
+    if stride == 1:
+        got, ref = fir.fir_filter(x, taps), fir.decim_plain(x, 1, taps)
+    else:
+        got = fir.polyphase_decim(x, stride, taps)
+        ref = fir.decim_plain(x, stride, taps)
+    assert policy.launches()["fir"] == 1
+    _within(got, ref)
+    one = fir.polyphase_decim(x[1:2].contiguous(), stride, taps)
+    assert torch.equal(one[0], got[1])           # rows do not leak
+
+
+@pytest.mark.parametrize("l", [2, 8])
+def test_interp_kernel_close(dev, l):
+    taps = resample_filter(l, 1)
+    x = torch.randn((2, 5003), dtype=torch.complex64, generator=_gen(l),
+                    device=dev)
+    policy.reset_launches()
+    got = fir.polyphase_interp(x, l, taps)
+    assert policy.launches()["interp"] == 1
+    _within(got, fir.interp_plain(x, l, taps))
+    one = fir.polyphase_interp(x[1:2].contiguous(), l, taps)
+    assert torch.equal(one[0], got[1])
+
+
+@pytest.mark.parametrize("l", [32, 128, 512])
+def test_scfront_kernel_close(dev, l):
+    x = torch.randn((3, 50000), dtype=torch.complex64, generator=_gen(l),
+                    device=dev)
+    x[1, 10000:30000] = 0                        # idle stretch: M = 0
+    policy.reset_launches()
+    p, m = scfront.sc_frontend(x, l)
+    assert policy.launches()["scfront"] == 1
+    p0, m0 = scfront.sc_frontend_plain(x, l)
+    assert (m - m0).abs().max() <= 1e-5
+    _within(p, p0)
+    assert bool((m[1, 10000:30000 - 2 * l + 1] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["c1", "c3", "c4"])
+def test_detect_frames_kernel_route_exact(dev, name):
+    """detect_frames through the hand kernels equals its plain_versions()
+    run (l = 32, 128 and 512)."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture
+    from ofdm_uhd_tpu_torch.phy import agc, sync
+    from ofdm_uhd_tpu_torch.pipeline import rx as rxp
+    spec = config(name)
+    if name == "c4":
+        spec = spec.with_(n_data_syms=2)
+    cfo = 0.8 / spec.resample_l
+    caps = np.stack([build_capture(spec, 4, 300, seed=s, cfo=cfo)[0]
+                     for s in range(2)])
+    cap = torch.from_numpy(caps).to(dev)
+    cap = agc.agc_normalize(rxp._capture_to_baseband(spec, cap))[0]
+    got = sync.detect_frames(spec, cap, 6)
+    with policy.plain_versions():
+        want = sync.detect_frames(spec, cap, 6)
+    for k in (0, 2, 3):                          # d, valid, det_sat
+        assert torch.equal(got[k], want[k]), k
+    assert (got[1] - want[1]).abs().max() <= 1e-6   # eps
+    assert int(got[2].sum()) == 8
+
+
+def test_c4_slice_on_card_matches_cpu(dev):
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline
+    spec = config("c4").with_(n_data_syms=2)
+    built = [build_capture(spec, 3, 300, seed=s, cfo=0.1,
+                           phase_noise_std=0.0) for s in range(2)]
+    caps = torch.from_numpy(np.stack([c for c, _ in built]))
+    pays = np.stack([p for _, p in built])
+    rx = RxPipeline(spec)
+    cpu = rx.rx_capture(caps, max_frames=5)
+    policy.reset_launches()
+    gpu = rx.rx_capture(caps.to(dev), max_frames=5)
+    torch.cuda.synchronize()
+    launched = policy.launches()
+    assert all(launched[k] > 0 for k in C3_PATH + ("fir",)), launched
+    for k in ("crc_ok", "valid", "d", "det_sat"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
     assert np.array_equal(gpu["payload"][:, :3].cpu().numpy(), pays)
     assert (gpu["eps"].cpu() - cpu["eps"]).abs().max() <= 1e-4
