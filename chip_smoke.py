@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths through their user entry points, in phases;
+Drives the port's three paths through their user entry points, in phases;
 each prints its findings on a line of its own:
 
   C3, the capture-mode RX chain `RxPipeline(config("c3")).rx_capture_sc16(
@@ -10,27 +10,39 @@ each prints its findings on a line of its own:
       32 frames on the card (the reference's C4 row: gap 300, timing offset
       100, SNR 28 dB, CFO 0.8 / 8 at the radio rate, no phase noise, fc32)
       and `RxPipeline(config("c4")).rx_capture(capture, max_frames)`
-      decimates by 8 and decodes them.
+      decimates by 8 and decodes them;
+  C5, the stream: `StreamRx(config("c5").with_(kernel_backend="auto"))` on
+      the reference bench's capture (4096 frames from the port's TxPipeline
+      on the card, gap 300, SNR 28 dB, CFO 0.8, timing offset 100, seed 0)
+      at its two operating points: resident fc32 (chunk 4,128,768, K = 4,
+      the K-step chunk stacks staged on the card, `process_device`) and
+      host-fed sc16 (chunk 129,024, K = 16, `process` + `flush` from host
+      memory); both decode through the windowed Viterbi kernel (512/96 and
+      256/64). Then the TRACK retry's burst case at full width.
 
   1. device:  a CUDA card must be present; prints the card's name and
               power limit as nvidia-smi reports them;
-  2. build:   builds the seven hand kernels from ofdm_uhd_tpu_torch/kernels/
-              csrc (one nvcc per source, sm_90a, started together) into
+  2. build:   builds the hand kernels from ofdm_uhd_tpu_torch/kernels/csrc
+              (one nvcc per source, sm_90a, started together) into
               build/ofdm_uhd_tpu_torch/;
-  then for C3 and for C4 in turn:
-  3. input:   C4 only: the captures, built by the port's TxPipeline (its
+  then for C3, C4 and C5 in turn:
+  3. input:   C4 and C5: the captures, built by the port's TxPipeline (C4's
               interpolation is the interp kernel);
-  4. stages:  runs the chain's steps one at a time on the whole batch and
+  4. stages:  runs the chain's steps one at a time on the whole batch (C5:
+              on the first step's window of each operating point) and
               times each (CUDA events, median of 5);
   5. kernels: holds each kernel against its plain PyTorch version on the
               card, on the inputs those steps gave it, and times both
-              (CUDA events, median of 5);
+              (CUDA events, median of 5); C5 also holds the windowed
+              Viterbi at both geometries and times the whole-sequence
+              kernel on the same LLRs;
   6. slice:   decodes every frame, which must match the sent payloads bit
               for bit, with the launch count of every kernel of the path
               > 0 over that run; times the chain with the kernels and with
               the plain versions forced, requires the plain run's frame
-              starts `d` and `valid` to equal the kernel run's, and reads
-              the card's busy share over one dispatch (torch.profiler).
+              starts (C3, C4: `d` and `valid`; C5: starts and payloads) to
+              equal the kernel run's, and reads the card's busy share
+              (torch.profiler).
 
 Then it prints one JSON line with the per-kernel results and, last, the
 line {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -49,7 +61,11 @@ import time
 N_CAPS, GAP = 8, 300
 C3_FRAMES = 1024
 C4_FRAMES = 32
+C5_FRAMES, C5_OFFSET = 4096, 100
+C5_RESIDENT = (4_128_768, 4)     # (chunk, steps per dispatch), fc32
+C5_HOSTFED = (129_024, 16)       # sc16
 REPS = 5
+REPS_STREAM = 2
 REL_TOL = 1e-5          # FIR / FFT / S&C P: max error within 1e-5 * max|y|
 M_TOL = 1e-5            # S&C metric M: absolute (M lies in [0, ~1])
 
@@ -62,6 +78,8 @@ KERNEL_INFO = {
             "ofdm_uhd_tpu/kernels/pallas_fft.py:185"),
     "viterbi": ("ofdm_uhd_tpu_torch/kernels/csrc/viterbi.cu",
                 "ofdm_uhd_tpu/kernels/pallas_viterbi.py:324"),
+    "viterbi_windowed": ("ofdm_uhd_tpu_torch/kernels/csrc/viterbi.cu",
+                         "ofdm_uhd_tpu/kernels/pallas_viterbi.py:285"),
     "fir": ("ofdm_uhd_tpu_torch/kernels/csrc/fir.cu",
             "ofdm_uhd_tpu/kernels/pallas_fir_mxu.py:154"),
     "interp": ("ofdm_uhd_tpu_torch/kernels/csrc/fir.cu",
@@ -72,6 +90,7 @@ KERNEL_INFO = {
 # the kernels each path's RX launches (C4's interp runs in its TX)
 C3_PATH = ("scfront", "localize", "extract", "fft", "viterbi")
 C4_PATH = ("fir",) + C3_PATH
+C5_PATH = ("scfront", "localize", "extract", "fft", "viterbi_windowed")
 
 
 class SmokeFailure(Exception):
@@ -182,7 +201,7 @@ def phase_stages(torch, spec, label, x, max_frames) -> tuple[dict, dict]:
     batch: each step's device time (CUDA events, median of 5, so steps do
     not overlap) and each kernel's inputs as the main path produces them.
     x: sc16 planes [2, C, n] (C3) or fc32 radio-rate captures [C, n] (C4)."""
-    from ofdm_uhd_tpu_torch.kernels import scfront
+    from ofdm_uhd_tpu_torch.kernels import policy, scfront, viterbi
     from ofdm_uhd_tpu_torch.kernels.localize import localize
     from ofdm_uhd_tpu_torch.phy import agc, bits, frame, sync
     from ofdm_uhd_tpu_torch.pipeline import rx
@@ -198,6 +217,8 @@ def phase_stages(torch, spec, label, x, max_frames) -> tuple[dict, dict]:
     if x.dtype == torch.int16:
         cap = step("sc16+agc", lambda: agc.agc_normalize(
             rx._sc16_to_complex(x))[0])
+    elif (spec.resample_l, spec.resample_m) == (1, 1):
+        cap = step("agc", lambda: agc.agc_normalize(x)[0])
     else:
         dec = step("decim", lambda: rx._capture_to_baseband(spec, x))
         cap = step("agc", lambda: agc.agc_normalize(dec)[0])
@@ -237,7 +258,11 @@ def phase_stages(torch, spec, label, x, max_frames) -> tuple[dict, dict]:
     llr = step("llr+evm", lambda: rx._demap(spec, data, h))[0]
     llr_d = step("deinterleave", lambda: bits.deinterleave_soft(
         llr, spec.coded_bits_per_sym).contiguous())
-    dec_bits = step("viterbi", lambda: bits.viterbi_decode(llr_d))
+    # the spec's Viterbi algorithm at this decode batch (C3, C4: scan)
+    algorithm = policy.viterbi_impl(llr_d.shape[-1] // 2, llr_d.shape[0],
+                                    spec.kernel_backend, spec.viterbi_mode)
+    dec_bits = step(f"viterbi ({algorithm})", lambda: viterbi.decode(
+        llr_d, algorithm, spec.viterbi_impl))
 
     def crc():
         body = bits.descramble(dec_bits[:, : dec_bits.shape[-1] - 6])
@@ -515,27 +540,312 @@ def run_c4(torch, config, device) -> dict:
             "tx_launches": tx_launches}
 
 
-def kernel_entry(name, c3, c4) -> dict:
+def make_input_c5(torch, spec, device):
+    """The reference bench's stream capture: 4096 frames from the port's
+    TxPipeline on the card, gap 300, SNR 28 dB, CFO 0.8, timing offset
+    100, no phase noise, seed 0 (payloads and noise); fc32 [n] and its sc16
+    planes [2, n] scaled by 32767 / max."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16
+    t0 = time.perf_counter()
+    cap, pays = build_capture(spec, C5_FRAMES, GAP, seed=0, snr_db=28.0,
+                              cfo=0.8, phase_noise_std=0.0,
+                              timing_offset=C5_OFFSET, device=device)
+    iq = to_sc16(cap[None])[:, 0]
+    log(f"c5 input: {cap.shape[0]} samples, {C5_FRAMES} frames, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cap, pays, iq
+
+
+def first_window(torch, spec, x, chunk, device):
+    """The first stream step's processing window, before its AGC: the
+    initial zero tail, then the first chunk ([1, H + chunk] complex64, or
+    [2, 1, H + chunk] int16 planes for sc16)."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.core.state import StreamState
+    h = StreamState.halo_len(spec)
+    if x.dtype == np.int16:
+        w = np.concatenate([np.zeros((2, h), np.int16), x[:, :chunk]], 1)
+        return torch.from_numpy(w[:, None]).to(device)
+    w = np.concatenate([np.zeros(h, np.complex64), x[:chunk]])
+    return torch.from_numpy(w[None]).to(device)
+
+
+def check_stream(label, frames, pays, spec, chunk) -> list:
+    """Every sent frame decoded once with its CRC passing, bit-exact, in
+    order, its start within the CP of the sent start. The only other slots
+    allowed are the reference's boundary duplicates (tests/test_torch_
+    stream.py): a frame starting a few samples before a processing window
+    is detected again at the window's first sample, start = k*chunk - H.
+    Returns those duplicates."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.core.state import StreamState
+    h = StreamState.halo_len(spec)
+    dups = [f for i, f in enumerate(frames)
+            if i and (f.start + h) % chunk == 0
+            and f.start - frames[i - 1].start <= spec.cp]
+    kept = [f for f in frames if all(f is not d for d in dups)]
+    n = pays.shape[0]
+    check(len(kept) == n, f"{label}: {len(kept)} frames (and {len(dups)} "
+          f"boundary duplicates), sent {n}")
+    starts = np.array([f.start for f in kept])
+    true = C5_OFFSET + np.arange(n) * (spec.frame_len + GAP)
+    check(bool(np.all(np.diff(starts) > 0)), f"{label}: frames out of order")
+    err = int(np.abs(starts - true).max())
+    check(err <= spec.cp, f"{label}: a start is {err} samples off")
+    check(all(f.crc_ok for f in kept), f"{label}: a frame failed its CRC")
+    bad = sum(not np.array_equal(f.payload, p) for f, p in zip(kept, pays))
+    check(bad == 0, f"{label}: {bad} payloads differ from the sent ones")
+    return dups
+
+
+def same_frames(label, a, b) -> None:
+    import numpy as np
+    check([f.start for f in a] == [f.start for f in b]
+          and all(np.array_equal(x.payload, y.payload) for x, y in zip(a, b)),
+          f"{label}: the plain-forced run's starts or payloads differ")
+
+
+def phase_stream_run(torch, spec, label, make_rx, feed, run, pays,
+                     samples, dispatches) -> dict:
+    """One operating point of the stream: the main-path run (checked, its
+    launches counted), `REPS_STREAM` timed runs on a second, perturbed
+    feed, a plain-forced run that must give the same frames, and the busy
+    share over one run. run(rx, feed) -> frames; feed = (first, second);
+    samples and dispatches: radio samples and K-step dispatches per run."""
+    from ofdm_uhd_tpu_torch.kernels import policy
+    rx = make_rx()
+    torch.cuda.synchronize()
+    policy.reset_launches()
+    t0 = time.perf_counter()
+    frames = run(rx, feed[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = policy.launches()
+    for k in C5_PATH:
+        check(launches[k] > 0, f"{label}: the main path never launched the "
+              f"{k} kernel")
+    dups = check_stream(label, frames, pays, spec, rx.chunk_len)
+    st = rx.state
+    n_ok = pays.shape[0] + sum(d.crc_ok for d in dups)
+    check(int(st.frames) == pays.shape[0] + len(dups)
+          and int(st.crc_ok) == n_ok,
+          f"{label}: state counts {int(st.frames)} frames, "
+          f"{int(st.crc_ok)} crc_ok")
+
+    walls, devs = [], []
+    for _ in range(REPS_STREAM):
+        rx_t = make_rx()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        got = run(rx_t, feed[1])
+        end.record()
+        end.synchronize()
+        walls.append(time.perf_counter() - t0)
+        devs.append(start.elapsed_time(end) / 1e3)
+        check(sum(f.crc_ok for f in got) >= pays.shape[0],
+              f"{label}: a timed run lost frames")
+    wall = statistics.median(walls)
+    rx_p = make_rx()
+    t0 = time.perf_counter()
+    with policy.plain_versions():
+        plain = run(rx_p, feed[0])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same_frames(label, frames, plain)
+    busy = device_busy_share(torch, lambda: run(make_rx(), feed[0]))
+    res = {"frames_ok": pays.shape[0],
+           "boundary_duplicates": [(d.start, d.crc_ok) for d in dups],
+           "dispatches": dispatches,
+           "steps": rx._steps, "ms_per_dispatch": wall * 1e3 / dispatches,
+           "ms_per_step": wall * 1e3 / rx._steps,
+           "msps": samples / wall / 1e6, "run_s": walls,
+           "device_s": devs, "first_run_s": first_s,
+           "plain_run_s": plain_s, "plain_msps": samples / plain_s / 1e6,
+           "launches": launches, "profile": busy}
+    share = busy["busy_share"]
+    log(f"{label}: ok  {pays.shape[0]}/{pays.shape[0]} frames crc_ok, "
+        f"bit-exact, in order, and {len(dups)} boundary duplicates "
+        f"(start, crc_ok) {res['boundary_duplicates']}; state frames "
+        f"{int(st.frames)}, crc_ok {int(st.crc_ok)}; "
+        f"{res['ms_per_dispatch']:.2f} ms/dispatch over {dispatches} "
+        f"dispatches ({rx._steps} steps, {res['ms_per_step']:.3f} ms/step), "
+        f"{res['msps']:.1f} "
+        f"Msamples/s (runs {', '.join(f'{w:.3f}' for w in walls)} s, "
+        f"device {', '.join(f'{d:.3f}' for d in devs)} s); plain-forced "
+        f"{plain_s:.2f} s, same starts and payloads; busy share " + (
+            "not measured" if share is None else
+            f"{share:.3f} of {busy['traced_wall_ms']:.1f} ms") +
+        f"; launches {launches}")
+    return res
+
+
+def phase_track_c5(torch, config, device) -> dict:
+    """The TRACK retry at full C5 width on the card: a noise burst over
+    the last frame's channel-estimation symbol (the burst case of
+    tests/property/test_fault_injection.py) fails its first decode; the
+    retry with the tracked channel and CFO rescues it."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.channel import make_capture
+    from ofdm_uhd_tpu_torch.core.spec import ChannelSpec
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx, TxPipeline
+    spec = config("c5").with_(sfo_track=True)
+    n_fr, gap, offset = 10, 500, 700
+    rng = np.random.default_rng(7)
+    pays = rng.integers(0, 2, (n_fr, spec.payload_bits_per_frame)).astype(
+        np.uint8)
+    frames = TxPipeline(spec)(torch.from_numpy(pays).to(device)).cpu()
+    ch = ChannelSpec(snr_db=24.0, cfo=0.7, phase_noise_std=1e-4,
+                     multipath_taps=(1.0, 0.0, 0.25j, 0.1),
+                     timing_offset=offset)
+    cap = make_capture(frames.numpy(), ch, spec.n_sc, gap=gap,
+                       seed=7).astype(np.complex64)
+    s = offset + (n_fr - 1) * (spec.frame_len + gap) + spec.sym_len
+    rms = float(np.sqrt(np.mean(np.abs(cap) ** 2)))
+    cap[s:s + spec.sym_len] += (4.0 * rms * (
+        rng.standard_normal(spec.sym_len)
+        + 1j * rng.standard_normal(spec.sym_len))).astype(np.complex64)
+    chunk = 4 * 2 * (spec.frame_len + spec.n_sc)
+    ok = {}
+    for track in (False, True):
+        rx = StreamRx(spec, chunk_len=chunk, track_mode=track, device=device)
+        got = rx.process(cap) + rx.flush()
+        ok[track] = sum(g.crc_ok for g in got)
+    rescued = [g for g in got if abs(g.start - (s - spec.sym_len)) <= spec.cp]
+    check(ok[False] == n_fr - 1 and ok[True] == n_fr and rx.rescued >= 1
+          and len(rescued) == 1 and rescued[0].crc_ok
+          and np.array_equal(rescued[0].payload, pays[n_fr - 1]),
+          f"c5 track: {ok[False]} frames without the retry, {ok[True]} with "
+          f"it, {rx.rescued} rescued")
+    log(f"c5 track: ok  burst frame lost without the retry ({ok[False]}/"
+        f"{n_fr}), rescued with it ({ok[True]}/{n_fr}, rescued "
+        f"{rx.rescued}), payload equal to the sent one")
+    return {"frames_ok_without": ok[False], "frames_ok_with": ok[True],
+            "rescued": rx.rescued}
+
+
+def phase_kernels_c5(torch, spec, llr_res, llr_host) -> dict:
+    """K4w against its plain version on the LLRs of the stream's first
+    step at both operating points (every bit of every slot, the empty
+    ones included), and K4 timed on the same LLRs."""
+    from ofdm_uhd_tpu_torch.kernels import viterbi
+
+    def vit_close(k, p):
+        bad = int((k != p).sum())
+        return bad == 0, float(bad)
+    res = {}
+    for key, llr, geometry in (("512", llr_res, viterbi.XLA_WINDOW),
+                               ("256", llr_host, viterbi.FUSED_WINDOW)):
+        res[f"viterbi_windowed_{key}"] = held(
+            torch, f"viterbi_windowed {geometry}",
+            lambda: viterbi._viterbi_windowed_cuda(llr, *geometry),
+            lambda: viterbi.viterbi_windowed_plain(llr, *geometry),
+            vit_close, llr.shape)
+        res[f"viterbi_windowed_{key}"]["k4_ms"] = cuda_ms(
+            torch, lambda: viterbi._viterbi_cuda(llr))
+    for k, v in res.items():
+        log(f"c5 kernels: {k} ok  {v['shape']}  kernel {v['ms']:.3f} ms  "
+            f"plain {v['plain_ms']:.3f} ms  K4 on the same LLRs "
+            f"{v['k4_ms']:.3f} ms  bits differing {v['max_abs_err']:.0f}")
+    return res
+
+
+def run_c5(torch, config, device) -> dict:
+    """C5, the stream, at its two operating points: resident fc32 (chunk
+    4,128,768, K = 4, chunk stacks staged on the card) and host-fed sc16
+    (chunk 129,024, K = 16, through process + flush)."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    spec = config("c5").with_(kernel_backend="auto")
+    cap, pays, iq = make_input_c5(torch, spec, device)
+
+    # stages and kernels on the first step's window of each point
+    mf_res = C5_RESIDENT[0] // spec.frame_len + 2
+    mf_host = C5_HOSTFED[0] // spec.frame_len + 2
+    ins, stages_res = phase_stages(
+        torch, spec, "c5 resident", first_window(torch, spec, cap,
+                                                 C5_RESIDENT[0], device),
+        mf_res)
+    kernels = phase_kernels(torch, spec, "c5", ins)
+    llr_res = ins["llr"]
+    del ins
+    ins, stages_host = phase_stages(
+        torch, spec, "c5 host-fed", first_window(torch, spec, iq,
+                                                 C5_HOSTFED[0], device),
+        mf_host)
+    kernels.update(phase_kernels_c5(torch, spec, llr_res, ins["llr"]))
+    del ins, llr_res
+
+    # resident fc32: the padded capture as K-step stacks on the card
+    chunk, k = C5_RESIDENT
+    per = chunk * k
+    n_disp = -(-cap.shape[0] // per)
+    padded = np.zeros(n_disp * per, np.complex64)
+    padded[:cap.shape[0]] = cap
+    stacks = [[torch.from_numpy(padded[d * per:(d + 1) * per].reshape(
+        k, chunk)).to(device) * torch.tensor(1 + 1e-6 * v, device=device)
+        for d in range(n_disp)] for v in range(2)]
+    resident = phase_stream_run(
+        torch, spec, "c5 resident fc32",
+        lambda: StreamRx(spec, chunk_len=chunk, steps_per_dispatch=k,
+                         device=device),
+        stacks, lambda rx, st: rx.process_device(st), pays, n_disp * per,
+        n_disp)
+    del stacks
+
+    # host-fed sc16 from host memory, padded to whole K-step dispatches
+    chunk, k = C5_HOSTFED
+    per = chunk * k
+    feed = np.zeros((2, -(-iq.shape[1] // per) * per), np.int16)
+    feed[:, :iq.shape[1]] = iq
+    hostfed = phase_stream_run(
+        torch, spec, "c5 host-fed sc16",
+        lambda: StreamRx(spec, chunk_len=chunk, steps_per_dispatch=k,
+                         input_format="sc16", device=device),
+        (feed, feed ^ 1), lambda rx, f: rx.process(f) + rx.flush(), pays,
+        feed.shape[1] + chunk, feed.shape[1] // per + 1)   # + the flush
+    track = phase_track_c5(torch, config, device)
+    return {"stages_ms": {"resident": stages_res, "hostfed": stages_host},
+            "kernels": kernels, "resident": resident, "hostfed": hostfed,
+            "track": track,
+            "launches": {n: resident["launches"][n] + hostfed["launches"][n]
+                         for n in resident["launches"]}}
+
+
+def path_launches(c3, c4, c5) -> dict:
+    """Launches per kernel of every counted main-path run."""
+    return {"c3": c3["slice"]["launches"], "c4": c4["slice"]["launches"],
+            "c4_tx": c4["tx_launches"], "c5": c5["launches"]}
+
+
+def held_kernel(key: str) -> str:
+    """The kernel a check's key names ('fir_stride1' -> 'fir',
+    'viterbi_windowed_256' -> 'viterbi_windowed')."""
+    return max((n for n in KERNEL_INFO
+                if key == n or key.startswith(n + "_")), key=len)
+
+
+def kernel_entry(name, paths, by_path) -> dict:
     """One kernel's entry of the kernels line. Each kernel was held against
-    its plain version on every path that runs it (fir also at stride 1):
-    max_abs_err is the worst over those checks, `paths` gives each
-    check's numbers, and ms / plain_ms are those of the larger main-path
-    shape (C3's, for the kernels both paths run). launches sums the
-    counted runs (the C3 and C4 slices, and C4's TX input build), and
+    its plain version on every path that runs it (fir also at stride 1,
+    viterbi_windowed at both C5 geometries): max_abs_err is the worst over
+    those checks, `paths` gives each check's numbers, and ms / plain_ms are
+    those of the first path's check (C3's for the kernels C3 runs, C5
+    resident's for viterbi_windowed). launches sums the counted main-path
+    runs (C3, C4, C4's TX input build, C5's two operating points), and
     launches_by_path splits them."""
     src, rep = KERNEL_INFO[name]
-    held_on = {p + k[len(name):]: v for p, r in (("c3", c3), ("c4", c4))
-               for k, v in r["kernels"].items()
-               if k == name or k.startswith(name + "_")}
+    held_on = {p + k[len(name):]: v for p, r in paths.items()
+               for k, v in r["kernels"].items() if held_kernel(k) == name}
     first = next(iter(held_on.values()))
-    by_path = {"c3": c3["slice"]["launches"][name],
-               "c4": c4["slice"]["launches"][name],
-               "c4_tx": c4["tx_launches"][name]}
+    counts = {p: c[name] for p, c in by_path.items()}
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": sum(by_path.values()),
+            "launches": sum(counts.values()),
             "max_abs_err": max(v["max_abs_err"] for v in held_on.values()),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
-            "launches_by_path": by_path,
+            "launches_by_path": counts,
             "paths": {p: {k: v[k] for k in ("shape", "max_abs_err", "ms",
                                              "plain_ms")}
                       for p, v in held_on.items()}}
@@ -559,14 +869,18 @@ def main() -> int:
         build_info = phase_build()
         c3 = run_c3(torch, config, device)
         c4 = run_c4(torch, config, device)
+        c5 = run_c5(torch, config, device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    line = {"kernels": [kernel_entry(k, c3, c4) for k in KERNEL_INFO]}
+    paths = {"c3": c3, "c4": c4, "c5": c5}
+    by_path = path_launches(c3, c4, c5)
+    line = {"kernels": [kernel_entry(k, paths, by_path)
+                        for k in KERNEL_INFO]}
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"device": dev_info, "build": build_info, "c3": c3,
-                       "c4": c4}, f, indent=1)
+            json.dump({"device": dev_info, "build": build_info, **paths},
+                      f, indent=1)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_info["kind"],

@@ -3,9 +3,10 @@
 A NumPy-only copy of `ofdm_uhd_tpu/core/spec.py`: the port cannot import
 the JAX package (its `__init__` imports jax), so it carries its own copy,
 held field-for-field equal to the original by tests/test_torch_tables.py.
-`kernel_backend`, `viterbi_mode`, `viterbi_impl` and `filter_precision`
-are kept so a reference spec converts losslessly (convert.py); the port
-ignores them when it routes — the tensor's device picks the kernel.
+Every field converts losslessly from a reference spec (convert.py).
+`kernel_backend`, `viterbi_mode` and `viterbi_impl` choose the Viterbi
+algorithm as in the reference (kernels/policy.py:viterbi_impl); no field
+picks a kernel tier, which the tensor's device decides.
 
 Conventions
 -----------
@@ -79,8 +80,8 @@ class WaveformSpec:
                                    # within the 96-step overlap)
     viterbi_impl: str = "shuffle"  # Pallas kernel layout: 'shuffle' (states
                                    # on sublanes, bit-packed decisions) |
-                                   # 'mm' (one-hot-matmul fallback); kept for
-                                   # conversion, unused by the port
+                                   # 'mm' (one-hot-matmul fallback); sets the
+                                   # whole-sequence gate of the 'fused' decode
     filter_precision: str = "exact"  # MXU filter-tier accuracy gate:
                                    # 'exact' (HIGHEST, f32-exact — default,
                                    # required by bit-level gates) | 'bf16'

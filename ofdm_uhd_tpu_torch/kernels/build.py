@@ -35,6 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # llr, dec, bits, batch, n, stream
     "ofdm_viterbi": [_P, _P, _P, _I, _I, _P],
+    # llr, bits, batch, n, windows, l, ov, e, stream
+    "ofdm_viterbi_windowed": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, y, twiddles, rows, log2n, inverse, stream
     "ofdm_fft": [_P, _P, _P, _I, _I, _I, _P],
     # m, p, cand, d, eps, caps, nd, mf, span, cp_half, rel, stream

@@ -15,6 +15,16 @@
 OFDM_API int ofdm_viterbi(const float* llr, uint32_t* dec, uint8_t* bits,
                           int batch, int n, void* stream);
 
+// Rate-1/2 K=7 Viterbi in sliding windows: llr [batch, 2n] f32 -> bits
+// [batch, n] u8. Window wi of a row decodes steps [start, start + e),
+// start = clip(wi*l - ov, 0, n - e), wi < windows = ceil(n / l), and
+// writes its owned bits [wi*l, wi*l + l) ∩ [0, n); windows = 1, l = e = n
+// is the whole sequence. Decisions stay in shared memory (4 * e * 8 bytes
+// a block, at most 227 KB).
+OFDM_API int ofdm_viterbi_windowed(const float* llr, uint8_t* bits,
+                                   int batch, int n, int windows, int l,
+                                   int ov, int e, void* stream);
+
 // Orthonormal radix-2 FFT/IFFT along rows: x, y [rows, 2^log2n] complex64
 // (float2), twiddles [2^log2n / 2] = exp(-2 pi i k / 2^log2n).
 OFDM_API int ofdm_fft(const float2* x, float2* y, const float2* twiddles,

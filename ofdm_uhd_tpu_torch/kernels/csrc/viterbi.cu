@@ -1,31 +1,43 @@
-// Soft-input Viterbi decoder, rate 1/2, K=7 (polys 0o133 / 0o171), whole
-// sequence: the trellis starts and ends in state 0.
+// Soft-input Viterbi decoders, rate 1/2, K=7 (polys 0o133 / 0o171):
+//   ofdm_viterbi           (K4)  whole sequence, pinned to state 0 at both ends;
+//   ofdm_viterbi_windowed  (K4w) sliding windows with overlap.
 //
-// Replaces: ofdm_uhd_tpu/kernels/pallas_viterbi.py:viterbi_pallas
-// (_vit_kernel_shuffle / _vit_kernel via _run_windows) in whole-sequence
-// mode, and is bit-exact with the scan of phy/bits.py:viterbi_decode.
+// Replaces: ofdm_uhd_tpu/kernels/pallas_viterbi.py:viterbi_pallas (K4:
+// _run_windows with one window, first = tail = 1) and
+// :viterbi_pallas_windowed (K4w, and the same construction as
+// phy/bits.py:viterbi_decode_windowed at other window sizes). K4 is
+// bit-exact with the scan of phy/bits.py:viterbi_decode, K4w with both
+// windowed decoders.
 //
-// Bound on this card: the 64-state add-compare-select is a chain of n
-// dependent steps per sequence, so the decoder is latency-bound, not
-// bandwidth-bound (decisions are 8 bytes per step: 454 MB written and read
-// once at 8208 x 6912). Design: ONE WARP PER SEQUENCE. Lane l holds the
+// Bound on this card: the 64-state add-compare-select is a chain of
+// dependent steps, so a decode is latency-bound, not bandwidth-bound.
+// Design: ONE WARP PER SEQUENCE (K4) or PER WINDOW (K4w). Lane l holds the
 // path metrics of states l and l+32 in registers; both states share the
-// predecessors 2l and 2l+1, which four warp shuffles bring in. No shared
-// memory and no block barrier sit in the step loop, and a block's four
-// warps decode four independent sequences, so the SM's schedulers hide
-// one warp's step latency behind the others (every sequence of the C3
-// batch is resident at once: 64 warps per SM x 132 SMs > 8208).
+// predecessors 2l and 2l+1, which four warp shuffles bring in (`Acs`). No
+// shared memory and no block barrier sit in the step loop, and a block's
+// four warps decode four independent rows, so the SM's schedulers hide
+// one warp's step latency behind the others.
 //   * LLRs: each lane loads one (a, b) pair per 32-step chunk, coalesced;
-//     step j takes them by shuffle from lane j.
+//     step j takes them by shuffle from lane j (`forward`).
 //   * Decisions: __ballot_sync packs the 64 choices of a step into two
 //     words (states 0-31, 32-63); lane j keeps step j's pair and the warp
-//     stores the chunk's 32 pairs in one coalesced 256-byte write.
+//     stores the chunk's 32 pairs in one coalesced 256-byte write. K4
+//     writes them to device memory (8 bytes a step: a whole C3 trellis
+//     does not fit on chip); K4w keeps its window's e x 8 bytes in shared
+//     memory (3 KB at 256/64, 5.6 KB at 512/96) and writes nothing to
+//     device memory but its owned bits.
 //   * Traceback reads a chunk of 32 pairs per load the same way and walks
-//     it by shuffles; every lane tracks the same state.
+//     it by shuffles; every lane tracks the same state (`traceback`).
+// Why windows: at the stream's 34 slots of 4608 steps, K4 runs 34 warps
+// through 4608 dependent steps each, while K4w runs 34 x 18 warps of 384.
 // Numerics: the ACS of phy/bits.py exactly (no 0.5 factor; bm0 = sa0*la +
 // sb0*lb; c0 = pm_even + bm0; c1 = pm_odd - bm0; strict c1 > c0, so a tie
 // keeps predecessor 0), with __fadd_rn / __fsub_rn / __fmul_rn so no
-// multiply-add is contracted.
+// multiply-add is contracted. K4w's window boundary conditions are the
+// reference's: the window that starts at step 0 is pinned to state 0, the
+// others start uniform (all metrics 0); the window that ends at step n
+// adds -1e30 to every nonzero state's final metric; each traces back from
+// the first state that reaches the maximum (argmax's tie-break).
 #include "ofdm_kernels.h"
 
 namespace {
@@ -34,10 +46,130 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPolyA = 0133;
 constexpr int kPolyB = 0171;
 constexpr int kWarpsPerBlock = 4;
+constexpr float kNeg = -1e30f;
+constexpr size_t kDefaultSmem = 48 * 1024;     // without the opt-in
+constexpr size_t kMaxSmem = 232448;            // 227 KB, the opt-in limit
 
 __device__ __forceinline__ float branch_sign(int window, int poly) {
     // +1 for code bit 0, -1 for code bit 1
     return (__popc(window & poly) & 1) ? -1.0f : 1.0f;
+}
+
+// One lane's share of the 64-state trellis: states lane and lane+32.
+struct Acs {
+    float sa_lo, sb_lo, sa_hi, sb_hi;
+    int src_even, src_odd;
+    bool from_hi;
+
+    __device__ explicit Acs(int lane) {
+        // branch signs for the p=0 predecessor of state lane (input bit 0)
+        // and state lane+32 (input bit 1); the p=1 branch is their negation
+        const int w_lo = lane << 1, w_hi = 64 | (lane << 1);
+        sa_lo = branch_sign(w_lo, kPolyA);
+        sb_lo = branch_sign(w_lo, kPolyB);
+        sa_hi = branch_sign(w_hi, kPolyA);
+        sb_hi = branch_sign(w_hi, kPolyB);
+        // predecessors of both owned states: 2*lane (even) and 2*lane+1
+        // (odd), held by lane (2*lane)&31 in its lo (lane < 16) or hi
+        // register
+        src_even = (lane << 1) & 31;
+        src_odd = src_even | 1;
+        from_hi = lane >= 16;
+    }
+
+    // one add-compare-select step of the whole warp; returns the 64
+    // choices as two ballot words (bit l: state l, resp. l + 32)
+    __device__ __forceinline__ uint2 step(float la, float lb, float& pm_lo,
+                                          float& pm_hi) const {
+        const float e_lo = __shfl_sync(kFull, pm_lo, src_even);
+        const float e_hi = __shfl_sync(kFull, pm_hi, src_even);
+        const float o_lo = __shfl_sync(kFull, pm_lo, src_odd);
+        const float o_hi = __shfl_sync(kFull, pm_hi, src_odd);
+        const float pe = from_hi ? e_hi : e_lo;
+        const float po = from_hi ? o_hi : o_lo;
+
+        const float bm_lo = __fadd_rn(__fmul_rn(sa_lo, la),
+                                      __fmul_rn(sb_lo, lb));
+        const float c0_lo = __fadd_rn(pe, bm_lo);
+        const float c1_lo = __fsub_rn(po, bm_lo);
+        const bool ch_lo = c1_lo > c0_lo;
+        pm_lo = ch_lo ? c1_lo : c0_lo;
+
+        const float bm_hi = __fadd_rn(__fmul_rn(sa_hi, la),
+                                      __fmul_rn(sb_hi, lb));
+        const float c0_hi = __fadd_rn(pe, bm_hi);
+        const float c1_hi = __fsub_rn(po, bm_hi);
+        const bool ch_hi = c1_hi > c0_hi;
+        pm_hi = ch_hi ? c1_hi : c0_hi;
+
+        return make_uint2(__ballot_sync(kFull, ch_lo),
+                          __ballot_sync(kFull, ch_hi));
+    }
+};
+
+// Forward ACS over n steps of ab (a/b pairs) from the lane's metrics;
+// step t's decision words go to dec[t], stored by lane t % 32.
+__device__ __forceinline__ void forward(const float2* __restrict__ ab,
+                                        uint2* dec, int n, int lane,
+                                        float& pm_lo, float& pm_hi) {
+    const Acs acs(lane);
+    for (int t0 = 0; t0 < n; t0 += 32) {
+        const int t = t0 + lane;
+        const float2 mine = t < n ? ab[t] : make_float2(0.0f, 0.0f);
+        const int steps = min(32, n - t0);
+        uint2 keep = make_uint2(0u, 0u);
+        for (int j = 0; j < steps; ++j) {
+            const float la = __shfl_sync(kFull, mine.x, j);
+            const float lb = __shfl_sync(kFull, mine.y, j);
+            const uint2 w = acs.step(la, lb, pm_lo, pm_hi);
+            if (lane == j) keep = w;
+        }
+        if (t < n) dec[t] = keep;
+    }
+}
+
+// Traceback over dec[0, n) from `state`, the state after step n-1; lane
+// t % 32 receives step t's bit through emit(t, bit). Each lane rereads
+// only the decisions it stored itself in `forward`, so program order
+// makes them visible.
+template <class Emit>
+__device__ __forceinline__ void traceback(const uint2* dec, int n, int state,
+                                          int lane, Emit emit) {
+    for (int t0 = ((n - 1) >> 5) << 5; t0 >= 0; t0 -= 32) {
+        const int t = t0 + lane;
+        const uint2 mine = t < n ? dec[t] : make_uint2(0u, 0u);
+        const int steps = min(32, n - t0);
+        uint8_t bit_out = 0;
+        for (int j = steps - 1; j >= 0; --j) {
+            const unsigned w0 = __shfl_sync(kFull, mine.x, j);
+            const unsigned w1 = __shfl_sync(kFull, mine.y, j);
+            if (lane == j) bit_out = static_cast<uint8_t>((state >> 5) & 1);
+            const unsigned word = state >= 32 ? w1 : w0;
+            state = ((state & 31) << 1) | ((word >> (state & 31)) & 1u);
+        }
+        if (t < n) emit(t, bit_out);
+    }
+}
+
+// The first of the 64 states whose metric reaches the maximum, on every
+// lane (max, then the lowest index among the states equal to it).
+__device__ __forceinline__ int first_max_state(float pm_lo, float pm_hi,
+                                               int lane) {
+    float v = pm_lo;
+    int s = lane;
+    if (pm_hi > v) {
+        v = pm_hi;
+        s = lane + 32;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+        const float v2 = __shfl_xor_sync(kFull, v, off);
+        const int s2 = __shfl_xor_sync(kFull, s, off);
+        if (v2 > v || (v2 == v && s2 < s)) {
+            v = v2;
+            s = s2;
+        }
+    }
+    return s;
 }
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -51,76 +183,50 @@ viterbi_k7_kernel(const float* __restrict__ llr, uint2* __restrict__ dec,
     uint2* dseq = dec + static_cast<size_t>(seq) * n;
     uint8_t* bseq = bits + static_cast<size_t>(seq) * n;
 
-    // branch signs for the p=0 predecessor of state lane (input bit 0)
-    // and state lane+32 (input bit 1); the p=1 branch is their negation
-    const int w_lo = lane << 1, w_hi = 64 | (lane << 1);
-    const float sa_lo = branch_sign(w_lo, kPolyA);
-    const float sb_lo = branch_sign(w_lo, kPolyB);
-    const float sa_hi = branch_sign(w_hi, kPolyA);
-    const float sb_hi = branch_sign(w_hi, kPolyB);
+    float pm_lo = lane == 0 ? 0.0f : kNeg;
+    float pm_hi = kNeg;
+    forward(ab, dseq, n, lane, pm_lo, pm_hi);
+    // tail-terminated: trace back from state 0
+    traceback(dseq, n, 0, lane, [&](int t, uint8_t b) { bseq[t] = b; });
+}
 
-    // predecessors of both owned states: 2*lane (even) and 2*lane+1 (odd),
-    // held by lane (2*lane)&31 in its lo (lane < 16) or hi register
-    const int src_even = (lane << 1) & 31;
-    const int src_odd = src_even | 1;
-    const bool from_hi = lane >= 16;
+// One warp per window: window wi of row b covers steps [start, start + e),
+// start = clip(wi*l - ov, 0, n - e), and owns [wi*l, wi*l + l) ∩ [0, n).
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+viterbi_k7_windowed_kernel(const float* __restrict__ llr,
+                           uint8_t* __restrict__ bits, int batch, int n,
+                           int windows, int l, int ov, int e) {
+    extern __shared__ uint2 dec_smem[];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const long long gw =
+        static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp;
+    if (gw >= static_cast<long long>(batch) * windows) return;
+    const int b = static_cast<int>(gw / windows);
+    const int wi = static_cast<int>(gw % windows);
+    const int start = min(max(wi * l - ov, 0), n - e);
+    const bool first = start == 0;
+    const bool tail = start + e == n;
+    const float2* ab = reinterpret_cast<const float2*>(llr) +
+                       static_cast<size_t>(b) * n + start;
+    uint2* dec = dec_smem + static_cast<size_t>(warp) * e;
 
-    float pm_lo = lane == 0 ? 0.0f : -1e30f;
-    float pm_hi = -1e30f;
-
-    for (int t0 = 0; t0 < n; t0 += 32) {
-        const int t = t0 + lane;
-        const float2 mine = t < n ? ab[t] : make_float2(0.0f, 0.0f);
-        const int steps = min(32, n - t0);
-        uint2 keep = make_uint2(0u, 0u);
-        for (int j = 0; j < steps; ++j) {
-            const float la = __shfl_sync(kFull, mine.x, j);
-            const float lb = __shfl_sync(kFull, mine.y, j);
-            const float e_lo = __shfl_sync(kFull, pm_lo, src_even);
-            const float e_hi = __shfl_sync(kFull, pm_hi, src_even);
-            const float o_lo = __shfl_sync(kFull, pm_lo, src_odd);
-            const float o_hi = __shfl_sync(kFull, pm_hi, src_odd);
-            const float pe = from_hi ? e_hi : e_lo;
-            const float po = from_hi ? o_hi : o_lo;
-
-            const float bm_lo = __fadd_rn(__fmul_rn(sa_lo, la),
-                                          __fmul_rn(sb_lo, lb));
-            const float c0_lo = __fadd_rn(pe, bm_lo);
-            const float c1_lo = __fsub_rn(po, bm_lo);
-            const bool ch_lo = c1_lo > c0_lo;
-            pm_lo = ch_lo ? c1_lo : c0_lo;
-
-            const float bm_hi = __fadd_rn(__fmul_rn(sa_hi, la),
-                                          __fmul_rn(sb_hi, lb));
-            const float c0_hi = __fadd_rn(pe, bm_hi);
-            const float c1_hi = __fsub_rn(po, bm_hi);
-            const bool ch_hi = c1_hi > c0_hi;
-            pm_hi = ch_hi ? c1_hi : c0_hi;
-
-            const unsigned w0 = __ballot_sync(kFull, ch_lo);
-            const unsigned w1 = __ballot_sync(kFull, ch_hi);
-            if (lane == j) keep = make_uint2(w0, w1);
-        }
-        if (t < n) dseq[t] = keep;
+    // first window pinned to state 0; interior windows uniform
+    float pm_lo = first && lane != 0 ? kNeg : 0.0f;
+    float pm_hi = first ? kNeg : 0.0f;
+    forward(ab, dec, e, lane, pm_lo, pm_hi);
+    if (tail) {                     // terminated in state 0
+        if (lane != 0) pm_lo = __fadd_rn(pm_lo, kNeg);
+        pm_hi = __fadd_rn(pm_hi, kNeg);
     }
+    const int entry = first_max_state(pm_lo, pm_hi, lane);
 
-    // traceback from state 0 (tail-terminated); each lane rereads only
-    // what it wrote itself, so program order makes the decisions visible
-    int state = 0;
-    for (int t0 = ((n - 1) >> 5) << 5; t0 >= 0; t0 -= 32) {
-        const int t = t0 + lane;
-        const uint2 mine = t < n ? dseq[t] : make_uint2(0u, 0u);
-        const int steps = min(32, n - t0);
-        uint8_t bit_out = 0;
-        for (int j = steps - 1; j >= 0; --j) {
-            const unsigned w0 = __shfl_sync(kFull, mine.x, j);
-            const unsigned w1 = __shfl_sync(kFull, mine.y, j);
-            if (lane == j) bit_out = static_cast<uint8_t>((state >> 5) & 1);
-            const unsigned word = state >= 32 ? w1 : w0;
-            state = ((state & 31) << 1) | ((word >> (state & 31)) & 1u);
-        }
-        if (t < n) bseq[t] = bit_out;
-    }
+    const int own_lo = wi * l - start;               // window offsets
+    const int own_hi = min(own_lo + l, n - start);
+    uint8_t* brow = bits + static_cast<size_t>(b) * n + start;
+    traceback(dec, e, entry, lane, [&](int t, uint8_t bit) {
+        if (t >= own_lo && t < own_hi) brow[t] = bit;
+    });
 }
 
 }  // namespace
@@ -132,5 +238,31 @@ OFDM_API int ofdm_viterbi(const float* llr, uint32_t* dec, uint8_t* bits,
     viterbi_k7_kernel<<<blocks, kWarpsPerBlock * 32, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         llr, reinterpret_cast<uint2*>(dec), bits, batch, n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+OFDM_API int ofdm_viterbi_windowed(const float* llr, uint8_t* bits,
+                                   int batch, int n, int windows, int l,
+                                   int ov, int e, void* stream) {
+    if (batch <= 0 || n <= 0) return 0;
+    if (windows <= 0 || l <= 0 || ov < 0 || e <= 0 || e > n ||
+        static_cast<long long>(windows - 1) * l >= n)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = static_cast<size_t>(kWarpsPerBlock) * e *
+                        sizeof(uint2);
+    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > kDefaultSmem) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            viterbi_k7_windowed_kernel,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const long long rows = static_cast<long long>(batch) * windows;
+    const int blocks =
+        static_cast<int>((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    viterbi_k7_windowed_kernel<<<blocks, kWarpsPerBlock * 32, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        llr, bits, batch, n, windows, l, ov, e);
     return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,13 @@ Replaces ofdm_uhd_tpu/kernels/pallas_fir_mxu.py (fir_mxu_pallas and
 polyphase_decim_mxu_pallas through _fir_rows_mxu, and
 polyphase_interp_mxu_pallas); CUDA source csrc/fir.cu. The public
 functions mirror ofdm_uhd_tpu/kernels/fir.py (fir_filter, polyphase_interp,
-polyphase_decim); the plain versions are the counterparts of
-ofdm_uhd_tpu/kernels/conv_backend.py (fir_same, polyphase_interp_xla,
-polyphase_decim_xla): a 1-D correlation over the (re, im) float32 planes.
+polyphase_decim) and the stream's decimations of conv_backend.py
+(polyphase_decim_stream, rational_decim_stream); the plain versions are the
+counterparts of ofdm_uhd_tpu/kernels/conv_backend.py (fir_same,
+polyphase_interp_xla, polyphase_decim_xla and the two stream forms): a 1-D
+correlation over the (re, im) float32 planes. The stream's valid-mode
+decimation runs on the strided kernel with no left padding; its rational
+form (M > 1, an XLA convolution in the reference) stays plain.
 
 Coefficients are bit-equal to the reference's: fir and decimation take the
 taps as float32, reversed (correlation weights); interpolation takes the
@@ -101,6 +105,15 @@ def decim_plain(x: torch.Tensor, m: int, taps) -> torch.Tensor:
     return _merge(out[:, 0, :n_out], x, n_out)
 
 
+def decim_stream_plain(w: torch.Tensor, m: int, taps) -> torch.Tensor:
+    """Valid-mode M-fold decimation: y[k] = sum_j taps[j] *
+    w[k*m + nt-1 - j], (n_in - nt) // m + 1 outputs."""
+    _, wt, _ = _corr_weights(taps)
+    n_out = _valid_outputs(w.shape[-1], len(wt), m)
+    out = _correlate_planes(w, wt[None], 0, 0, stride=m)
+    return _merge(out[:, 0, :n_out], w, n_out)
+
+
 def interp_plain(x: torch.Tensor, l: int, taps) -> torch.Tensor:
     g, d_min, d_max = branch_matrix(taps, l)
     n = x.shape[-1]
@@ -122,16 +135,28 @@ def _rows(x: torch.Tensor, kernel: str) -> torch.Tensor:
     return flat
 
 
-def _strided_cuda(x: torch.Tensor, taps, stride: int) -> torch.Tensor:
+def _valid_outputs(n_in: int, nt: int, m: int) -> int:
+    if n_in < nt:
+        raise ValueError(f"valid-mode FIR: {n_in} samples < {nt} taps")
+    return (n_in - nt) // m + 1
+
+
+def _strided_cuda(x: torch.Tensor, taps, stride: int, valid: bool = False
+                  ) -> torch.Tensor:
     """The 'same' FIR of every row at stride `stride`: [..., n_in] ->
-    [..., n_in // stride] (stride 1: fir_filter; stride M: decimation)."""
+    [..., n_in // stride] (stride 1: fir_filter; stride M: decimation);
+    valid=True: no padding, (n_in - nt) // stride + 1 outputs (the
+    stream's decimation)."""
     flat = _rows(x, "fir")
     key, w, pad_l = _corr_weights(taps)
     if stride < 1 or len(w) < 1:
         raise ValueError(f"fir: need stride >= 1 and taps, got {stride}, "
                          f"{len(w)}")
     rows, n_in = flat.shape
-    n_out = n_in // stride
+    if valid:
+        pad_l, n_out = 0, _valid_outputs(n_in, len(w), stride)
+    else:
+        n_out = n_in // stride
     y = torch.empty((rows, n_out), dtype=torch.complex64, device=x.device)
     wt = T.on_device(_reversed_taps, (key,), None, x.device)
     lib = build.library()
@@ -195,3 +220,53 @@ def polyphase_decim(x: torch.Tensor, m: int, taps) -> torch.Tensor:
     if policy.use_kernel(x):
         return _strided_cuda(x, taps, m)
     return decim_plain(x, m, taps)
+
+
+def polyphase_decim_stream(w: torch.Tensor, m: int, taps) -> torch.Tensor:
+    """Causal streaming M-fold decimation, valid mode: w [..., C*m + nt-1]
+    (the nt-1 carried radio samples, then the chunk) -> [..., C], the
+    continuously filtered stream delayed by nt-1 radio samples."""
+    if policy.use_kernel(w):
+        return _strided_cuda(w, taps, m, valid=True)
+    return decim_stream_plain(w, m, taps)
+
+
+@functools.lru_cache(maxsize=32)
+def _rational_kernels(taps_key: tuple, l: int, m: int
+                      ) -> tuple[np.ndarray, int]:
+    """Per-output-phase kernels [m, K] of the causal rational resampler,
+    as conv_backend._rational_kernels builds them: out_k[j] = sum_t
+    kern[k, t] * w[j*l + t] for output n = j*m + k."""
+    h = np.asarray(taps_key, dtype=np.float64) * m
+    nt = len(h)
+    s0, gs = [], []
+    for k in range(m):
+        p = (k * l + nt - 1) % m
+        gs.append(h[np.arange(p, nt, m)])           # G_k[d] = h[p + d*m]
+        s0.append((k * l + nt - 1 - p) // m)
+    kk = max(s0) + 1
+    kern = np.zeros((m, kk), dtype=np.float32)
+    for k in range(m):
+        t = s0[k] - np.arange(len(gs[k]))
+        ok = t >= 0
+        kern[k, t[ok]] = gs[k][ok]
+    return kern, kk
+
+
+def rational_decim_stream(w: torch.Tensor, l: int, m: int, taps
+                          ) -> torch.Tensor:
+    """Causal streaming rational resample by M/L (radio -> baseband): w
+    [..., C_r + nt-1] -> [..., C_r * m / l], C_r * m divisible by l. At
+    m == 1 it is polyphase_decim_stream; m > 1 is a plain convolution on
+    every device (an XLA convolution in the reference, not a kernel)."""
+    if m == 1:
+        return polyphase_decim_stream(w, l, taps)
+    key = _f64_key(taps)
+    c_r = w.shape[-1] - (len(key) - 1)
+    if (c_r * m) % l:
+        raise ValueError("radio chunk * M must be a multiple of L")
+    c_b = c_r * m // l
+    kern, kk = _rational_kernels(key, l, m)
+    out = _correlate_planes(w, kern, 0, kk, stride=l)[:, :, : c_b // m]
+    inter = out.transpose(1, 2).reshape(out.shape[0], c_b)
+    return _merge(inter, w, c_b)

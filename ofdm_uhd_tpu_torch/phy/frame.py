@@ -117,7 +117,7 @@ def equalize(spec: WaveformSpec, grid_rx: torch.Tensor, h_occ: torch.Tensor,
     ('zf' or 'mmse' per spec.eq_mode)."""
     y = grid_rx[:, 2:, _idx(spec, "occupied_bins", grid_rx.device)]
     h = h_occ[:, None, :]
-    reg = torch.tensor(eps, dtype=torch.float32, device=grid_rx.device)
+    reg = T.f32_scalar(eps, grid_rx.device)
     if spec.eq_mode == "mmse":
         reg = estimate_noise(spec, grid_rx)[:, None, None] + reg
     return y * torch.conj(h) / (h.abs() ** 2 + reg)

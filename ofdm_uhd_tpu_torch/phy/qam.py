@@ -9,6 +9,8 @@ index, which gives the same minima as the reference's masked reductions.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -30,8 +32,8 @@ def qam_map(bits: torch.Tensor, mod: str) -> torch.Tensor:
     """bits [..., n*bits_per_qam] -> complex64 symbols [..., n]."""
     t = T.qam_tables(mod)
     nb = int(t["nb"])
-    scale = torch.tensor(np.float32(np.max(np.abs(t["axis_lut"]))
-                                    / ((1 << nb) - 1)), device=bits.device)
+    scale = T.f32_scalar(float(np.float32(np.max(np.abs(t["axis_lut"]))
+                                          / ((1 << nb) - 1))), bits.device)
     b = bits.reshape(bits.shape[:-1] + (-1, MOD_BITS[mod]))
     re = _gray_amplitude(b[..., :nb], nb) * scale
     if mod == "bpsk":
@@ -40,13 +42,20 @@ def qam_map(bits: torch.Tensor, mod: str) -> torch.Tensor:
     return torch.complex(re, im)
 
 
-def _axis_llr(x: torch.Tensor, lut: torch.Tensor, levels0: list,
-              levels1: list) -> torch.Tensor:
+@functools.lru_cache(maxsize=8)
+def _levels(mod: str) -> tuple[np.ndarray, np.ndarray]:
+    """Per axis bit i, the levels whose bit i is 0 and 1 -> ([nb, L/2],
+    [nb, L/2]) level indices (Gray-coded PAM: half the levels each)."""
+    bol = T.qam_tables(mod)["bit_of_level"]                   # [L, nb]
+    return tuple(np.stack([np.nonzero(bol[:, i] == v)[0]
+                           for i in range(bol.shape[1])]) for v in (0, 1))
+
+
+def _axis_llr(x: torch.Tensor, lut: torch.Tensor, lv0: torch.Tensor,
+              lv1: torch.Tensor) -> torch.Tensor:
     """x [...] real -> [..., nb] max-log LLRs for one I/Q axis."""
     d2 = (x[..., None] - lut) ** 2                            # [..., L]
-    out = [d2[..., l1].amin(-1) - d2[..., l0].amin(-1)
-           for l0, l1 in zip(levels0, levels1)]
-    return torch.stack(out, dim=-1)
+    return d2[..., lv1].amin(-1) - d2[..., lv0].amin(-1)
 
 
 def qam_demap_llr(syms: torch.Tensor, mod: str,
@@ -55,16 +64,15 @@ def qam_demap_llr(syms: torch.Tensor, mod: str,
 
     `csi` [..., n] scales per-symbol reliability (|H|^2 after one-tap EQ).
     """
-    t = T.qam_tables(mod)
-    lut = T.on_device(T.qam_tables, (mod,), "axis_lut", syms.device)
-    bol = t["bit_of_level"]                                   # [L, nb]
-    levels0 = [np.nonzero(bol[:, i] == 0)[0].tolist() for i in range(bol.shape[1])]
-    levels1 = [np.nonzero(bol[:, i] == 1)[0].tolist() for i in range(bol.shape[1])]
-    i_llr = _axis_llr(syms.real.float(), lut, levels0, levels1)
+    dev = syms.device
+    lut = T.on_device(T.qam_tables, (mod,), "axis_lut", dev)
+    lv0 = T.on_device(_levels, (mod,), 0, dev)
+    lv1 = T.on_device(_levels, (mod,), 1, dev)
+    i_llr = _axis_llr(syms.real.float(), lut, lv0, lv1)
     if mod == "bpsk":
         out = i_llr
     else:
-        q_llr = _axis_llr(syms.imag.float(), lut, levels0, levels1)
+        q_llr = _axis_llr(syms.imag.float(), lut, lv0, lv1)
         out = torch.cat([i_llr, q_llr], dim=-1)               # [..., n, bpq]
     if csi is not None:
         out = out * csi[..., None].float()

@@ -63,7 +63,7 @@ def detect_frames(spec: WaveformSpec, capture: torch.Tensor, max_frames: int,
 
 def _rising_edges(m: torch.Tensor, threshold: float) -> torch.Tensor:
     """[C, nd] metric -> bool [C, nd]: where M crosses up to >= threshold."""
-    above = m >= torch.tensor(threshold, dtype=torch.float32, device=m.device)
+    above = m >= T.f32_scalar(threshold, m.device)
     rise = above.clone()
     rise[:, 1:] &= ~above[:, :-1]
     return rise
@@ -168,8 +168,7 @@ def cfo_correct(frames: torch.Tensor, eps: torch.Tensor, n_sc: int
     """frames [..., n] * exp(-j 2 pi eps n / n_sc), eps [...] per frame."""
     n = torch.arange(frames.shape[-1], dtype=torch.float32,
                      device=frames.device)
-    two_pi = torch.tensor(2.0 * np.pi, dtype=torch.float32,
-                          device=frames.device)
+    two_pi = T.f32_scalar(2.0 * np.pi, frames.device)
     phase = two_pi * eps[..., None] * n / n_sc
     return frames * torch.polar(torch.ones_like(phase), -phase)
 
@@ -187,13 +186,14 @@ def integer_cfo(spec: WaveformSpec, frames: torch.Tensor, search: int = 4
                 ) -> torch.Tensor:
     """Integer CFO per frame [...] (float32) from preamble sym B by the
     differential correlation over +-search bin shifts."""
-    bins, shifts = _int_cfo_tables(spec, search)
     dev = frames.device
+    bins = T.on_device(_int_cfo_tables, (spec, search), 0, dev)
+    shifts = T.on_device(_int_cfo_tables, (spec, search), 1, dev)
     start = spec.sym_len + spec.cp
     win = frames[..., start:start + spec.n_sc]
     y = torch.fft.fft(win, norm="ortho").to(torch.complex64)   # not a kernel
-    ys = y[..., torch.from_numpy(bins).to(dev)]               # [..., S, n_occ]
+    ys = y[..., bins]                                         # [..., S, n_occ]
     d = ys * T.on_device(T.frame_tables, (spec,), "sym_b_occ_conj", dev)
     val = (d[..., 1:] * torch.conj(d[..., :-1])).sum(-1).abs()   # [..., S]
     best = torch.argmax(val, dim=-1)
-    return torch.from_numpy(shifts).to(dev)[best]
+    return shifts[best]

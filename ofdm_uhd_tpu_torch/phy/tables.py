@@ -149,6 +149,13 @@ def resample_filter(l: int, m: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=256)
+def f32_scalar(value: float, device: torch.device) -> torch.Tensor:
+    """A cached float32 0-d tensor on `device`, uploaded once: an upload
+    from pageable host memory waits for the device's queue to drain."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=256)
 def on_device(table, args: tuple, key, device: torch.device) -> torch.Tensor:
     """Cached tensor copy of one host table on `device`:
     table(*args) if key is None, else table(*args)[key]."""

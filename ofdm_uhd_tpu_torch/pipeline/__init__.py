@@ -1,4 +1,5 @@
 from .rx import RxPipeline
+from .stream import StreamFrame, StreamRx
 from .tx import TxPipeline
 
-__all__ = ["RxPipeline", "TxPipeline"]
+__all__ = ["RxPipeline", "StreamFrame", "StreamRx", "TxPipeline"]

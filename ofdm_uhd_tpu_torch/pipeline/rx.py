@@ -11,8 +11,8 @@ is written out and every kernel takes it, so one call processes [C, n]
 captures with C * max_frames frame slots. Kernels are chosen by the
 input's device (kernels/policy.py): on CUDA the hand kernels (decimation
 FIR, S&C front end, localize, extract, FFT, Viterbi) run, on the CPU
-their plain versions.
-The decoder takes every batch through the whole-sequence Viterbi.
+their plain versions. The Viterbi algorithm is the reference's choice
+from the spec and the decode batch C * max_frames (kernels/policy.py).
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import torch
 
 from ..core.spec import WaveformSpec, CRC_BITS, TAIL_BITS
 from ..kernels import fir as KF
+from ..kernels import policy
+from ..kernels import viterbi as KV
 from ..phy import agc as PA
 from ..phy import bits as PB
 from ..phy import frame as PF
@@ -93,7 +95,7 @@ def _capture_to_baseband(spec: WaveformSpec, capture: torch.Tensor
 def _sc16_to_complex(iq: torch.Tensor) -> torch.Tensor:
     """int16 planes [2, ...] -> complex64 [...], times the float32
     constant 1/32767 (a multiply, not a divide, as the reference)."""
-    scale = torch.tensor(1.0 / 32767.0, dtype=torch.float32, device=iq.device)
+    scale = T.f32_scalar(1.0 / 32767.0, iq.device)
     return torch.complex(iq[0].float() * scale, iq[1].float() * scale)
 
 
@@ -129,13 +131,23 @@ def _frontend(spec: WaveformSpec, frames: torch.Tensor, shift: int) -> dict:
     return _grid_demod(spec, grid, h)
 
 
-def _decode(spec: WaveformSpec, llr: torch.Tensor
+def _decode(spec: WaveformSpec, llr: torch.Tensor,
+            batch_hint: int | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Interleaved coded LLRs [B, coded] -> (payload [B, n], crc_ok [B])."""
+    """Interleaved coded LLRs [B, coded] -> (payload [B, n], crc_ok [B]).
+
+    batch_hint: the decode batch of the whole dispatch when it exceeds B
+    (the reference's vmapped capture batch); the Viterbi algorithm is
+    chosen from the spec at max(B, batch_hint), as the reference chooses.
+    """
     llr_d = PB.deinterleave_soft(llr, spec.coded_bits_per_sym)
     llr_d = PB.depuncture_llr(llr_d, spec.fec_rate,
                               2 * spec.uncoded_bits_per_frame)
-    decoded = PB.viterbi_decode(llr_d.contiguous())
+    algorithm = policy.viterbi_impl(llr_d.shape[-1] // 2,
+                                    max(llr_d.shape[0], batch_hint or 0),
+                                    requested=spec.kernel_backend,
+                                    mode=spec.viterbi_mode)
+    decoded = KV.decode(llr_d, algorithm, spec.viterbi_impl)
     body = PB.descramble(decoded[:, : decoded.shape[-1] - TAIL_BITS])
     payload = body[:, : body.shape[-1] - CRC_BITS]
     crc_rx = body[:, body.shape[-1] - CRC_BITS:]
@@ -151,6 +163,18 @@ def _demod_frames(spec: WaveformSpec, frames: torch.Tensor, shift: int,
     if not diag:
         for k in ("data_syms", "cpe", "h"):
             out.pop(k)
+    return out
+
+
+def _demod_frames_with_h(spec: WaveformSpec, frames: torch.Tensor,
+                         shift: int, h: torch.Tensor) -> dict:
+    """_demod_frames with an external channel estimate h [B, n_occupied]
+    in place of the frames' own preamble estimate (the stream's TRACK
+    retry demodulates with its tracked estimate)."""
+    grid = PF.ofdm_demodulate(spec, frames, shift=shift)
+    out = _grid_demod(spec, grid, h)
+    payload, crc_ok = _decode(spec, out.pop("llr"))
+    out.update({"payload": payload, "crc_ok": crc_ok})
     return out
 
 

@@ -1,0 +1,243 @@
+"""Continuous-stream receiver: the host loop around the stream step.
+
+The counterpart of ofdm_uhd_tpu/pipeline/stream.py on one device. The host
+buffers radio samples and feeds fixed-size chunks; K = steps_per_dispatch
+buffered chunks run as one K-step dispatch (shard/time_parallel.py), the
+rest one at a time, with identical numerics; `process_device` takes chunk
+stacks already on the device. The step returns
+fixed-capacity frame slots, which the host filters to the owned ones and
+orders by start.
+
+Feed: on a CUDA device each dispatch's chunks are staged in pinned host
+memory and uploaded on a side stream while the card computes the previous
+dispatch, and each dispatch is issued before the previous one's outputs
+are read; those outputs are copied to
+pinned host buffers as soon as they are enqueued, and read after their
+event. Host <-> device syncs per dispatch: one per step (the TRACK
+retry's predicate) and one on the outputs' event.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.spec import WaveformSpec
+from ..core.state import StreamState
+from ..kernels import fir as KF
+from ..shard.time_parallel import LATER_SLICE, make_stream_step
+
+
+@dataclasses.dataclass
+class StreamFrame:
+    start: int          # global sample offset of the frame
+    payload: np.ndarray
+    crc_ok: bool
+    eps: float
+    evm_db: float
+
+
+class StreamRx:
+    """Streaming OFDM receiver on one device (`device`, default the CPU).
+
+    The reference's constructor arguments; `mesh` must be None (one
+    device), and pallas_halo, reshard and threshold_mode='cfar' raise
+    NotImplementedError until the multi-GPU slice.
+    """
+
+    def __init__(self, spec: WaveformSpec, mesh=None,
+                 chunk_len: int | None = None,
+                 max_frames_per_shard: int | None = None,
+                 threshold: float = 0.5, threshold_mode: str = "fixed",
+                 pallas_halo: bool = False,
+                 reshard: bool = False, track_mode: bool = True,
+                 agc: bool = True, steps_per_dispatch: int = 8,
+                 input_format: str = "fc32",
+                 device: str | torch.device = "cpu"):
+        if mesh is not None:
+            raise NotImplementedError(f"a device mesh comes with "
+                                      f"{LATER_SLICE}")
+        KF.check_filter_precision(spec)
+        self.spec = spec
+        self.device = torch.device(device)
+        h = StreamState.halo_len(spec)
+        m = spec.resample_m
+        if chunk_len is None:
+            # block rounded up to a multiple of M so the radio chunk
+            # (chunk_len * L / M) is integral and L-aligned
+            chunk_len = -(-max(2 * h, 4 * spec.frame_len) // m) * m
+        if (chunk_len * spec.resample_l) % m:
+            raise ValueError("chunk_len*L must be divisible by M")
+        if steps_per_dispatch < 1:
+            raise ValueError("steps_per_dispatch must be >= 1")
+        self.chunk_len = chunk_len              # baseband samples per step
+        self.radio_chunk = chunk_len * spec.resample_l // m
+        self.steps_per_dispatch = steps_per_dispatch
+        self.input_format = input_format
+        _, self._multi, self.cb, self.h = make_stream_step(
+            spec, chunk_len, max_frames_per_shard,
+            (threshold, threshold_mode),
+            pallas_halo=pallas_halo, reshard=reshard, track_mode=track_mode,
+            agc=agc, input_format=input_format)
+        self.state = StreamState.init(spec, self.device)
+        self.rescued = 0       # frames recovered by the TRACK-mode retry
+        # host remainder: complex64 samples, or int16 IQ planes [2, n]
+        self._buf = (np.zeros(0, dtype=np.complex64)
+                     if input_format == "fc32"
+                     else np.zeros((2, 0), dtype=np.int16))
+        # host mirror of state.steps (unbounded Python int): the global
+        # timebase steps * chunk_len never wraps
+        self._steps = 0
+        self._upload = None    # the side stream of the uploads (CUDA)
+
+    def tracking(self) -> dict:
+        """The tracked channel and CFO state."""
+        h_t = self.state.h_track.cpu().numpy()
+        return {
+            "eps_track": float(self.state.eps_track),
+            "track_wt": float(self.state.track_wt),
+            "h_track_rms": float(np.sqrt(np.mean(np.abs(h_t) ** 2))),
+            "rescued": self.rescued,
+        }
+
+    def _put_chunk(self, chunk: np.ndarray) -> torch.Tensor:
+        """Host chunk(s) -> the device: [radio_chunk] / [2, radio_chunk]
+        for one step, with a leading [K] for a K-step dispatch."""
+        t = torch.from_numpy(np.ascontiguousarray(chunk))
+        if self.device.type != "cuda":
+            return t.to(self.device, copy=True)
+        # staged in pinned memory (a copy from pageable memory would be
+        # synchronous) and uploaded on a side stream, so the copy runs
+        # while the card computes the dispatch before it
+        main = torch.cuda.current_stream(self.device)
+        if self._upload is None:
+            self._upload = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._upload):
+            dev = t.pin_memory().to(self.device, non_blocking=True)
+        main.wait_stream(self._upload)
+        dev.record_stream(main)
+        return dev
+
+    def _start_fetch(self, outs: dict) -> tuple[dict, object]:
+        """Start the outputs' device -> host copies; (host tensors, event
+        to wait on before reading them, or None)."""
+        if self.device.type != "cuda":
+            return outs, None
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in outs.items()}
+        for k, v in outs.items():
+            host[k].copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def process(self, samples: np.ndarray) -> list[StreamFrame]:
+        """Feed samples at the RADIO rate (any length): complex fc32, or
+        int16 IQ planes [2, n] for input_format='sc16'. Returns the frames
+        completed so far, decoded at baseband."""
+        if self.input_format == "sc16":
+            if samples.dtype != np.int16 or samples.ndim != 2:
+                raise ValueError("sc16 stream expects int16 IQ planes [2, n]")
+            self._buf = np.concatenate([self._buf, samples], axis=1)
+        else:
+            self._buf = np.concatenate(
+                [self._buf, np.asarray(samples).astype(np.complex64)])
+        rc = self.radio_chunk
+        n_chunks = self._buf.shape[-1] // rc
+        k = self.steps_per_dispatch
+        stacks, i = [], 0
+        while i < n_chunks:
+            kk = k if n_chunks - i >= k else 1
+            flat = self._buf[..., i * rc:(i + kk) * rc]
+            # [K, rc], or [K, 2, rc] for sc16 planes
+            stacks.append(np.moveaxis(flat.reshape(flat.shape[:-1] + (kk, rc)),
+                                      -2, 0))
+            i += kk
+        self._buf = self._buf[..., n_chunks * rc:]
+        return self._run((self._put_chunk(c) for c in stacks))
+
+    def process_device(self, stacks) -> list[StreamFrame]:
+        """Decode chunk stacks already on the device, in stream order after
+        what was fed before: each [K, radio_chunk] complex64, or [K, 2,
+        radio_chunk] int16 for sc16 (one K-step dispatch each). The host
+        buffer must hold no partial chunk."""
+        if self._buf.shape[-1]:
+            raise ValueError("process_device: the host buffer holds "
+                             f"{self._buf.shape[-1]} samples")
+        return self._run(stacks)
+
+    def _run(self, stacks) -> list[StreamFrame]:
+        """One K-step dispatch per stack; each dispatch is issued before
+        the previous one's outputs are read."""
+        out: list[StreamFrame] = []
+        pending = None
+        for dev in stacks:
+            self.state, outs = self._multi(self.state, dev)
+            base = self._steps * self.chunk_len
+            self._steps += dev.shape[0]
+            if pending is not None:
+                out.extend(self._collect(*pending))
+            pending = (*self._start_fetch(outs), base)
+        if pending is not None:
+            out.extend(self._collect(*pending))
+        return out
+
+    def flush(self) -> list[StreamFrame]:
+        """Zero-pad the remainder (plus one extra chunk so the delayed tail
+        is fully processed) and drain."""
+        if self.input_format == "sc16":
+            pad = (-self._buf.shape[1]) % self.radio_chunk
+            return self.process(
+                np.zeros((2, pad + self.radio_chunk), dtype=np.int16))
+        pad = (-len(self._buf)) % self.radio_chunk
+        return self.process(np.zeros(pad + self.radio_chunk,
+                                     dtype=np.complex64))
+
+    def _collect(self, outs: dict, done, base: int) -> list[StreamFrame]:
+        """The owned slots of one dispatch's outputs [K, mf, ...], ordered
+        by start, as frames on the global timebase."""
+        if done is not None:
+            done.synchronize()
+        meta_i, meta_f, payload = (outs[key].numpy() for key in
+                                   ("meta_i", "meta_f", "payload"))
+        # n_rescued is a per-step broadcast column; read one slot per step
+        self.rescued += int(meta_i[:, 0, 3].sum())
+        owned = meta_i[:, :, 1].astype(bool)
+        if not owned.any():
+            return []
+        bits = np.unpackbits(payload, axis=-1)[
+            ..., :self.spec.payload_bits_per_frame]
+        res = []
+        for kk in range(meta_i.shape[0]):
+            idx = np.nonzero(owned[kk])[0]
+            order = np.argsort(meta_i[kk, idx, 2])
+            b = base + kk * self.chunk_len
+            for i in idx[order]:
+                res.append(StreamFrame(
+                    start=b + int(meta_i[kk, i, 2]),
+                    payload=bits[kk, i],
+                    crc_ok=bool(meta_i[kk, i, 0]),
+                    eps=float(meta_f[kk, i, 0]),
+                    evm_db=float(meta_f[kk, i, 1]),
+                ))
+        return res
+
+    # ---- checkpoint / resume (the reference's .npz layout) ----
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint = StreamState fields + the host-side chunk buffer."""
+        np.savez(path, __buf__=self._buf, __steps__=np.int64(self._steps),
+                 **self.state.to_numpy())
+
+    def load_state(self, path: str) -> None:
+        with np.load(path) as z:
+            missing = [f.name for f in dataclasses.fields(StreamState)
+                       if f.name not in z]
+            if missing:
+                raise ValueError(f"incompatible checkpoint {path!r}: missing "
+                                 f"StreamState fields {missing}")
+            self.state = StreamState.from_numpy(z, self.device)
+            self._buf = z["__buf__"]
+            self._steps = int(z["__steps__"])

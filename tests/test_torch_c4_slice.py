@@ -7,8 +7,10 @@ stays, and the reference builds its O(n^2) CRC matrix for 3034 payload
 bits instead of 18,394. The reference runs `kernel_backend="auto"`, so its
 TX interpolation, frame extraction, localization and (at C * max_frames =
 10) Viterbi are Pallas kernels in interpret mode; its decimation and the
-FFT-1024 are the XLA forms. The captures carry the CFO at the radio rate,
-0.8 / 8 subcarrier spacings, as the reference bench builds them.
+FFT-1024 are the XLA forms. The port decodes with the reference's
+algorithm (windows of 256), so payloads match on every slot. The
+captures carry the CFO at the radio rate, 0.8 / 8 subcarrier spacings,
+as the reference bench builds them.
 """
 
 import dataclasses
@@ -79,8 +81,7 @@ def _same_result(got: dict, want: dict, pays: np.ndarray) -> None:
     np.testing.assert_allclose(got["eps"], want["eps"], atol=1e-5)
     valid = want["valid"]
     assert valid.sum() == N_CAPS * N_FRAMES
-    np.testing.assert_array_equal(got["payload"][valid],
-                                  want["payload"][valid])
+    np.testing.assert_array_equal(got["payload"], want["payload"])
     np.testing.assert_array_equal(got["payload"][:, :N_FRAMES], pays)
     assert got["crc_ok"][:, :N_FRAMES].all()
     np.testing.assert_allclose(got["evm_db"][valid], want["evm_db"][valid],

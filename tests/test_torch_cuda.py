@@ -58,6 +58,43 @@ def test_viterbi_kernel_exact(dev, bsz, n):
     assert torch.equal(viterbi.viterbi(ties), viterbi.viterbi_plain(ties))
 
 
+@pytest.mark.parametrize("geometry", [(256, 64), (512, 96)])
+@pytest.mark.parametrize("bsz,n", [(3, 4608), (5, 2500), (2, 300),
+                                   (4, 704), (34, 4608)])
+def test_viterbi_windowed_kernel_exact(dev, geometry, bsz, n):
+    """K4w against its plain version: C5's trellis, a ragged one, and
+    n <= window + 2*overlap (one whole-sequence window)."""
+    llr, info = _coded_llrs(bsz, n, 5.0, dev, seed=n + bsz)
+    policy.reset_launches()
+    got = viterbi.viterbi_windowed(llr, *geometry)
+    assert policy.launches()["viterbi_windowed"] == 1
+    assert torch.equal(got, viterbi.viterbi_windowed_plain(llr, *geometry))
+    assert torch.equal(got.cpu(), info)
+    for gen in (lambda: torch.randn((bsz, 2 * n), generator=_gen(n),
+                                    device=dev) * 3,
+                lambda: torch.randint(-2, 3, (bsz, 2 * n),
+                                      generator=_gen(n + 1),
+                                      device=dev).float()):
+        x = gen()
+        assert torch.equal(viterbi.viterbi_windowed(x, *geometry),
+                           viterbi.viterbi_windowed_plain(x, *geometry))
+
+
+def test_viterbi_decode_algorithms_on_card(dev):
+    """decode() through each algorithm equals its plain-forced run."""
+    x = torch.randn((6, 2 * 2501), generator=_gen(9), device=dev) * 4
+    for algorithm, layout in (("fused", "shuffle"), ("fused", "mm"),
+                              ("windowed", "shuffle"), ("scan", "shuffle")):
+        got = viterbi.decode(x, algorithm, layout)
+        with policy.plain_versions():
+            want = viterbi.decode(x, algorithm, layout)
+        assert torch.equal(got, want), algorithm
+    short = x[:, :2 * 301].contiguous()          # fused: whole, padded
+    with policy.plain_versions():
+        want = viterbi.viterbi_fused(short)
+    assert torch.equal(viterbi.viterbi_fused(short), want)
+
+
 @pytest.mark.parametrize("n", [64, 256, 1024, 2048])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_fft_kernel_close(dev, n, inverse):
@@ -101,6 +138,9 @@ def test_extract_kernel_exact(dev):
 def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         viterbi.viterbi(torch.zeros((2, 7), device=dev))
+    with pytest.raises(ValueError):
+        viterbi.viterbi_windowed(torch.zeros((2, 700), device=dev,
+                                             dtype=torch.float64), 256, 64)
     with pytest.raises(ValueError):
         fft.fft(torch.zeros((2, 48), dtype=torch.complex64, device=dev))
     with pytest.raises(ValueError):
@@ -233,3 +273,36 @@ def test_c4_slice_on_card_matches_cpu(dev):
         assert torch.equal(gpu[k].cpu(), cpu[k]), k
     assert np.array_equal(gpu["payload"][:, :3].cpu().numpy(), pays)
     assert (gpu["eps"].cpu() - cpu["eps"]).abs().max() <= 1e-4
+
+
+def test_stream_on_card_matches_plain_forced(dev):
+    """A C5 StreamRx on the card (kernel_backend 'auto', 34 slots a step:
+    K4w at 256/64) gives the frames and state of its plain-forced run."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    spec = config("c5").with_(kernel_backend="auto")
+    cap, pays = build_capture(spec, 40, 300, seed=2, phase_noise_std=0.0,
+                              device=dev)
+    runs = []
+    for plain in (False, True):
+        rx = StreamRx(spec, chunk_len=129024, steps_per_dispatch=2,
+                      device=dev)
+        policy.reset_launches()
+        if plain:
+            with policy.plain_versions():
+                frames = rx.process(cap) + rx.flush()
+        else:
+            frames = rx.process(cap) + rx.flush()
+        runs.append((frames, rx, policy.launches()))
+    (got, rx, launched), (want, rx_p, plain) = runs
+    assert launched["viterbi_windowed"] > 0 and launched["viterbi"] == 0
+    assert all(launched[k] > 0 for k in ("scfront", "localize", "extract",
+                                         "fft"))
+    assert sum(plain.values()) == 0
+    assert [g.start for g in got] == [w.start for w in want]
+    assert len(got) == 40 and all(g.crc_ok for g in got)
+    for g, w, p in zip(got, want, pays):
+        assert np.array_equal(g.payload, w.payload)
+        assert np.array_equal(g.payload, p)
+    for f in ("steps", "frames", "crc_ok", "track_wt"):
+        assert int(getattr(rx.state, f)) == int(getattr(rx_p.state, f)), f

@@ -139,3 +139,32 @@ def test_fir_on_cpu_launches_no_kernel():
     KF.polyphase_decim(x, 2, TAPS3)
     KF.polyphase_interp(x, 2, TAPS3)
     assert policy.launches() == dict.fromkeys(policy.KERNELS, 0)
+
+
+@pytest.mark.parametrize("m,taps", [(8, "proto"), (2, "3tap")])
+def test_polyphase_decim_stream_matches(m, taps):
+    """Valid mode over a carried tail: [C*m + nt - 1] -> [C], as the
+    stream decimates each radio chunk (conv_backend.polyphase_decim_stream
+    and, at M = 1, rational_decim_stream)."""
+    t = resample_filter(m, 1) if taps == "proto" else TAPS3
+    x = _sig(m, (2, 300 * m + len(t) - 1))
+    got = KF.polyphase_decim_stream(torch.from_numpy(x), m, t)
+    assert got.shape == (2, 300)
+    _close(got, CB.polyphase_decim_stream(x, m, t),
+           CB.rational_decim_stream(x, m, 1, t))
+    np.testing.assert_array_equal(
+        KF.rational_decim_stream(torch.from_numpy(x), m, 1, t).numpy(),
+        got.numpy())
+
+
+@pytest.mark.parametrize("l,m", [(3, 2), (4, 3)])
+def test_rational_decim_stream_matches(l, m):
+    """M > 1: the per-phase kernels and the interleave of
+    conv_backend.rational_decim_stream (plain on every device)."""
+    t = resample_filter(l, m)
+    x = _sig(l + m, (1, 60 * l + len(t) - 1))
+    got = KF.rational_decim_stream(torch.from_numpy(x), l, m, t)
+    assert got.shape == (1, 60 * m)
+    _close(got, CB.rational_decim_stream(x, l, m, t))
+    with pytest.raises(ValueError):
+        KF.rational_decim_stream(torch.from_numpy(x[:, 1:]), l, m, t)

@@ -4,10 +4,10 @@
 The reference runs `config("c3").with_(kernel_backend="auto")` (the
 variant the repository's bench.py judges), so its localize, extract,
 FFT-256 and Viterbi stages are the Pallas kernels in interpret mode. At
-C * max_frames = 10 <= 96 its decoder is the fused Pallas Viterbi, a
-windowed decoder: payloads are compared on valid slots only (invalid
-slots decode garbage, where windowed and whole-sequence decoders may
-differ; ofdm_uhd_tpu/kernels/policy.py).
+C * max_frames = 10 <= 96 its decoder is the fused Pallas Viterbi, which
+decodes the 6912-step trellis in windows of 256; the port takes the same
+algorithm, so payloads are compared on every slot, the empty ones (which
+decode garbage) included.
 """
 
 import dataclasses
@@ -90,8 +90,8 @@ def test_slice_detection_exact(ref, port):
 def test_slice_payload_and_evm(ref, port):
     valid = ref["out"]["valid"]
     assert valid.sum() == N_CAPS * N_FRAMES
-    np.testing.assert_array_equal(port["out"]["payload"][valid],
-                                  ref["out"]["payload"][valid])
+    np.testing.assert_array_equal(port["out"]["payload"],
+                                  ref["out"]["payload"])
     np.testing.assert_array_equal(port["out"]["payload"][:, :N_FRAMES],
                                   ref["pays"])
     assert port["out"]["crc_ok"][:, :N_FRAMES].all()
