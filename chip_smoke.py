@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's three paths through their user entry points, in phases;
+Drives the port's five paths through their user entry points, in phases;
 each prints its findings on a line of its own:
 
   C3, the capture-mode RX chain `RxPipeline(config("c3")).rx_capture_sc16(
@@ -18,24 +18,39 @@ each prints its findings on a line of its own:
       the K-step chunk stacks staged on the card, `process_device`) and
       host-fed sc16 (chunk 129,024, K = 16, `process` + `flush` from host
       memory); both decode through the windowed Viterbi kernel (512/96 and
-      256/64). Then the TRACK retry's burst case at full width.
+      256/64). Then the TRACK retry's burst case at full width;
+  c3_pallas, bench.py's `pallas-sc16` variant: C3's captures, built by
+      `TxPipeline(config("c3").with_(kernel_backend="pallas"))` on the card
+      (the fused IFFT + CP kernel), through `RxPipeline(...).rx_capture_sc16`
+      under the same spec: the fused CP-strip FFT kernel, and the windowed
+      Viterbi kernel at 256/64, as the reference routes 'pallas';
+  c2_pallas, the reference bench's C2 capture row under --backend pallas:
+      32 captures x 128 frames (gap 300, SNR 28 dB, CFO 0.8, timing offset
+      100, sc16), built and decoded as c3_pallas, with the boxcar S&C
+      correlator kernel (l = 32) and the whole-sequence Viterbi kernel.
 
   1. device:  a CUDA card must be present; prints the card's name and
               power limit as nvidia-smi reports them;
   2. build:   builds the hand kernels from ofdm_uhd_tpu_torch/kernels/csrc
               (one nvcc per source, sm_90a, started together) into
               build/ofdm_uhd_tpu_torch/;
-  then for C3, C4 and C5 in turn:
-  3. input:   C4 and C5: the captures, built by the port's TxPipeline (C4's
-              interpolation is the interp kernel);
+  then for C3, C4, C5, c3_pallas and c2_pallas in turn:
+  3. input:   the captures, built by the port's TxPipeline on the card
+              (C4's interpolation is the interp kernel; the 'pallas'
+              paths' IFFT + CP the ifftcp kernel), with the TX's launches
+              counted (C4, 'pallas');
   4. stages:  runs the chain's steps one at a time on the whole batch (C5:
               on the first step's window of each operating point) and
               times each (CUDA events, median of 5);
   5. kernels: holds each kernel against its plain PyTorch version on the
               card, on the inputs those steps gave it, and times both
-              (CUDA events, median of 5); C5 also holds the windowed
-              Viterbi at both geometries and times the whole-sequence
-              kernel on the same LLRs;
+              (CUDA events, median of 5), beside its bound (the larger of
+              its bytes at 3.35 TB/s and its operations at 67 TFLOP/s)
+              and, where one PyTorch call computes the same function, that
+              call's time (library_ms: torch.fft.fft, conv1d,
+              conv_transpose1d; the port never calls them); C5 also holds
+              the windowed Viterbi at both geometries and times the
+              whole-sequence kernel on the same LLRs;
   6. slice:   decodes every frame, which must match the sent payloads bit
               for bit, with the launch count of every kernel of the path
               > 0 over that run; times the chain with the kernels and with
@@ -64,10 +79,19 @@ C4_FRAMES = 32
 C5_FRAMES, C5_OFFSET = 4096, 100
 C5_RESIDENT = (4_128_768, 4)     # (chunk, steps per dispatch), fc32
 C5_HOSTFED = (129_024, 16)       # sc16
+C2_CAPS, C2_FRAMES = 32, 128
 REPS = 5
 REPS_STREAM = 2
 REL_TOL = 1e-5          # FIR / FFT / S&C P: max error within 1e-5 * max|y|
 M_TOL = 1e-5            # S&C metric M: absolute (M lies in [0, ~1])
+R_TOL = 1e-5            # S&C R: relative, sample by sample
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# a kernel's bound is the larger of its bytes over HBM_BPS and its
+# operations over F32_OPS (all the port's kernels compute in float32
+# outside the tensor cores)
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
 
 KERNEL_INFO = {
     "localize": ("ofdm_uhd_tpu_torch/kernels/csrc/localize.cu",
@@ -86,11 +110,21 @@ KERNEL_INFO = {
                "ofdm_uhd_tpu/kernels/pallas_fir_mxu.py:176"),
     "scfront": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
                 "ofdm_uhd_tpu/kernels/pallas_scfront.py:103"),
+    "cpfft": ("ofdm_uhd_tpu_torch/kernels/csrc/fft.cu",
+              "ofdm_uhd_tpu/kernels/pallas_fft.py:191"),
+    "ifftcp": ("ofdm_uhd_tpu_torch/kernels/csrc/fft.cu",
+               "ofdm_uhd_tpu/kernels/pallas_fft.py:204"),
+    "sccorr": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
+               "ofdm_uhd_tpu/kernels/pallas_sync.py:55"),
 }
-# the kernels each path's RX launches (C4's interp runs in its TX)
+# the kernels each path's RX launches (C4's interp runs in its TX, and
+# the 'pallas' paths' ifftcp in theirs)
 C3_PATH = ("scfront", "localize", "extract", "fft", "viterbi")
 C4_PATH = ("fir",) + C3_PATH
 C5_PATH = ("scfront", "localize", "extract", "fft", "viterbi_windowed")
+C3_PALLAS_PATH = ("scfront", "localize", "extract", "cpfft",
+                  "viterbi_windowed")
+C2_PALLAS_PATH = ("sccorr", "localize", "extract", "cpfft", "viterbi")
 
 
 class SmokeFailure(Exception):
@@ -120,6 +154,40 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take for a function that moves
+    `nbytes` (each input read once, each output written once) and does
+    `ops` float32 operations: (ms, 'bytes' or 'operations')."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def work_fft(rows, n_in, n, n_out) -> tuple[float, float]:
+    """(bytes, flops) of `rows` n-point complex FFTs reading n_in and
+    writing n_out complex64 samples a row: 5 n log2 n flops a transform."""
+    return 8.0 * rows * (n_in + n_out), 5.0 * rows * n * (n.bit_length() - 1)
+
+
+def work_sc(rows, n, l, metric: bool) -> tuple[float, float]:
+    """(bytes, flops) of the S&C front end (metric) or correlator over
+    [rows, n] complex64: 8 B read a sample, 12 B written an output (P and
+    M or R); per output 6 flops for the lag product, 4 for the energy,
+    log2(l) adds for each of P's planes and log2(2l) for the energy's,
+    one for R, and 8 for the metric."""
+    nd = n - 2 * l + 1
+    lg = l.bit_length() - 1
+    per = 11 + 2 * lg + lg + 1 + (8 if metric else 0)
+    return 8.0 * rows * n + 12.0 * rows * nd, float(rows * nd * per)
+
+
+def work_viterbi(rows, n, steps) -> tuple[float, float]:
+    """(bytes, ops) of a K=7 decode of [rows, 2n] float32 LLRs into [rows,
+    n] bits over `steps` trellis steps in all (windows overlap): per step
+    and state, two branch-metric adds, a compare and a select."""
+    return 4.0 * rows * 2 * n + rows * n, 256.0 * steps
 
 
 def phase_device(torch) -> dict:
@@ -168,6 +236,40 @@ def make_input_c3(torch, spec, device):
     return iq, torch.from_numpy(pays).to(device)
 
 
+def make_input_pallas(torch, spec, label, n_caps, n_frames, device,
+                      **channel):
+    """Captures of seeds 0..n_caps-1 (each its own payloads) from the
+    port's TxPipeline on the card under the spec's kernel_backend, with the
+    TX's launches counted: sc16 planes [2, C, n] on device, the sent
+    payloads [C, F, bits], the TX's launch counts, and the grid of the
+    first capture's frames [F, n_syms, n_sc] (the input K5 TX was given)."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16
+    from ofdm_uhd_tpu_torch.kernels import policy
+    from ofdm_uhd_tpu_torch.phy import frame, qam
+    from ofdm_uhd_tpu_torch.pipeline import TxPipeline
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    policy.reset_launches()
+    built = [build_capture(spec, n_frames, GAP, seed=s, device=device,
+                           **channel) for s in range(n_caps)]
+    torch.cuda.synchronize()
+    launches = policy.launches()
+    check(launches["ifftcp"] == n_caps and launches["fft"] == 0,
+          f"{label} input: the TX launched {launches}, not the ifftcp "
+          "kernel once a capture")
+    caps = np.stack([c for c, _ in built])
+    pays = torch.from_numpy(np.stack([p for _, p in built])).to(device)
+    iq = torch.from_numpy(to_sc16(caps)).to(device)
+    syms = qam.qam_map(TxPipeline(spec).encode(pays[0]), spec.modulation)
+    grid = frame.build_grid(spec, syms.reshape(-1, spec.n_data_syms,
+                                               spec.n_data_sc))
+    log(f"{label} input: {n_caps} captures x {caps.shape[1]} samples, "
+        f"{n_frames} frames each, sc16, built in "
+        f"{time.perf_counter() - t0:.1f} s; TX launches {launches}")
+    return iq, pays, launches, grid
+
+
 def make_input_c4(torch, spec, device):
     """The reference's C4 row: seeds 0..7, fc32 captures [C, n] on device,
     the sent payloads [C, F, bits], the TX's launch counts, and the
@@ -196,12 +298,14 @@ def make_input_c4(torch, spec, device):
     return caps, pays, base, launches
 
 
-def phase_stages(torch, spec, label, x, max_frames) -> tuple[dict, dict]:
+def phase_stages(torch, spec, label, x, max_frames,
+                 path=C3_PATH) -> tuple[dict, dict]:
     """The steps of pipeline/rx.py:_rx_capture one at a time, on the whole
     batch: each step's device time (CUDA events, median of 5, so steps do
     not overlap) and each kernel's inputs as the main path produces them.
-    x: sc16 planes [2, C, n] (C3) or fc32 radio-rate captures [C, n] (C4)."""
-    from ofdm_uhd_tpu_torch.kernels import policy, scfront, viterbi
+    x: sc16 planes [2, C, n] (C3) or fc32 radio-rate captures [C, n] (C4);
+    path: the kernels the spec routes (it names the S&C step)."""
+    from ofdm_uhd_tpu_torch.kernels import policy, viterbi
     from ofdm_uhd_tpu_torch.kernels.localize import localize
     from ofdm_uhd_tpu_torch.phy import agc, bits, frame, sync
     from ofdm_uhd_tpu_torch.pipeline import rx
@@ -227,7 +331,8 @@ def phase_stages(torch, spec, label, x, max_frames) -> tuple[dict, dict]:
         ins["dec"] = dec
     caps, n = cap.shape
     nd = n - spec.n_sc + 1
-    p, m = step("scfront", lambda: scfront.sc_frontend(cap, spec.n_sc // 2))
+    sc_step = "scfront" if "scfront" in path else "sccorr+metric"
+    p, m = step(sc_step, lambda: sync.sc_front(spec, cap))
 
     def candidates():
         return sync._first_k_indices(sync._rising_edges(m, 0.5),
@@ -272,8 +377,9 @@ def phase_stages(torch, spec, label, x, max_frames) -> tuple[dict, dict]:
     log(f"{label} stages: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
         + f" ms; sum {total:.1f} ms")
     ins.update({"m": m, "p": p, "cand": cand, "cap": cap, "ds": ds,
-                "windows": frame.fft_windows(spec, flat, shift),
-                "grid": grid, "llr": llr_d})
+                "syms": flat.reshape(flat.shape[0], spec.n_syms,
+                                     spec.sym_len),
+                "start": spec.cp - shift, "grid": grid, "llr": llr_d})
     return ins, ms
 
 
@@ -304,15 +410,23 @@ def device_busy_share(torch, run) -> dict:
             "device_busy_ms": busy / 1e3, "device_events": len(spans)}
 
 
-def held(torch, name, run_k, run_p, tol, shape) -> dict:
+def held(torch, name, run_k, run_p, tol, shape, work,
+         library=None) -> dict:
     """Run a kernel wrapper and its plain version on the same inputs,
-    require tol(kernel, plain) -> (ok, err), and time both."""
+    require tol(kernel, plain) -> (ok, err), and time both; work = (bytes,
+    operations) of the function on these inputs, for its bound; library:
+    one PyTorch call computing the same function (timed as library_ms),
+    or None where there is none."""
     y_k, y_p = run_k(), run_p()
     torch.cuda.synchronize()
     ok, err = tol(y_k, y_p)
     check(ok, f"{name}: kernel differs from the plain version by {err}")
+    bound_ms, bound_by = bound(*work)
     return {"max_abs_err": err, "shape": list(shape),
-            "ms": cuda_ms(torch, run_k), "plain_ms": cuda_ms(torch, run_p)}
+            "ms": cuda_ms(torch, run_k), "plain_ms": cuda_ms(torch, run_p),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if library is None else cuda_ms(torch,
+                                                              library)}
 
 
 def rel_close(y_k, y_p) -> tuple[bool, float]:
@@ -329,72 +443,196 @@ def scfront_close(k, p) -> tuple[bool, float]:
 
 def log_kernels(label, res) -> None:
     for k, v in res.items():
+        lib = v["library_ms"]
         log(f"{label} kernels: {k:9s} ok  {v['shape']}  kernel "
-            f"{v['ms']:.3f} ms  plain {v['plain_ms']:.3f} ms  max_abs_err "
-            f"{v['max_abs_err']:.3g}")
+            f"{v['ms']:.3f} ms  plain {v['plain_ms']:.3f} ms  bound "
+            f"{v['bound_ms']:.3f} ms ({v['bound_by']})  library "
+            + ("none" if lib is None else f"{lib:.3f} ms")
+            + f"  max_abs_err {v['max_abs_err']:.3g}"
+            + (f"  contiguous {v['ms_contiguous']:.3f} ms"
+               if "ms_contiguous" in v else ""))
 
 
-def phase_kernels(torch, spec, label, ins) -> dict:
-    """The kernels both paths' RX runs (S&C front end, localize, extract,
-    FFT, Viterbi), each against its plain version on the inputs this
-    path's steps gave it."""
+def library_fir(torch, x, taps, stride):
+    """One PyTorch call computing the strided 'same' FIR of x [R, n] (the
+    fir kernel's function): conv1d over x's (re, im) planes, made before
+    the call, with the taps reversed and the 'same' padding."""
+    import torch.nn.functional as F
+    from ofdm_uhd_tpu_torch.kernels import fir
+    _, w, pad = fir._corr_weights(taps)       # pad both sides (odd taps)
+    planes = torch.cat([x.real, x.imag])[:, None, :].contiguous()
+    wt = torch.from_numpy(w.copy()).to(x.device)[None, None, :]
+    return lambda: F.conv1d(planes, wt, stride=stride, padding=pad)
+
+
+def library_interp(torch, x, l, taps):
+    """One PyTorch call computing the L-fold polyphase interpolation of x
+    [R, n] (the interp kernel's function): conv_transpose1d over x's (re,
+    im) planes with the prototype times L, cropped to the 'same'
+    alignment."""
+    import numpy as np
+    import torch.nn.functional as F
+    h = (np.asarray(taps, np.float64) * l).astype(np.float32)
+    planes = torch.cat([x.real, x.imag])[:, None, :].contiguous()
+    wt = torch.from_numpy(h).to(x.device)[None, None, :]
+    return lambda: F.conv_transpose1d(planes, wt, stride=l,
+                                      padding=(len(h) - 1) // 2,
+                                      output_padding=l - 1)
+
+
+def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
+    """The kernels of this path's RX named in `names`, each against its
+    plain version on the inputs this path's steps gave it, with its bound
+    and, where one PyTorch call computes the same function, that call's
+    time."""
     from ofdm_uhd_tpu_torch.kernels import (extract, fft, localize, scfront,
-                                            viterbi)
-    res = {}
-
-    # S&C front end at l = n_sc / 2 (128 on C3, 512 on C4)
+                                            sync, viterbi)
+    cap, llr = ins["cap"], ins["llr"]
+    rows, n = cap.shape
     l = spec.n_sc // 2
-    res["scfront"] = held(torch, "scfront",
-                          lambda: scfront._scfront_cuda(ins["cap"], l),
-                          lambda: scfront.sc_frontend_plain(ins["cap"], l),
-                          scfront_close, ins["cap"].shape)
-
-    # localize: d exact, eps within 1e-6
-    args = (ins["m"], ins["p"], ins["cand"], spec.sym_len, spec.cp)
-
-    def loc_close(k, p):
-        err = float((k[1] - p[1]).abs().max())
-        return bool(torch.equal(k[0], p[0])) and err <= 1e-6, err
-    res["localize"] = held(torch, "localize",
-                           lambda: localize._localize_cuda(*args, 0.9),
-                           lambda: localize.localize_plain(*args), loc_close,
-                           ins["cand"].shape)
-
-    # extract: bit-exact copy
-    fl = spec.frame_len
-
-    def ext_close(k, p):
-        return (bool(torch.equal(torch.view_as_real(k),
-                                 torch.view_as_real(p))),
-                float((k - p).abs().max()))
-    res["extract"] = held(torch, "extract",
-                          lambda: extract._extract_cuda(ins["cap"], ins["ds"],
-                                                        fl),
-                          lambda: extract.extract_plain(ins["cap"], ins["ds"],
-                                                        fl),
-                          ext_close, (ins["ds"].numel(), fl))
-
-    # FFT, forward on the RX windows and inverse on their grid: within
-    # 1e-5 of max|X| against torch.fft (norm="ortho")
-    inv = held(torch, "ifft", lambda: fft._fft_cuda(ins["grid"], True),
-               lambda: fft.fft_plain(ins["grid"], inverse=True), rel_close,
-               ins["grid"].shape)
-    w = ins["windows"]
-    res["fft"] = held(torch, "fft", lambda: fft._fft_cuda(w, False),
-                      lambda: fft.fft_plain(w), rel_close, w.shape)
-    res["fft"]["max_abs_err"] = max(res["fft"]["max_abs_err"],
-                                    inv["max_abs_err"])
-
-    # Viterbi: bit-exact with the plain scan
-    llr = ins["llr"]
 
     def vit_close(k, p):
         bad = int((k != p).sum())
         return bad == 0, float(bad)
-    res["viterbi"] = held(torch, "viterbi", lambda: viterbi._viterbi_cuda(llr),
-                          lambda: viterbi.viterbi_plain(llr), vit_close,
-                          llr.shape)
+
+    def hold_scfront():
+        # S&C front end at l = n_sc / 2 (128 on C3, 512 on C4)
+        return held(torch, "scfront", lambda: scfront._scfront_cuda(cap, l),
+                    lambda: scfront.sc_frontend_plain(cap, l), scfront_close,
+                    cap.shape, work_sc(rows, n, l, metric=True))
+
+    def hold_sccorr():
+        # S&C correlator at l = n_sc / 2 (32 on C2): P within REL_TOL of
+        # max|P|, R within R_TOL sample by sample
+        def close(k, p):
+            ok_p, err = rel_close(k[0], p[0])
+            rel = float(((k[1] - p[1]).abs()
+                         / p[1].abs().clamp_min(1e-30)).max())
+            return ok_p and rel <= R_TOL, max(err, rel)
+        return held(torch, "sccorr", lambda: sync._sccorr_cuda(cap, l),
+                    lambda: sync.sc_correlate_plain(cap, l), close,
+                    cap.shape, work_sc(rows, n, l, metric=False))
+
+    def hold_localize():
+        # d exact, eps within 1e-6; the work is what this run's found
+        # candidates read: span metric samples and one P sample each
+        args = (ins["m"], ins["p"], ins["cand"], spec.sym_len, spec.cp)
+        found = int((ins["cand"] < ins["m"].shape[1]).sum())
+
+        def close(k, p):
+            err = float((k[1] - p[1]).abs().max())
+            return bool(torch.equal(k[0], p[0])) and err <= 1e-6, err
+        return held(torch, "localize",
+                    lambda: localize._localize_cuda(*args, 0.9),
+                    lambda: localize.localize_plain(*args), close,
+                    ins["cand"].shape,
+                    (12.0 * ins["cand"].numel()
+                     + found * (4.0 * spec.sym_len + 8),
+                     3.0 * found * spec.sym_len))
+
+    def hold_extract():
+        # bit-exact copy; reads the in-capture part of each frame
+        fl, ds = spec.frame_len, ins["ds"]
+        inside = int((n - ds.long()).clamp(0, fl).sum())
+
+        def close(k, p):
+            return (bool(torch.equal(torch.view_as_real(k),
+                                     torch.view_as_real(p))),
+                    float((k - p).abs().max()))
+        return held(torch, "extract",
+                    lambda: extract._extract_cuda(cap, ds, fl),
+                    lambda: extract.extract_plain(cap, ds, fl), close,
+                    (ds.numel(), fl),
+                    (8.0 * inside + 4.0 * ds.numel() + 8.0 * ds.numel() * fl,
+                     0.0))
+
+    def hold_fft():
+        # forward on the RX windows and inverse on their grid: within 1e-5
+        # of max|X| against torch.fft (norm="ortho"); ms of the forward
+        grid, syms, st = ins["grid"], ins["syms"], ins["start"]
+        w = syms[..., st:st + spec.n_sc].contiguous()
+        r = w.numel() // spec.n_sc
+        inv = held(torch, "ifft", lambda: fft._fft_cuda(grid, True),
+                   lambda: fft.fft_plain(grid, inverse=True), rel_close,
+                   grid.shape, work_fft(r, spec.n_sc, spec.n_sc, spec.n_sc))
+        res = held(torch, "fft", lambda: fft._fft_cuda(w, False),
+                   lambda: fft.fft_plain(w), rel_close, w.shape,
+                   work_fft(r, spec.n_sc, spec.n_sc, spec.n_sc),
+                   lambda: torch.fft.fft(w, norm="ortho"))
+        res["max_abs_err"] = max(res["max_abs_err"], inv["max_abs_err"])
+        return res
+
+    def hold_cpfft():
+        # K5 RX on the symbol rows, in place: within 1e-5 of max|X|; the
+        # bound reads only the n-sample windows (the CP it strips is whole
+        # 32 B sectors, never fetched). ms_contiguous: the same launch on
+        # the windows copied out (row stride n), which parts the strided
+        # read's cost from the kernel's
+        syms, st, nsc = ins["syms"], ins["start"], spec.n_sc
+        r = syms.numel() // spec.sym_len
+        res = held(torch, "cpfft",
+                   lambda: fft._fft_cp_cuda("cpfft", syms, nsc, st, 0, False),
+                   lambda: fft.cp_strip_fft_plain(syms, st, nsc), rel_close,
+                   syms.shape, work_fft(r, nsc, nsc, nsc),
+                   lambda: torch.fft.fft(syms[..., st:st + nsc],
+                                         norm="ortho"))
+        w = syms[..., st:st + nsc].contiguous()
+        y_c = fft._fft_cp_cuda("cpfft", w, nsc, 0, 0, False)
+        check(torch.equal(y_c, fft._fft_cp_cuda("cpfft", syms, nsc, st, 0,
+                                                False)),
+              "cpfft: the contiguous windows transform otherwise")
+        res["ms_contiguous"] = cuda_ms(
+            torch, lambda: fft._fft_cp_cuda("cpfft", w, nsc, 0, 0, False))
+        return res
+
+    def hold_viterbi():
+        # whole-sequence K4: bit-exact with the plain scan
+        b, n2 = llr.shape
+        return held(torch, "viterbi", lambda: viterbi._viterbi_cuda(llr),
+                    lambda: viterbi.viterbi_plain(llr), vit_close, llr.shape,
+                    work_viterbi(b, n2 // 2, b * n2 // 2))
+
+    def hold_viterbi_windowed():
+        # K4w at the fused decoder's 256/64 windows: bit-exact
+        return hold_windowed(torch, llr, viterbi.FUSED_WINDOW)
+
+    holds = {"scfront": hold_scfront, "sccorr": hold_sccorr,
+             "localize": hold_localize, "extract": hold_extract,
+             "fft": hold_fft, "cpfft": hold_cpfft, "viterbi": hold_viterbi,
+             "viterbi_windowed": hold_viterbi_windowed}
+    res = {k: holds[k]() for k in names}
     log_kernels(label, res)
+    return res
+
+
+def hold_windowed(torch, llr, geometry) -> dict:
+    """K4w at `geometry` (window, overlap) against its plain version on
+    llr [B, 2n], bit-exact."""
+    from ofdm_uhd_tpu_torch.kernels import viterbi
+
+    def close(k, p):
+        bad = int((k != p).sum())
+        return bad == 0, float(bad)
+    b, n = llr.shape[0], llr.shape[1] // 2
+    _, e, starts = viterbi.window_geometry(n, *geometry)
+    return held(torch, f"viterbi_windowed {geometry}",
+                lambda: viterbi._viterbi_windowed_cuda(llr, *geometry),
+                lambda: viterbi.viterbi_windowed_plain(llr, *geometry),
+                close, llr.shape, work_viterbi(b, n, b * len(starts) * e))
+
+
+def phase_kernel_ifftcp(torch, spec, label, grid) -> dict:
+    """K5 TX on the grid of one capture's frames [F, n_syms, n_sc], as the
+    TX built it: within 1e-5 of max|x| against ifft + cat."""
+    from ofdm_uhd_tpu_torch.kernels import fft
+    n, cp = spec.n_sc, spec.cp
+    r = grid.numel() // n
+    res = {"ifftcp": held(torch, "ifftcp",
+                          lambda: fft._fft_cp_cuda("ifftcp", grid, n, 0, cp,
+                                                   True),
+                          lambda: fft.ifft_cp_plain(grid, cp), rel_close,
+                          grid.shape, work_fft(r, n, n, n + cp))}
+    log_kernels(label + " tx", res)
     return res
 
 
@@ -407,18 +645,29 @@ def phase_kernels_fir(torch, spec, ins, base) -> dict:
     res = {}
     lr = spec.resample_l
     taps = tables.resample_filter(lr, spec.resample_m)
+    nt = len(taps)
+
+    def work(x, stride):
+        r, n_in = x.shape
+        n_out = n_in // stride
+        return 8.0 * r * (n_in + n_out), 4.0 * nt * r * n_out
     xin = ins["radio"]
     res["fir"] = held(torch, "decim", lambda: fir._strided_cuda(xin, taps, lr),
                       lambda: fir.decim_plain(xin, lr, taps), rel_close,
-                      xin.shape)
+                      xin.shape, work(xin, lr),
+                      library_fir(torch, xin, taps, lr))
     dec = ins["dec"]
     res["fir_stride1"] = held(torch, "fir", lambda: fir._strided_cuda(
         dec, taps, 1), lambda: fir.decim_plain(dec, 1, taps), rel_close,
-        dec.shape)
+        dec.shape, work(dec, 1), library_fir(torch, dec, taps, 1))
+    r, nb = base.shape
+    branch = fir.branch_matrix(taps, lr)[0].shape[1]
     res["interp"] = held(torch, "interp",
                          lambda: fir._interp_cuda(base, lr, taps),
                          lambda: fir.interp_plain(base, lr, taps), rel_close,
-                         base.shape)
+                         base.shape,
+                         (8.0 * r * nb * (1 + lr), 4.0 * branch * r * nb * lr),
+                         library_interp(torch, base, lr, taps))
     log_kernels("c4", res)
     return res
 
@@ -538,6 +787,40 @@ def run_c4(torch, config, device) -> dict:
                      C4_PATH, sc16=False)
     return {"stages_ms": stages, "kernels": kernels, "slice": sl,
             "tx_launches": tx_launches}
+
+
+def run_pallas(torch, config, device, name, label, n_caps, n_frames, path,
+               **channel) -> dict:
+    """A kernel_backend='pallas' path: the spec's TX builds the captures
+    (K5 TX), and rx_capture_sc16 decodes them through `path`'s kernels."""
+    spec = config(name).with_(kernel_backend="pallas")
+    iq, pays, tx_launches, grid = make_input_pallas(
+        torch, spec, label, n_caps, n_frames, device, **channel)
+    max_frames = n_frames + 2
+    ins, stages = phase_stages(torch, spec, label, iq, max_frames, path)
+    kernels = {**phase_kernels(torch, spec, label, ins, path),
+               **phase_kernel_ifftcp(torch, spec, label, grid)}
+    del ins, grid
+    sl = phase_slice(torch, spec, label, iq, iq ^ 1, pays, max_frames, path,
+                     sc16=True)
+    return {"stages_ms": stages, "kernels": kernels, "slice": sl,
+            "tx_launches": tx_launches}
+
+
+def run_c3_pallas(torch, config, device) -> dict:
+    """bench.py's `pallas-sc16` variant: C3's captures (8 x 1024 frames,
+    seeds 0-7, build_capture's defaults) under kernel_backend='pallas'."""
+    return run_pallas(torch, config, device, "c3", "c3_pallas", N_CAPS,
+                      C3_FRAMES, C3_PALLAS_PATH)
+
+
+def run_c2_pallas(torch, config, device) -> dict:
+    """The reference bench's C2 capture row (ofdm_uhd_tpu/cli/bench.py:
+    77-93: 32 captures x 128 frames, gap 300, SNR 28 dB, CFO 0.8, timing
+    offset 100, no phase noise, sc16) under --backend pallas."""
+    return run_pallas(torch, config, device, "c2", "c2_pallas", C2_CAPS,
+                      C2_FRAMES, C2_PALLAS_PATH, snr_db=28.0, cfo=0.8,
+                      phase_noise_std=0.0, timing_offset=100)
 
 
 def make_input_c5(torch, spec, device):
@@ -731,24 +1014,15 @@ def phase_kernels_c5(torch, spec, llr_res, llr_host) -> dict:
     step at both operating points (every bit of every slot, the empty
     ones included), and K4 timed on the same LLRs."""
     from ofdm_uhd_tpu_torch.kernels import viterbi
-
-    def vit_close(k, p):
-        bad = int((k != p).sum())
-        return bad == 0, float(bad)
     res = {}
     for key, llr, geometry in (("512", llr_res, viterbi.XLA_WINDOW),
                                ("256", llr_host, viterbi.FUSED_WINDOW)):
-        res[f"viterbi_windowed_{key}"] = held(
-            torch, f"viterbi_windowed {geometry}",
-            lambda: viterbi._viterbi_windowed_cuda(llr, *geometry),
-            lambda: viterbi.viterbi_windowed_plain(llr, *geometry),
-            vit_close, llr.shape)
+        res[f"viterbi_windowed_{key}"] = hold_windowed(torch, llr, geometry)
         res[f"viterbi_windowed_{key}"]["k4_ms"] = cuda_ms(
             torch, lambda: viterbi._viterbi_cuda(llr))
+    log_kernels("c5", res)
     for k, v in res.items():
-        log(f"c5 kernels: {k} ok  {v['shape']}  kernel {v['ms']:.3f} ms  "
-            f"plain {v['plain_ms']:.3f} ms  K4 on the same LLRs "
-            f"{v['k4_ms']:.3f} ms  bits differing {v['max_abs_err']:.0f}")
+        log(f"c5 kernels: {k} K4 on the same LLRs {v['k4_ms']:.3f} ms")
     return res
 
 
@@ -814,10 +1088,16 @@ def run_c5(torch, config, device) -> dict:
                          for n in resident["launches"]}}
 
 
-def path_launches(c3, c4, c5) -> dict:
-    """Launches per kernel of every counted main-path run."""
-    return {"c3": c3["slice"]["launches"], "c4": c4["slice"]["launches"],
-            "c4_tx": c4["tx_launches"], "c5": c5["launches"]}
+def path_launches(paths) -> dict:
+    """Launches per kernel of every counted main-path run: each path's RX
+    slice (C5: its two operating points) and the TX input builds of C4 and
+    the 'pallas' paths."""
+    out = {}
+    for p, r in paths.items():
+        out[p] = r["launches"] if p == "c5" else r["slice"]["launches"]
+        if "tx_launches" in r:
+            out[p + "_tx"] = r["tx_launches"]
+    return out
 
 
 def held_kernel(key: str) -> str:
@@ -833,9 +1113,11 @@ def kernel_entry(name, paths, by_path) -> dict:
     viterbi_windowed at both C5 geometries): max_abs_err is the worst over
     those checks, `paths` gives each check's numbers, and ms / plain_ms are
     those of the first path's check (C3's for the kernels C3 runs, C5
-    resident's for viterbi_windowed). launches sums the counted main-path
-    runs (C3, C4, C4's TX input build, C5's two operating points), and
-    launches_by_path splits them."""
+    resident's for viterbi_windowed, c3_pallas's for cpfft and ifftcp,
+    c2_pallas's for sccorr), as are bound_ms, bound_by and library_ms.
+    launches sums the counted main-path runs (every path's RX and the TX
+    input builds of C4 and the 'pallas' paths), and launches_by_path
+    splits them."""
     src, rep = KERNEL_INFO[name]
     held_on = {p + k[len(name):]: v for p, r in paths.items()
                for k, v in r["kernels"].items() if held_kernel(k) == name}
@@ -845,9 +1127,12 @@ def kernel_entry(name, paths, by_path) -> dict:
             "launches": sum(counts.values()),
             "max_abs_err": max(v["max_abs_err"] for v in held_on.values()),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
             "launches_by_path": counts,
             "paths": {p: {k: v[k] for k in ("shape", "max_abs_err", "ms",
-                                             "plain_ms")}
+                                             "plain_ms", "bound_ms",
+                                             "library_ms")}
                       for p, v in held_on.items()}}
 
 
@@ -870,11 +1155,14 @@ def main() -> int:
         c3 = run_c3(torch, config, device)
         c4 = run_c4(torch, config, device)
         c5 = run_c5(torch, config, device)
+        c3_pallas = run_c3_pallas(torch, config, device)
+        c2_pallas = run_c2_pallas(torch, config, device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    paths = {"c3": c3, "c4": c4, "c5": c5}
-    by_path = path_launches(c3, c4, c5)
+    paths = {"c3": c3, "c4": c4, "c5": c5, "c3_pallas": c3_pallas,
+             "c2_pallas": c2_pallas}
+    by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)
                         for k in KERNEL_INFO]}
     if args.out:

@@ -9,13 +9,16 @@ reference so each module's counterpart is found by name:
   phy/       tables, bits (FEC/CRC), QAM, frame (FFT/EQ/CPE), AGC, sync
   kernels/   hand-written CUDA kernels (csrc/*.cu), each beside its plain
              PyTorch version; policy.py dispatches on the tensor's device
+             and picks formulations from the spec as the reference does
   channel/   impairment models (NumPy)
-  pipeline/  RxPipeline (capture-mode RX) and TxPipeline
+  pipeline/  RxPipeline (capture-mode RX), TxPipeline and StreamRx
   convert.py spec / tables from the reference's plain data
   bench_lib.py  synthetic captures (build_capture) without JAX
 
 A CPU tensor takes each kernel's plain PyTorch version; a CUDA tensor
-launches the hand kernel (built from csrc/ at first use) or raises.
+launches the hand kernel (built from csrc/ at first use) or raises. The
+entry points that create tensors (StreamRx, StreamState, build_capture)
+default to the CUDA card; pass device='cpu' for the CPU.
 """
 
 import torch

@@ -1,7 +1,8 @@
 """Synthetic capture construction: the counterpart of the repository's
 bench_lib.build_capture, with the same arguments and defaults, for
 machines without JAX. The frames come from the port's TxPipeline on
-`device`; the channel (CFO, phase noise, AWGN, timing offset, idle gaps)
+`device` (by default the CUDA card; pass device='cpu' for the CPU); the
+channel (CFO, phase noise, AWGN, timing offset, idle gaps)
 is the NumPy impairment stack of channel/models.py.
 """
 
@@ -18,7 +19,7 @@ from .pipeline.tx import TxPipeline
 def build_capture(spec: WaveformSpec, n_frames: int, gap: int, seed: int = 0,
                   snr_db: float = 28.0, cfo: float = 0.8,
                   phase_noise_std: float = 2e-4, timing_offset: int = 100,
-                  device: str | torch.device = "cpu"
+                  device: str | torch.device = "cuda"
                   ) -> tuple[np.ndarray, np.ndarray]:
     """Multi-frame capture with channel impairments.
 

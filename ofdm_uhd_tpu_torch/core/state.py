@@ -1,7 +1,7 @@
 """StreamState: the carried state of the continuous-stream receiver.
 
 The counterpart of ofdm_uhd_tpu/core/state.py, as a dataclass of tensors
-on one device. Its checkpoint is an `.npz` with the reference's field
+on one device (by default the CUDA card; pass device='cpu' for the CPU). Its checkpoint is an `.npz` with the reference's field
 names, dtypes and shapes, so a state saved by either package loads in the
 other.
 
@@ -60,7 +60,7 @@ class StreamState:
         return len(resample_filter(spec.resample_l, spec.resample_m)) - 1
 
     @classmethod
-    def init(cls, spec: WaveformSpec, device: str | torch.device = "cpu"
+    def init(cls, spec: WaveformSpec, device: str | torch.device = "cuda"
              ) -> "StreamState":
         shapes = {"tail": (cls.halo_len(spec),),
                   "rtail": (cls.rtail_len(spec),),
@@ -70,7 +70,7 @@ class StreamState:
             for f, dt in _DTYPES.items()}, device)
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device: str | torch.device = "cpu"
+    def from_numpy(cls, arrays: dict, device: str | torch.device = "cuda"
                    ) -> "StreamState":
         """From numpy arrays by field name (each cast to its field's dtype)."""
         return cls(**{
@@ -87,7 +87,7 @@ class StreamState:
         np.savez(path, **self.to_numpy())
 
     @classmethod
-    def load(cls, path: str, device: str | torch.device = "cpu"
+    def load(cls, path: str, device: str | torch.device = "cuda"
              ) -> "StreamState":
         with np.load(path) as z:
             return cls.from_numpy({f: z[f] for f in _DTYPES}, device)

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "ofdm_viterbi_windowed": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, y, twiddles, rows, log2n, inverse, stream
     "ofdm_fft": [_P, _P, _P, _I, _I, _I, _P],
+    # x, y, twiddles, rows, log2n, inverse, in_stride, in_off, cp, stream
+    "ofdm_fft_cp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # m, p, cand, d, eps, caps, nd, mf, span, cp_half, rel, stream
     "ofdm_localize": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       ctypes.c_float, _P],
@@ -50,6 +52,8 @@ _SIGNATURES = {
     "ofdm_fir_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # r, p, m, rows, n, l, stream
     "ofdm_scfront": [_P, _P, _P, _I, _I, _I, _P],
+    # r, p, rr, rows, n, l, stream
+    "ofdm_sc_correlate": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 

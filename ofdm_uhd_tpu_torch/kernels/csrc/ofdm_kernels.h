@@ -30,6 +30,14 @@ OFDM_API int ofdm_viterbi_windowed(const float* llr, uint8_t* bits,
 OFDM_API int ofdm_fft(const float2* x, float2* y, const float2* twiddles,
                       int rows, int log2n, int inverse, void* stream);
 
+// The same transform with the CP fused in: row r reads x[r * in_stride +
+// in_off, + n) and writes y[r * (n + cp), + n + cp), the transform's last
+// cp samples followed by all n (RX CP strip: in_off = cp - shift, cp = 0;
+// TX CP insertion: in_stride = n, in_off = 0, inverse).
+OFDM_API int ofdm_fft_cp(const float2* x, float2* y, const float2* twiddles,
+                         int rows, int log2n, int inverse, int in_stride,
+                         int in_off, int cp, void* stream);
+
 // Schmidl-Cox plateau localization: m [caps, nd] f32, p [caps, nd]
 // complex64, cand [caps, mf] i32 -> d [caps, mf] i32, eps [caps, mf] f32.
 OFDM_API int ofdm_localize(const float* m, const float2* p, const int* cand,
@@ -61,5 +69,10 @@ OFDM_API int ofdm_fir_interp(const float2* x, const float* g, float2* y,
 // m [rows, nd] f32, nd = n - 2l + 1, l a power of two.
 OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
                           int n, int l, void* stream);
+
+// Schmidl-Cox correlation alone: r [rows, n] complex64 -> p [rows, nd]
+// complex64, rr [rows, nd] f32 (R, no metric), as ofdm_scfront sums them.
+OFDM_API int ofdm_sc_correlate(const float2* r, float2* p, float* rr,
+                               int rows, int n, int l, void* stream);
 
 OFDM_API const char* ofdm_error_string(int err);

@@ -1,18 +1,27 @@
 // Schmidl-Cox front end in one pass: the lag product, the energy, both
-// window sums and the timing metric, per row (capture).
+// window sums and (ofdm_scfront) the timing metric, per row (capture).
 //
 //   P[i] = sum_{m<l} conj(r[i+m]) r[i+m+l]
 //   R[i] = 0.5 sum_{m<2l} |r[i+m]|^2
 //   M[i] = |P[i]|^2 / max(R[i], 1e-12)^2, 0 where R[i] <= 1e-12
 //
-// for i < nd = n - 2l + 1. Writes P (complex64) and M (float32); R stays
-// on chip.
+// for i < nd = n - 2l + 1. ofdm_scfront writes P (complex64) and M
+// (float32), and R stays on chip; ofdm_sc_correlate writes P and R.
 //
-// Replaces: ofdm_uhd_tpu/kernels/pallas_scfront.py:sc_frontend_pallas
-// (_scfront_kernel), K6. That kernel summed its windows with an in-row
-// lane prefix, which agrees with the plain compose only to ~1e-5. Here
-// detection compares M against its threshold and plateau with >=, so the
-// kernel keeps the plain version's order instead (kernels/sync.py:
+// Replaces:
+//   ofdm_scfront (K6): ofdm_uhd_tpu/kernels/pallas_scfront.py:
+//     sc_frontend_pallas (_scfront_kernel). That kernel summed its windows
+//     with an in-row lane prefix, which agrees with the plain compose only
+//     to ~1e-5.
+//   ofdm_sc_correlate (K9): ofdm_uhd_tpu/kernels/pallas_sync.py:
+//     sc_correlate_mxu, which sums the three boxcars (Re and Im of the lag
+//     product, and the energy) as a banded matmul with a ones band on the
+//     MXU (pallas_fir_mxu.py:_banded_rows_call, K7b) and builds R from two
+//     shifted l-sums, R = 0.5 (S_l[i] + S_l[i+l]). On this card a ones-band
+//     matmul is wasted tensor work on a memory-bound sum; the last doubling
+//     level below computes the same R.
+// Detection compares M against its threshold and plateau with >=, so both
+// kernels keep the plain version's order instead (kernels/sync.py:
 // pairwise doubling, S_2w[i] = S_w[i] + S_w[i+w]): a block stages its
 // tile's leaves in shared memory and doubles them level by level, one
 // barrier per level, with every add and multiply written as __fadd_rn /
@@ -23,7 +32,9 @@
 // writes 12 B per output (284 + 426 MB); the tree costs ~26 shared-memory
 // adds per output at l = 128. The tile of kTile outputs stages
 // kTile + 2l - 1 samples, so the input is read (kTile + 2l) / kTile times,
-// mostly from L2. l must be a power of two (the wrapper checks).
+// mostly from L2. l must be a power of two (the wrapper checks). At C2
+// (l = 32, 32 captures of ~182k samples) a call moves ~117 MB, so it is
+// short enough that its launch shows.
 #include "ofdm_kernels.h"
 
 namespace {
@@ -31,9 +42,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 1024;           // outputs per block
 
+// kMetric: the second output q is M (ofdm_scfront), else R.
+template <bool kMetric>
 __global__ void __launch_bounds__(kThreads)
 scfront_kernel(const float2* __restrict__ r, float2* __restrict__ p_out,
-               float* __restrict__ m_out, int n, int nd, int l, int tiles) {
+               float* __restrict__ q_out, int n, int nd, int l, int tiles) {
     extern __shared__ float sm[];
     const int lp = kTile + l - 1;     // lag-product leaves a tile needs
     const int le = kTile + 2 * l - 1; // energy leaves
@@ -82,25 +95,29 @@ scfront_kernel(const float2* __restrict__ r, float2* __restrict__ p_out,
             t = pa_im; pa_im = pb_im; pb_im = t;
         }
     }
-    const float eps = 1e-12f;
     const size_t base = static_cast<size_t>(row) * nd;
     for (int j = threadIdx.x; j < kTile; j += kThreads) {
         const int i = i0 + j;
         if (i >= nd) break;
         const float pr = pa_re[j], pi = pa_im[j];
         const float rsum = __fmul_rn(0.5f, ea[j]);
-        const float mag = hypotf(pr, pi);
-        const float den = fmaxf(rsum, eps);
-        const float m = __fdiv_rn(__fmul_rn(mag, mag), __fmul_rn(den, den));
         p_out[base + i] = make_float2(pr, pi);
-        m_out[base + i] = rsum > eps ? m : 0.0f;
+        if constexpr (kMetric) {
+            const float eps = 1e-12f;
+            const float mag = hypotf(pr, pi);
+            const float den = fmaxf(rsum, eps);
+            const float m = __fdiv_rn(__fmul_rn(mag, mag),
+                                      __fmul_rn(den, den));
+            q_out[base + i] = rsum > eps ? m : 0.0f;
+        } else {
+            q_out[base + i] = rsum;
+        }
     }
 }
 
-}  // namespace
-
-OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
-                          int n, int l, void* stream) {
+template <bool kMetric>
+int launch(const float2* r, float2* p, float* q, int rows, int n, int l,
+           void* stream) {
     const int nd = n - 2 * l + 1;
     if (rows <= 0 || nd <= 0) return 0;
     const int tiles = (nd + kTile - 1) / kTile;
@@ -109,12 +126,25 @@ OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
            + 2 * static_cast<size_t>(kTile + 2 * l - 1));
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(
-            scfront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            scfront_kernel<kMetric>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    scfront_kernel<<<rows * tiles, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-        r, p, m, n, nd, l, tiles);
+    scfront_kernel<kMetric><<<rows * tiles, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+        r, p, q, n, nd, l, tiles);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
+                          int n, int l, void* stream) {
+    return launch<true>(r, p, m, rows, n, l, stream);
+}
+
+OFDM_API int ofdm_sc_correlate(const float2* r, float2* p, float* rr,
+                               int rows, int n, int l, void* stream) {
+    return launch<false>(r, p, rr, rows, n, l, stream);
 }

@@ -1,9 +1,20 @@
-"""Batched orthonormal FFT/IFFT: hand kernel + plain version.
+"""Batched orthonormal FFT/IFFT and its CP-fused forms: hand kernels +
+plain versions.
 
-Replaces ofdm_uhd_tpu/kernels/pallas_fft.py:fft_pallas (CUDA source:
-csrc/fft.cu, a shared-memory radix-2 FFT for power-of-two N up to 2048).
-The plain version is torch.fft with norm='ortho'; the kernel never calls
-cuFFT. Both take complex64 [..., N] and transform the last axis.
+  fft / ifft (K3): replace ofdm_uhd_tpu/kernels/pallas_fft.py:fft_pallas;
+      complex64 [..., N] -> [..., N], power-of-two N up to 2048.
+  cp_strip_fft (K5, RX): replaces pallas_fft.py:cp_strip_fft_pallas;
+      symbol rows [..., in_len] -> the FFT of [..., start:start+n].
+  ifft_cp (K5, TX): replaces pallas_fft.py:ifft_cp_pallas; grid rows
+      [..., n] -> the IFFT with its last cp samples prepended, [..., n+cp].
+The K5 forms take power-of-two n up to 512, where the reference routes
+them (ofdm_uhd_tpu/phy/frame.py:60-65,101-106). CUDA source: csrc/fft.cu,
+one shared-memory radix-2 FFT kernel for all three (K3 is its case of
+contiguous rows and no CP); K5 reads the strip in place (a row stride
+and an offset) and writes the CP with the row, so neither a contiguous
+copy of the windows nor a concatenation pass remains. The plain versions
+are torch.fft with norm='ortho' (and torch.cat); the kernels never call
+cuFFT.
 """
 
 from __future__ import annotations
@@ -16,6 +27,7 @@ import torch
 from . import build, policy
 
 MAX_N = 2048
+MAX_CP_N = 512     # the K5 forms: n <= 512, as the reference routes them
 
 
 def fft_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -49,6 +61,71 @@ def _fft_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     build.check(err, "fft")
     policy.count_launch("fft")
     return y
+
+
+def cp_strip_fft_plain(x: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    return fft_plain(x[..., start:start + n])
+
+
+def ifft_cp_plain(x: torch.Tensor, cp: int) -> torch.Tensor:
+    y = fft_plain(x, inverse=True)
+    return torch.cat([y[..., y.shape[-1] - cp:], y], dim=-1)
+
+
+def _check_cp_n(kernel: str, x: torch.Tensor, n: int) -> None:
+    if x.dtype != torch.complex64 or x.dim() < 1:
+        raise ValueError(f"{kernel}: need complex64 [..., n], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if n < 2 or n > MAX_CP_N or n & (n - 1):
+        raise ValueError(f"{kernel}: n must be a power of two in "
+                         f"[2, {MAX_CP_N}], got {n}")
+
+
+def _fft_cp_cuda(kernel: str, x: torch.Tensor, n: int, start: int, cp: int,
+                 inverse: bool) -> torch.Tensor:
+    """One launch of ofdm_fft_cp over the rows of x [..., in_len]: each
+    row's [start, start + n) transformed, its last cp outputs prepended."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel}: needs a CUDA tensor, got {x.device}")
+    in_len = x.shape[-1]
+    flat = x.reshape(-1, in_len)          # a view wherever the rows allow
+    rows = flat.shape[0]
+    # the kernel takes any row stride >= in_len over unit-stride rows
+    if flat.stride(-1) != 1 or (rows > 1 and flat.stride(0) < in_len):
+        flat = flat.contiguous()
+    y = torch.empty((rows, n + cp), dtype=torch.complex64, device=x.device)
+    lib = build.library()
+    err = lib.ofdm_fft_cp(flat.data_ptr(), y.data_ptr(),
+                          _twiddles(n, x.device).data_ptr(), rows,
+                          n.bit_length() - 1, int(inverse),
+                          flat.stride(0) if rows > 1 else in_len, start, cp,
+                          build.stream_ptr(x.device))
+    build.check(err, kernel)
+    policy.count_launch(kernel)
+    return y.reshape(x.shape[:-1] + (n + cp,))
+
+
+def cp_strip_fft(x: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """Symbol rows [..., in_len] -> ortho FFT of [..., start:start+n]."""
+    _check_cp_n("cpfft", x, n)
+    if start < 0 or start + n > x.shape[-1]:
+        raise ValueError(f"cpfft: the window [{start}, {start + n}) leaves "
+                         f"the {x.shape[-1]}-sample rows")
+    if policy.use_kernel(x):
+        return _fft_cp_cuda("cpfft", x, n, start, 0, inverse=False)
+    return cp_strip_fft_plain(x, start, n)
+
+
+def ifft_cp(x: torch.Tensor, cp: int) -> torch.Tensor:
+    """Grid rows [..., n] -> ortho IFFT with its last cp samples
+    prepended, [..., n + cp]."""
+    n = x.shape[-1]
+    _check_cp_n("ifftcp", x, n)
+    if cp < 0 or cp > n:
+        raise ValueError(f"ifftcp: need 0 <= cp <= {n}, got {cp}")
+    if policy.use_kernel(x):
+        return _fft_cp_cuda("ifftcp", x, n, 0, cp, inverse=True)
+    return ifft_cp_plain(x, cp)
 
 
 def fft(x: torch.Tensor) -> torch.Tensor:

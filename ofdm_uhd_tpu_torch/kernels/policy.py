@@ -1,25 +1,28 @@
 """Kernel dispatch by the tensor's device, launch counts, and the
-reference's choice of Viterbi algorithm.
+reference's routing by the spec.
 
-The reference picked a kernel tier from a global backend string and a
-table of TPU measurements. Here the input tensor decides the tier:
+Two questions, answered apart:
 
-  * a CPU tensor takes the kernel's plain PyTorch version;
-  * a CUDA tensor launches the hand-written kernel, and a failed build or
-    launch raises; it never falls back to the plain version quietly;
-  * any other device raises.
+  * Which algorithm or formulation runs is the spec's choice, as in the
+    reference: `choose` (a copy of ofdm_uhd_tpu/kernels/policy.py:96-127,
+    with its `_PALLAS_WINS` table) picks, from `kernel_backend`, between
+    the reference's Pallas formulations (the fused CP-strip FFT and IFFT +
+    CP, the boxcar S&C correlator) and its XLA ones, and `viterbi_impl`
+    (ofdm_uhd_tpu/kernels/policy.py:68-93) picks the Viterbi algorithm
+    from the spec and the batch. The windowed decoders can differ from
+    the whole-sequence one on frames whose survivors do not merge
+    (CRC-failing slots, which the stream still returns), so following the
+    reference's choice gives its bits on every slot.
+  * Which tier runs that formulation is the input tensor's choice:
+      - a CPU tensor takes the kernel's plain PyTorch version;
+      - a CUDA tensor launches the hand-written kernel, and a failed build
+        or launch raises; it never falls back to the plain version quietly;
+      - any other device raises.
 
 `plain_versions()` is the one explicit exception: inside it, CUDA tensors
 take the plain versions too, so a caller can time the same chain without
 the hand kernels (chip_smoke.py does). Each wrapper adds one to its count
 in `launches()` where it launches its kernel, and nowhere else.
-
-The Viterbi *algorithm* is another matter: the reference's windowed
-decoders can differ from the whole-sequence one on frames whose survivors
-do not merge (CRC-failing slots, which the stream still returns), so the
-port takes the reference's choice, from the spec and the batch
-(`viterbi_impl`, ofdm_uhd_tpu/kernels/policy.py:68-93), and gives its
-bits on every slot; the device then picks the tier of that algorithm.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 
 # "fir" counts the strided kernel: 'same' FIR and decimation launches
 KERNELS = ("localize", "extract", "fft", "viterbi", "viterbi_windowed",
-           "fir", "interp", "scfront")
+           "fir", "interp", "scfront", "cpfft", "ifftcp", "sccorr")
 
 # the reference's batch crossovers between its Viterbi algorithms
 _VITERBI_FUSED_MAX_BATCH = 96
@@ -55,6 +58,32 @@ def viterbi_impl(size: int, batch: int | None, requested: str = "auto",
     if batch <= _VITERBI_WINDOWED_MAX_BATCH:
         return "windowed"
     return "scan"
+
+
+# The reference's table of the kernels whose Pallas formulation it routes
+# under 'auto' (its TPU measurements): predicate(size, n) true -> 'pallas';
+# a kernel absent here ('cpfft', 'ifftcp', 'sc_corr', 'sc_front', ...)
+# takes its XLA formulation under 'auto'.
+_PALLAS_WINS = {
+    "fft": lambda size, n: size == 256,
+    "fir": lambda size, n: size >= 64,
+    "interp": lambda size, n: True,
+    "viterbi": lambda size, n: viterbi_impl(size, n) == "fused",
+    "extract": lambda size, n: True,
+}
+
+
+def choose(kernel: str, size: int, requested: str, n: int | None = None
+           ) -> str:
+    """The reference's formulation ('xla' or 'pallas') of one kernel call
+    for a spec's kernel_backend (`requested`: 'xla', 'pallas' or 'auto').
+    size: the kernel's characteristic size (FFT length, resample factor,
+    correlator half-window, trellis length); n: batch or samples per call
+    where known."""
+    if requested != "auto":
+        return requested
+    win = _PALLAS_WINS.get(kernel)
+    return "pallas" if (win is not None and win(size, n)) else "xla"
 
 
 class _Dispatch:

@@ -2,8 +2,9 @@
 
 Replaces ofdm_uhd_tpu/kernels/pallas_scfront.py:sc_frontend_pallas (CUDA
 source: csrc/scfront.cu). sc_frontend(r, l) returns (P, M), the S&C
-correlation and timing metric of kernels/sync.py, sc_metric(*sc_correlate(
-r, l)), without writing the lag product, the energy or R to device memory.
+correlation and timing metric of kernels/sync.py, sc_metric(
+*sc_correlate_plain(r, l)), without writing the lag product, the energy
+or R to device memory.
 
 The kernel keeps the plain version's pairwise-doubling summation order and
 unfused float32 arithmetic, so M agrees with the plain version to a few
@@ -16,33 +17,19 @@ from __future__ import annotations
 import torch
 
 from . import build, policy
-from .sync import sc_correlate, sc_metric
-
-MAX_L = 4096    # the block's shared memory holds 6 * (1024 + 2l) floats
+from .sync import sc_correlate_plain, sc_metric, sc_rows
 
 
 def sc_frontend_plain(r: torch.Tensor, l: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    p, rr = sc_correlate(r, l)
+    p, rr = sc_correlate_plain(r, l)
     return p, sc_metric(p, rr)
 
 
 def _scfront_cuda(r: torch.Tensor, l: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    if r.dtype != torch.complex64 or r.dim() < 1:
-        raise ValueError(f"scfront: need complex64 [..., n], got {r.dtype} "
-                         f"{tuple(r.shape)}")
-    if l < 1 or l > MAX_L or l & (l - 1):
-        raise ValueError(f"scfront: the lag must be a power of two in "
-                         f"[1, {MAX_L}], got {l}")
-    n = r.shape[-1]
-    nd = n - 2 * l + 1
-    if nd < 1:
-        raise ValueError(f"scfront: {n} samples hold no window of 2l = "
-                         f"{2 * l}")
-    flat = r.reshape(-1, n)
-    build.check_inputs("scfront", flat)
-    rows = flat.shape[0]
+    flat, nd = sc_rows("scfront", r, l)
+    rows, n = flat.shape
     p = torch.empty((rows, nd), dtype=torch.complex64, device=r.device)
     m = torch.empty((rows, nd), dtype=torch.float32, device=r.device)
     lib = build.library()

@@ -4,7 +4,11 @@ one-tap EQ and pilot phase tracking, batched over frames.
 The counterpart of ofdm_uhd_tpu/phy/frame.py. Moves between bin
 orderings (data/pilot <-> FFT grid <-> occupied) are index gathers and
 assignments here; the reference's one-hot selection matmuls give the same
-values. The FFTs go through kernels/fft.py (hand kernel on CUDA).
+values. The FFTs go through kernels/fft.py (hand kernels on CUDA): the
+spec's kernel_backend picks the formulation as the reference does
+(kernels/policy.choose), the CP-fused forms (K5) under 'pallas' where the
+reference routes them, else the FFT (K3) with a separate CP strip or
+insertion.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from ..core.spec import WaveformSpec
 from ..kernels import fft as K1
+from ..kernels.policy import choose
 from . import tables as T
 
 
@@ -44,6 +49,11 @@ def ofdm_modulate(spec: WaveformSpec, grid: torch.Tensor) -> torch.Tensor:
     the raised-cosine edge taper of spec.tx_window when it is > 0."""
     b = grid.shape[0]
     w = spec.tx_window
+    if (w <= 0 and spec.n_sc <= 512 and spec.cp > 0
+            and choose("ifftcp", spec.n_sc, spec.kernel_backend) == "pallas"):
+        # the reference's fused IFFT + CP insertion (K5): each symbol's row
+        # is written with its prefix, no concatenation pass
+        return K1.ifft_cp(grid, spec.cp).reshape(b, spec.frame_len)
     x = K1.ifft(grid)
     with_cp = torch.cat([x[..., -spec.cp:], x], dim=-1)      # [B, S, sym_len]
     if w <= 0:
@@ -76,6 +86,14 @@ def fft_windows(spec: WaveformSpec, samples: torch.Tensor,
 def ofdm_demodulate(spec: WaveformSpec, samples: torch.Tensor,
                     shift: int = 0) -> torch.Tensor:
     """samples [B, frame_len] -> grid [B, n_syms, n_sc] (CP strip + FFT)."""
+    if (spec.n_sc <= 512 and spec.sym_len % 8 == 0
+            and choose("cpfft", spec.n_sc, spec.kernel_backend) == "pallas"):
+        # the reference's fused CP strip + FFT (K5): the symbol rows are
+        # read in place, the strip is an offset
+        b = samples.shape[0]
+        syms = samples[:, : spec.frame_len].reshape(b, spec.n_syms,
+                                                    spec.sym_len)
+        return K1.cp_strip_fft(syms, spec.cp - shift, spec.n_sc)
     return K1.fft(fft_windows(spec, samples, shift))
 
 

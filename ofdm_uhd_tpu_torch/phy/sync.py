@@ -4,7 +4,9 @@ The counterpart of ofdm_uhd_tpu/phy/sync.py, with the capture batch
 written out: every function takes [C, ...] captures where the reference
 vmapped over them. Detection is the reference's parallel formulation:
 
-  0. the S&C correlation P and metric M in one pass: kernels/scfront.py;
+  0. the S&C correlation P and metric M (`sc_front`): in one pass
+     (kernels/scfront.py, K6), or, where the reference routes its boxcar
+     correlator, P and R (kernels/sync.py, K9) and then M;
   1. candidates: rising edges of (M >= threshold), the first `max_cand`
      kept with the reference's per-512-block capacity of 8 edges
      (`_first_k_indices`; overflow shows only in `det_sat`);
@@ -28,26 +30,46 @@ import torch
 from ..core.spec import WaveformSpec
 from ..kernels.extract import extract_frames as _extract
 from ..kernels.localize import localize
+from ..kernels.policy import choose
 from ..kernels.scfront import sc_frontend
+from ..kernels.sync import sc_correlate, sc_metric
 from . import tables as T
 
 _EXTRACT_BS = 512      # block size of the hierarchical index extraction
 _EXTRACT_S = 8         # rising-edge capacity per block
 
 
+def sc_front(spec: WaveformSpec, capture: torch.Tensor,
+             backend: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """capture [C, n] c64 -> (P [C, nd] c64, M [C, nd] f32) at l = n_sc/2,
+    in the reference's formulation for `backend` (default the spec's
+    kernel_backend; ofdm_uhd_tpu/phy/sync.py:61-75): the fused front end
+    when l % 128 == 0 and it is chosen; else the boxcar correlator K9 and
+    the metric where 'sc_corr' is chosen; else the XLA compose, which K6
+    computes in the same summation order."""
+    l = spec.n_sc // 2
+    be = backend or spec.kernel_backend
+    fused = l % 128 == 0 and choose("sc_front", l, be) == "pallas"
+    if not fused and choose("sc_corr", l, be) == "pallas":
+        p, rr = sc_correlate(capture, l)
+        return p, sc_metric(p, rr)
+    return sc_frontend(capture, l)
+
+
 def detect_frames(spec: WaveformSpec, capture: torch.Tensor, max_frames: int,
-                  threshold: float = 0.5, rel: float = 0.9):
+                  threshold: float = 0.5, rel: float = 0.9,
+                  backend: str | None = None):
     """capture [C, n] c64 -> (d [C, mf] i32, eps [C, mf] f32,
     valid [C, mf] bool, det_sat [C] bool).
 
     d = first sample of each frame (plateau midpoint - cp/2); eps =
     fractional CFO in subcarrier spacings, angle(P)/pi; det_sat is TRUE
     where a 512-sample block held more rising edges than the extractor's
-    capacity, so a frame MAY have been missed.
+    capacity, so a frame MAY have been missed. `backend` picks the S&C
+    formulation (`sc_front`), default the spec's kernel_backend.
     """
-    l = spec.n_sc // 2
     n = capture.shape[-1]
-    p, m = sc_frontend(capture, l)
+    p, m = sc_front(spec, capture, backend)
     nd = m.shape[-1]
     span = spec.sym_len
     max_cand = min(4 * max_frames + 16, nd)

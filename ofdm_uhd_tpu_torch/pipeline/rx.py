@@ -8,11 +8,14 @@ CRC.
 
 The reference vmapped the chain over captures; here the capture axis C
 is written out and every kernel takes it, so one call processes [C, n]
-captures with C * max_frames frame slots. Kernels are chosen by the
-input's device (kernels/policy.py): on CUDA the hand kernels (decimation
-FIR, S&C front end, localize, extract, FFT, Viterbi) run, on the CPU
-their plain versions. The Viterbi algorithm is the reference's choice
-from the spec and the decode batch C * max_frames (kernels/policy.py).
+captures with C * max_frames frame slots. The spec picks each stage's
+formulation as the reference does (kernels/policy.py): the S&C front end
+(K6) or, under kernel_backend='pallas' when l % 128 != 0, the boxcar
+correlator (K9) and the metric; the CP-fused FFT (K5) under 'pallas', else
+the FFT (K3); the Viterbi algorithm from the spec and the decode batch
+C * max_frames (K4 whole or K4w windowed). The input's device picks the
+tier: on CUDA the hand kernels run (with the decimation FIR, localize and
+extract), on the CPU their plain versions.
 """
 
 from __future__ import annotations

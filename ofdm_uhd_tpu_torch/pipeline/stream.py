@@ -40,7 +40,9 @@ class StreamFrame:
 
 
 class StreamRx:
-    """Streaming OFDM receiver on one device (`device`, default the CPU).
+    """Streaming OFDM receiver on one device (`device`, default the first
+    CUDA card; without one, torch raises: pass device='cpu' to run the
+    plain versions on the CPU).
 
     The reference's constructor arguments; `mesh` must be None (one
     device), and pallas_halo, reshard and threshold_mode='cfar' raise
@@ -55,7 +57,7 @@ class StreamRx:
                  reshard: bool = False, track_mode: bool = True,
                  agc: bool = True, steps_per_dispatch: int = 8,
                  input_format: str = "fc32",
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         if mesh is not None:
             raise NotImplementedError(f"a device mesh comes with "
                                       f"{LATER_SLICE}")

@@ -4,8 +4,10 @@ counterpart of ofdm_uhd_tpu/pipeline/tx.py.
 
 In the port the TX is a data generator for tests and the chip smoke run:
 it runs on whatever device its input lies on, through the same kernel
-dispatch as the RX (the IFFT is the FFT kernel's inverse on CUDA, the
-interpolation the interp kernel).
+dispatch as the RX. On CUDA the IFFT + CP is the fused K5 kernel under
+kernel_backend='pallas' (where the reference routes ifft_cp_pallas), else
+the FFT kernel's inverse and a concatenation; the interpolation is the
+interp kernel.
 """
 
 from __future__ import annotations

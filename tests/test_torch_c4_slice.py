@@ -106,7 +106,8 @@ def test_c4_slice_on_cpu_launches_no_kernel(port):
 def test_c4_build_capture_matches(ref):
     for seed in range(N_CAPS):
         cap, pay = build_capture(config("c4").with_(n_data_syms=2), N_FRAMES,
-                                 GAP, seed=seed, cfo=CFO, phase_noise_std=0.0)
+                                 GAP, seed=seed, cfo=CFO, phase_noise_std=0.0,
+                                 device="cpu")
         np.testing.assert_array_equal(pay, ref["pays"][seed])
         r = ref["caps"][seed]
         assert cap.dtype == np.complex64 and cap.shape == r.shape

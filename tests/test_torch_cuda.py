@@ -12,7 +12,7 @@ import torch
 
 from ofdm_uhd_tpu_torch.core.spec import config
 from ofdm_uhd_tpu_torch.kernels import (extract, fft, fir, localize, policy,
-                                        scfront, viterbi)
+                                        scfront, sync, viterbi)
 from ofdm_uhd_tpu_torch.phy.tables import resample_filter
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +106,52 @@ def test_fft_kernel_close(dev, n, inverse):
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("n,cp", [(64, 16), (256, 32), (512, 64)])
+def test_cp_strip_fft_kernel_close(dev, n, cp, shift):
+    """K5 RX on odd row counts, in place on the symbol rows, and on a
+    non-contiguous batch view (every other frame)."""
+    x = torch.randn((13, 7, n + cp), dtype=torch.complex64,
+                    generator=_gen(n + shift), device=dev)
+    start = cp - shift
+    for rows in (x, x[::2], x[:, 1:6]):
+        policy.reset_launches()
+        got = fft.cp_strip_fft(rows, start, n)
+        assert policy.launches()["cpfft"] == 1
+        _within(got, fft.cp_strip_fft_plain(rows, start, n))
+
+
+@pytest.mark.parametrize("n,cp", [(64, 16), (256, 32), (512, 64)])
+def test_ifft_cp_kernel_close(dev, n, cp):
+    g = torch.randn((11, 3, n), dtype=torch.complex64, generator=_gen(n),
+                    device=dev)
+    for rows in (g, g[:, ::2]):
+        policy.reset_launches()
+        got = fft.ifft_cp(rows, cp)
+        assert policy.launches()["ifftcp"] == 1
+        _within(got, fft.ifft_cp_plain(rows, cp))
+        assert torch.equal(got[..., :cp], got[..., n:])
+
+
+@pytest.mark.parametrize("l", [32, 128])
+@pytest.mark.parametrize("n", [5000, 50001])
+def test_sc_correlate_kernel_close(dev, l, n):
+    """K9 against its plain version: P within 1e-5 of max|P|, R within
+    1e-5 relative (the same doubling order, unfused)."""
+    x = torch.randn((3, n), dtype=torch.complex64, generator=_gen(l + n),
+                    device=dev)
+    x[1, 1000:3000] = 0
+    policy.reset_launches()
+    p, rr = sync.sc_correlate(x, l)
+    assert policy.launches()["sccorr"] == 1
+    p0, rr0 = sync.sc_correlate_plain(x, l)
+    _within(p, p0)
+    assert float(((rr - rr0).abs() / rr0.abs().clamp_min(1e-30)).max()) \
+        <= 1e-5
+    m, m0 = sync.sc_metric(p, rr), sync.sc_metric(p0, rr0)
+    assert (m - m0).abs().max() <= 1e-5
+
+
 def test_localize_kernel_exact(dev):
     spec = config("c3")
     g = _gen(3)
@@ -153,13 +199,25 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         scfront.sc_frontend(torch.zeros((2, 1000), dtype=torch.complex64,
                                         device=dev), 100)
+    c = torch.zeros((2, 3, 1100), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        fft.cp_strip_fft(c, 16, 48)                # not a power of two
+    with pytest.raises(ValueError):
+        fft.cp_strip_fft(c, 76, 1024)              # above 512
+    with pytest.raises(ValueError):
+        fft.ifft_cp(c[..., :96], 16)
+    with pytest.raises(ValueError):
+        sync.sc_correlate(c[0, :, :63], 32)        # nd < 1
+    with pytest.raises(ValueError):
+        sync.sc_correlate(c[0], 48)
 
 
 def test_slice_on_card_matches_cpu(dev):
     from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16
     from ofdm_uhd_tpu_torch.pipeline import RxPipeline
     spec = config("c3")
-    built = [build_capture(spec, 3, 300, seed=s) for s in range(2)]
+    built = [build_capture(spec, 3, 300, seed=s, device=dev)
+             for s in range(2)]
     iq = torch.from_numpy(to_sc16(np.stack([c for c, _ in built])))
     pays = np.stack([p for _, p in built])
     rx = RxPipeline(spec)
@@ -241,8 +299,8 @@ def test_detect_frames_kernel_route_exact(dev, name):
     if name == "c4":
         spec = spec.with_(n_data_syms=2)
     cfo = 0.8 / spec.resample_l
-    caps = np.stack([build_capture(spec, 4, 300, seed=s, cfo=cfo)[0]
-                     for s in range(2)])
+    caps = np.stack([build_capture(spec, 4, 300, seed=s, cfo=cfo,
+                                   device=dev)[0] for s in range(2)])
     cap = torch.from_numpy(caps).to(dev)
     cap = agc.agc_normalize(rxp._capture_to_baseband(spec, cap))[0]
     got = sync.detect_frames(spec, cap, 6)
@@ -259,7 +317,7 @@ def test_c4_slice_on_card_matches_cpu(dev):
     from ofdm_uhd_tpu_torch.pipeline import RxPipeline
     spec = config("c4").with_(n_data_syms=2)
     built = [build_capture(spec, 3, 300, seed=s, cfo=0.1,
-                           phase_noise_std=0.0) for s in range(2)]
+                           phase_noise_std=0.0, device=dev) for s in range(2)]
     caps = torch.from_numpy(np.stack([c for c, _ in built]))
     pays = np.stack([p for _, p in built])
     rx = RxPipeline(spec)
@@ -306,3 +364,35 @@ def test_stream_on_card_matches_plain_forced(dev):
         assert np.array_equal(g.payload, p)
     for f in ("steps", "frames", "crc_ok", "track_wt"):
         assert int(getattr(rx.state, f)) == int(getattr(rx_p.state, f)), f
+
+
+@pytest.mark.parametrize("name", ["c2", "c3"])
+def test_pallas_slice_on_card_matches_cpu(dev, name):
+    """The kernel_backend='pallas' route on the card (K5 on TX and RX; K9
+    at C2, K6 at C3) equals the CPU's plain versions."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline
+    spec = config(name).with_(kernel_backend="pallas")
+    policy.reset_launches()
+    built = [build_capture(spec, 3, 300, seed=s, device=dev)
+             for s in range(2)]
+    assert policy.launches()["ifftcp"] == 2
+    iq = torch.from_numpy(to_sc16(np.stack([c for c, _ in built])))
+    pays = np.stack([p for _, p in built])
+    rx = RxPipeline(spec)
+    cpu = rx.rx_capture_sc16(iq, max_frames=5)
+    policy.reset_launches()
+    gpu = rx.rx_capture_sc16(iq.to(dev), max_frames=5)
+    torch.cuda.synchronize()
+    launched = policy.launches()
+    sc = "sccorr" if name == "c2" else "scfront"
+    vit = "viterbi" if name == "c2" else "viterbi_windowed"
+    path = (sc, "localize", "extract", "cpfft", vit)
+    assert all(launched[k] > 0 for k in path), launched
+    assert sum(launched.values()) == sum(launched[k] for k in path)
+    for k in ("crc_ok", "valid", "d", "det_sat"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    assert torch.equal(gpu["payload"].cpu()[cpu["valid"]],
+                       cpu["payload"][cpu["valid"]])
+    assert np.array_equal(gpu["payload"][:, :3].cpu().numpy(), pays)
+    assert (gpu["eps"].cpu() - cpu["eps"]).abs().max() <= 1e-4

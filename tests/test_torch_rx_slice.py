@@ -66,7 +66,8 @@ def port(ref):
 
 def test_build_capture_matches(ref):
     for seed in range(N_CAPS):
-        cap, pay = build_capture(config("c3"), N_FRAMES, GAP, seed=seed)
+        cap, pay = build_capture(config("c3"), N_FRAMES, GAP, seed=seed,
+                                 device="cpu")
         np.testing.assert_array_equal(pay, ref["pays"][seed])
         r = ref["caps"][seed]
         assert cap.dtype == np.complex64 and cap.shape == r.shape

@@ -30,7 +30,7 @@ from bench_lib import build_capture as ref_build_capture  # noqa: E402
 from ofdm_uhd_tpu.core.spec import config as ref_config  # noqa: E402
 from ofdm_uhd_tpu.pipeline.stream import StreamRx as RefStreamRx  # noqa: E402
 from ofdm_uhd_tpu.shard.mesh import make_mesh  # noqa: E402
-from ofdm_uhd_tpu_torch.bench_lib import to_sc16  # noqa: E402
+from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16  # noqa: E402
 from ofdm_uhd_tpu_torch.channel import make_capture  # noqa: E402
 from ofdm_uhd_tpu_torch.convert import spec_from_reference  # noqa: E402
 from ofdm_uhd_tpu_torch.core.spec import ChannelSpec  # noqa: E402
@@ -110,7 +110,7 @@ def ref(tmp_path_factory):
 @pytest.fixture(scope="module")
 def port(ref):
     spec = _port_spec(ref["spec"])
-    rx = StreamRx(spec, steps_per_dispatch=1)
+    rx = StreamRx(spec, steps_per_dispatch=1, device="cpu")
     policy.reset_launches()
     frames = _run(rx, ref["cap"])
     return {"spec": spec, "rx": rx, "frames": frames,
@@ -134,7 +134,7 @@ def test_stream_burst_slot_needs_the_reference_algorithm(ref, port):
     """The CRC-failing slot tells the decoders apart: decoded whole-sequence
     (kernel_backend 'xla') its payload differs from the reference's."""
     rx = StreamRx(port["spec"].with_(kernel_backend="xla"),
-                  steps_per_dispatch=1)
+                  steps_per_dispatch=1, device="cpu")
     got = _run(rx, ref["cap"])
     assert [g.start for g in got] == [g.start for g in port["frames"]]
     assert not np.array_equal(got[BURST_FRAME].payload,
@@ -154,7 +154,7 @@ def test_stream_on_cpu_launches_no_kernel(port):
 
 
 def test_stream_k_step_equals_single_step(ref, port):
-    rx = StreamRx(port["spec"], steps_per_dispatch=3)
+    rx = StreamRx(port["spec"], steps_per_dispatch=3, device="cpu")
     got = _run(rx, ref["cap"])
     _same_frames(got, port["frames"])
     for f in dataclasses.fields(StreamState):
@@ -163,7 +163,8 @@ def test_stream_k_step_equals_single_step(ref, port):
 
 
 def test_stream_sc16_matches_reference(ref, port):
-    rx = StreamRx(port["spec"], steps_per_dispatch=2, input_format="sc16")
+    rx = StreamRx(port["spec"], steps_per_dispatch=2, input_format="sc16",
+                  device="cpu")
     got = _run(rx, ref["iq"])
     _same_frames(got, ref["sc16"])
     assert [g.start for g in got] == [g.start for g in port["frames"]]
@@ -175,7 +176,7 @@ def test_stream_resumes_reference_checkpoint(ref, port, tmp_path):
     the port, which decodes the remaining frames as the reference did; the
     port's checkpoint at the same point has the reference's layout and
     values."""
-    rx = StreamRx(port["spec"], steps_per_dispatch=1)
+    rx = StreamRx(port["spec"], steps_per_dispatch=1, device="cpu")
     rx.load_state(ref["ckpt"])
     got = rx.process(ref["cap"][ref["split"]:]) + rx.flush()
     n_done = sum(f.start < got[0].start for f in ref["frames"])
@@ -184,7 +185,7 @@ def test_stream_resumes_reference_checkpoint(ref, port, tmp_path):
     _same_state(rx.state, ref["state"])
 
     mine = str(tmp_path / "port_ckpt.npz")
-    rx = StreamRx(port["spec"], steps_per_dispatch=1)
+    rx = StreamRx(port["spec"], steps_per_dispatch=1, device="cpu")
     rx.process(ref["cap"][:ref["split"]])
     rx.save_state(mine)
     with np.load(mine) as z, np.load(ref["ckpt"]) as r:
@@ -224,9 +225,9 @@ def test_stream_track_retry_rescues_burst():
 
     rx_ref = _ref_rx(rspec, chunk_len=chunk, track_mode=True)
     want = _run(rx_ref, cap)
-    rx_no = StreamRx(spec, chunk_len=chunk, track_mode=False)
+    rx_no = StreamRx(spec, chunk_len=chunk, track_mode=False, device="cpu")
     assert sum(g.crc_ok for g in _run(rx_no, cap)) == n_fr - 1
-    rx = StreamRx(spec, chunk_len=chunk, track_mode=True)
+    rx = StreamRx(spec, chunk_len=chunk, track_mode=True, device="cpu")
     got = _run(rx, cap)
     _same_frames(got, want)
     assert sum(g.crc_ok for g in got) == n_fr
@@ -245,7 +246,7 @@ def test_stream_resampled_c4_matches_reference():
     cap, pays = ref_build_capture(rspec, 3, GAP, seed=1, cfo=0.1,
                                   phase_noise_std=0.0)
     want = _run(_ref_rx(rspec, steps_per_dispatch=1), cap)
-    rx = StreamRx(spec, steps_per_dispatch=1)
+    rx = StreamRx(spec, steps_per_dispatch=1, device="cpu")
     assert rx.state.rtail.shape == (192,)
     got = _run(rx, cap)
     _same_frames(got, want)
@@ -267,7 +268,7 @@ def test_stream_boundary_duplicate_matches_reference(early):
     offset = cb - h - early - 2 * (spec.frame_len + GAP)
     cap, _ = ref_build_capture(rspec, 4, GAP, seed=0, timing_offset=offset)
     want = _run(_ref_rx(rspec, steps_per_dispatch=1), cap)
-    got = _run(StreamRx(spec, steps_per_dispatch=1), cap)
+    got = _run(StreamRx(spec, steps_per_dispatch=1, device="cpu"), cap)
     _same_frames(got, want)
     assert len(got) == 5 and got[3].start == cb - h
     assert got[3].crc_ok == (early == 8)
@@ -279,4 +280,39 @@ def test_stream_options_of_later_slices_raise():
     for kw in ({"reshard": True}, {"pallas_halo": True},
                {"threshold_mode": "cfar"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
-            StreamRx(spec, **kw)
+            StreamRx(spec, device="cpu", **kw)
+
+
+
+@pytest.mark.parametrize("entry", ["StreamRx", "StreamState.init",
+                                   "StreamState.from_numpy",
+                                   "StreamState.load", "build_capture"])
+def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
+    """Without `device`, the entry points run on the CUDA card: without one
+    torch raises, and nothing carries on quietly on the CPU."""
+    spec = _port_spec(ref_config("c5").with_(n_data_syms=2))
+    state = StreamState.init(spec, device="cpu")
+    ckpt = str(tmp_path / "state.npz")
+    state.save(ckpt)
+    tx_devices = []
+    tx_call = TxPipeline.__call__
+
+    def tx_spy(self, payloads):
+        tx_devices.append(payloads.device)
+        return tx_call(self, payloads)
+    monkeypatch.setattr(TxPipeline, "__call__", tx_spy)
+
+    def capture_device():
+        build_capture(spec, 1, GAP)
+        return tx_devices[0]
+    run = {"StreamRx": lambda: StreamRx(spec).state.tail.device,
+           "StreamState.init": lambda: StreamState.init(spec).tail.device,
+           "StreamState.from_numpy": lambda: StreamState.from_numpy(
+               state.to_numpy()).tail.device,
+           "StreamState.load": lambda: StreamState.load(ckpt).tail.device,
+           "build_capture": capture_device}[entry]
+    if torch.cuda.is_available():
+        assert run().type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            run()
