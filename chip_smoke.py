@@ -27,21 +27,34 @@ each prints its findings on a line of its own:
   c2_pallas, the reference bench's C2 capture row under --backend pallas:
       32 captures x 128 frames (gap 300, SNR 28 dB, CFO 0.8, timing offset
       100, sc16), built and decoded as c3_pallas, with the boxcar S&C
-      correlator kernel (l = 32) and the whole-sequence Viterbi kernel.
+      correlator kernel (l = 32) and the whole-sequence Viterbi kernel;
+  c5_sharded, the shard/ layer on a virtual mesh (several mesh entries on
+      the one card): C5's capture at the resident point over
+      `StreamRx(spec, mesh=make_mesh(1, 4, [cuda:0] * 4))` (Cb 1,032,192,
+      258 slots a shard) three times, with the halos moved as the
+      reference's ppermute, by the halo kernel (`pallas_halo=True`), and
+      with the slot reshard (`reshard=True`); the steps and kernels on the
+      first window's shard rows [4, Cb + H], each kernel held against its
+      plain version there, the halo kernel on that window's blocks;
+      `rx_frames_sharded` over a (4, 1) mesh and `rx_aligned_pipelined`
+      over 2 stages on 4096 C3 frames built by the port's TX on the card
+      (SNR 28 dB), against `RxPipeline.rx_aligned`; and, with two cards or
+      more, a (1, 2) mesh over two cards with the halo kernel's peer read.
 
   1. device:  a CUDA card must be present; prints the card's name and
               power limit as nvidia-smi reports them;
   2. build:   builds the hand kernels from ofdm_uhd_tpu_torch/kernels/csrc
               (one nvcc per source, sm_90a, started together) into
               build/ofdm_uhd_tpu_torch/;
-  then for C3, C4, C5, c3_pallas and c2_pallas in turn:
+  then for C3, C4, C5 (and c5_sharded), c3_pallas and c2_pallas in turn:
   3. input:   the captures, built by the port's TxPipeline on the card
               (C4's interpolation is the interp kernel; the 'pallas'
               paths' IFFT + CP the ifftcp kernel), with the TX's launches
               counted (C4, 'pallas');
   4. stages:  runs the chain's steps one at a time on the whole batch (C5:
-              on the first step's window of each operating point) and
-              times each (CUDA events, median of 5);
+              on the first step's window of each operating point;
+              c5_sharded: on that window's shard rows) and times each
+              (CUDA events, median of 5);
   5. kernels: holds each kernel against its plain PyTorch version on the
               card, on the inputs those steps gave it, and times both
               (CUDA events, median of 5), beside its bound (the larger of
@@ -80,6 +93,9 @@ C5_FRAMES, C5_OFFSET = 4096, 100
 C5_RESIDENT = (4_128_768, 4)     # (chunk, steps per dispatch), fc32
 C5_HOSTFED = (129_024, 16)       # sc16
 C2_CAPS, C2_FRAMES = 32, 128
+C5_SHARDS = 4                    # the virtual mesh's time axis, on one card
+ROUNDS_SHARDED = 5               # interleaved timing rounds of c5_sharded
+AXES_FRAMES, AXES_SNR = 4096, 28.0   # the frame and stage axes' C3 batch
 REPS = 5
 REPS_STREAM = 2
 REL_TOL = 1e-5          # FIR / FFT / S&C P: max error within 1e-5 * max|y|
@@ -116,6 +132,8 @@ KERNEL_INFO = {
                "ofdm_uhd_tpu/kernels/pallas_fft.py:204"),
     "sccorr": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
                "ofdm_uhd_tpu/kernels/pallas_sync.py:55"),
+    "halo": ("ofdm_uhd_tpu_torch/kernels/csrc/halo.cu",
+             "ofdm_uhd_tpu/kernels/pallas_halo.py:59"),
 }
 # the kernels each path's RX launches (C4's interp runs in its TX, and
 # the 'pallas' paths' ifftcp in theirs)
@@ -298,13 +316,18 @@ def make_input_c4(torch, spec, device):
     return caps, pays, base, launches
 
 
-def phase_stages(torch, spec, label, x, max_frames,
-                 path=C3_PATH) -> tuple[dict, dict]:
+def phase_stages(torch, spec, label, x, max_frames, path=C3_PATH,
+                 front=None, algo_batch=None) -> tuple[dict, dict]:
     """The steps of pipeline/rx.py:_rx_capture one at a time, on the whole
     batch: each step's device time (CUDA events, median of 5, so steps do
     not overlap) and each kernel's inputs as the main path produces them.
     x: sc16 planes [2, C, n] (C3) or fc32 radio-rate captures [C, n] (C4);
-    path: the kernels the spec routes (it names the S&C step)."""
+    path: the kernels the spec routes (it names the S&C step); front:
+    (name, fn) giving the rows [C, n] in place of the conversion,
+    decimation and AGC steps (c5_sharded: the window's AGC and the halo
+    exchange into the shards' rows); algo_batch: the batch the Viterbi
+    algorithm is chosen at (default the decode's: c5_sharded one shard's
+    slots)."""
     from ofdm_uhd_tpu_torch.kernels import policy, viterbi
     from ofdm_uhd_tpu_torch.kernels.localize import localize
     from ofdm_uhd_tpu_torch.phy import agc, bits, frame, sync
@@ -318,7 +341,9 @@ def phase_stages(torch, spec, label, x, max_frames,
         return out
 
     shift = min(4, spec.cp // 4)
-    if x.dtype == torch.int16:
+    if front is not None:
+        cap = step(*front)
+    elif x.dtype == torch.int16:
         cap = step("sc16+agc", lambda: agc.agc_normalize(
             rx._sc16_to_complex(x))[0])
     elif (spec.resample_l, spec.resample_m) == (1, 1):
@@ -364,7 +389,8 @@ def phase_stages(torch, spec, label, x, max_frames,
     llr_d = step("deinterleave", lambda: bits.deinterleave_soft(
         llr, spec.coded_bits_per_sym).contiguous())
     # the spec's Viterbi algorithm at this decode batch (C3, C4: scan)
-    algorithm = policy.viterbi_impl(llr_d.shape[-1] // 2, llr_d.shape[0],
+    algorithm = policy.viterbi_impl(llr_d.shape[-1] // 2,
+                                    algo_batch or llr_d.shape[0],
                                     spec.kernel_backend, spec.viterbi_mode)
     dec_bits = step(f"viterbi ({algorithm})", lambda: viterbi.decode(
         llr_d, algorithm, spec.viterbi_impl))
@@ -853,18 +879,19 @@ def first_window(torch, spec, x, chunk, device):
     return torch.from_numpy(w[None]).to(device)
 
 
-def check_stream(label, frames, pays, spec, chunk) -> list:
+def check_stream(label, frames, pays, spec, block) -> list:
     """Every sent frame decoded once with its CRC passing, bit-exact, in
     order, its start within the CP of the sent start. The only other slots
     allowed are the reference's boundary duplicates (tests/test_torch_
-    stream.py): a frame starting a few samples before a processing window
-    is detected again at the window's first sample, start = k*chunk - H.
-    Returns those duplicates."""
+    stream.py): a frame starting a few samples before a shard's extended
+    block is detected again at its first sample, start = k*block - H
+    (block: the chunk, or a shard's Cb on a mesh). Returns those
+    duplicates."""
     import numpy as np
     from ofdm_uhd_tpu_torch.core.state import StreamState
     h = StreamState.halo_len(spec)
     dups = [f for i, f in enumerate(frames)
-            if i and (f.start + h) % chunk == 0
+            if i and (f.start + h) % block == 0
             and f.start - frames[i - 1].start <= spec.cp]
     kept = [f for f in frames if all(f is not d for d in dups)]
     n = pays.shape[0]
@@ -889,12 +916,15 @@ def same_frames(label, a, b) -> None:
 
 
 def phase_stream_run(torch, spec, label, make_rx, feed, run, pays,
-                     samples, dispatches) -> dict:
+                     samples, dispatches, path=C5_PATH
+                     ) -> tuple[dict, list]:
     """One operating point of the stream: the main-path run (checked, its
-    launches counted), `REPS_STREAM` timed runs on a second, perturbed
-    feed, a plain-forced run that must give the same frames, and the busy
-    share over one run. run(rx, feed) -> frames; feed = (first, second);
-    samples and dispatches: radio samples and K-step dispatches per run."""
+    launches counted: every kernel of `path` launched, no other), `REPS_STREAM`
+    timed runs on a second, perturbed feed, a plain-forced run that must
+    give the same frames, and the busy share over one
+    run. run(rx, feed) -> frames; feed = (first, second); samples and
+    dispatches: radio samples and K-step dispatches per run. Returns the
+    results and the main run's frames."""
     from ofdm_uhd_tpu_torch.kernels import policy
     rx = make_rx()
     torch.cuda.synchronize()
@@ -904,10 +934,12 @@ def phase_stream_run(torch, spec, label, make_rx, feed, run, pays,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = policy.launches()
-    for k in C5_PATH:
-        check(launches[k] > 0, f"{label}: the main path never launched the "
-              f"{k} kernel")
-    dups = check_stream(label, frames, pays, spec, rx.chunk_len)
+    for k, n in launches.items():
+        check((n > 0) == (k in path), f"{label}: the main path launched the "
+              f"{k} kernel {n} times")
+    dups = check_stream(label, frames, pays, spec, rx.cb)
+    edge = [d for d in dups if (d.start + rx.h) % rx.chunk_len == 0]
+    inner = [d for d in dups if (d.start + rx.h) % rx.chunk_len]
     st = rx.state
     n_ok = pays.shape[0] + sum(d.crc_ok for d in dups)
     check(int(st.frames) == pays.shape[0] + len(dups)
@@ -934,14 +966,15 @@ def phase_stream_run(torch, spec, label, make_rx, feed, run, pays,
     rx_p = make_rx()
     t0 = time.perf_counter()
     with policy.plain_versions():
-        plain = run(rx_p, feed[0])
+        plain_frames = run(rx_p, feed[0])
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    same_frames(label, frames, plain)
+    same_frames(label, frames, plain_frames)
     busy = device_busy_share(torch, lambda: run(make_rx(), feed[0]))
     res = {"frames_ok": pays.shape[0],
-           "boundary_duplicates": [(d.start, d.crc_ok) for d in dups],
-           "dispatches": dispatches,
+           "boundary_duplicates": [(d.start, d.crc_ok) for d in edge],
+           "inner_duplicates": [(d.start, d.crc_ok) for d in inner],
+           "shards": rx.mesh.shape["time"], "dispatches": dispatches,
            "steps": rx._steps, "ms_per_dispatch": wall * 1e3 / dispatches,
            "ms_per_step": wall * 1e3 / rx._steps,
            "msps": samples / wall / 1e6, "run_s": walls,
@@ -950,19 +983,22 @@ def phase_stream_run(torch, spec, label, make_rx, feed, run, pays,
            "launches": launches, "profile": busy}
     share = busy["busy_share"]
     log(f"{label}: ok  {pays.shape[0]}/{pays.shape[0]} frames crc_ok, "
-        f"bit-exact, in order, and {len(dups)} boundary duplicates "
-        f"(start, crc_ok) {res['boundary_duplicates']}; state frames "
+        f"bit-exact, in order, and {len(edge)} chunk-boundary "
+        f"duplicates (start, crc_ok) {res['boundary_duplicates']}, "
+        f"{len(inner)} at inner shard boundaries {res['inner_duplicates']}"
+        f"; state frames "
         f"{int(st.frames)}, crc_ok {int(st.crc_ok)}; "
         f"{res['ms_per_dispatch']:.2f} ms/dispatch over {dispatches} "
         f"dispatches ({rx._steps} steps, {res['ms_per_step']:.3f} ms/step), "
         f"{res['msps']:.1f} "
         f"Msamples/s (runs {', '.join(f'{w:.3f}' for w in walls)} s, "
-        f"device {', '.join(f'{d:.3f}' for d in devs)} s); plain-forced "
-        f"{plain_s:.2f} s, same starts and payloads; busy share " + (
+        f"device {', '.join(f'{d:.3f}' for d in devs)} s); "
+        f"plain-forced {plain_s:.2f} s, same starts and payloads"
+        "; busy share " + (
             "not measured" if share is None else
             f"{share:.3f} of {busy['traced_wall_ms']:.1f} ms") +
         f"; launches {launches}")
-    return res
+    return res, frames
 
 
 def phase_track_c5(torch, config, device) -> dict:
@@ -1026,10 +1062,11 @@ def phase_kernels_c5(torch, spec, llr_res, llr_host) -> dict:
     return res
 
 
-def run_c5(torch, config, device) -> dict:
+def run_c5(torch, config, device) -> tuple[dict, dict]:
     """C5, the stream, at its two operating points: resident fc32 (chunk
     4,128,768, K = 4, chunk stacks staged on the card) and host-fed sc16
-    (chunk 129,024, K = 16, through process + flush)."""
+    (chunk 129,024, K = 16, through process + flush); then c5_sharded on
+    the resident point's stacks. Returns (c5, c5_sharded)."""
     import numpy as np
     from ofdm_uhd_tpu_torch.pipeline import StreamRx
     spec = config("c5").with_(kernel_backend="auto")
@@ -1055,18 +1092,16 @@ def run_c5(torch, config, device) -> dict:
     # resident fc32: the padded capture as K-step stacks on the card
     chunk, k = C5_RESIDENT
     per = chunk * k
-    n_disp = -(-cap.shape[0] // per)
-    padded = np.zeros(n_disp * per, np.complex64)
-    padded[:cap.shape[0]] = cap
-    stacks = [[torch.from_numpy(padded[d * per:(d + 1) * per].reshape(
-        k, chunk)).to(device) * torch.tensor(1 + 1e-6 * v, device=device)
-        for d in range(n_disp)] for v in range(2)]
-    resident = phase_stream_run(
+    stacks = resident_stacks(torch, cap, device)
+    n_disp = len(stacks[0])
+    resident, one_shard = phase_stream_run(
         torch, spec, "c5 resident fc32",
         lambda: StreamRx(spec, chunk_len=chunk, steps_per_dispatch=k,
                          device=device),
         stacks, lambda rx, st: rx.process_device(st), pays, n_disp * per,
         n_disp)
+    sharded = run_c5_sharded(torch, spec, device, stacks, pays, one_shard,
+                             n_disp * per, n_disp)
     del stacks
 
     # host-fed sc16 from host memory, padded to whole K-step dispatches
@@ -1074,7 +1109,7 @@ def run_c5(torch, config, device) -> dict:
     per = chunk * k
     feed = np.zeros((2, -(-iq.shape[1] // per) * per), np.int16)
     feed[:, :iq.shape[1]] = iq
-    hostfed = phase_stream_run(
+    hostfed, _ = phase_stream_run(
         torch, spec, "c5 host-fed sc16",
         lambda: StreamRx(spec, chunk_len=chunk, steps_per_dispatch=k,
                          input_format="sc16", device=device),
@@ -1085,16 +1120,280 @@ def run_c5(torch, config, device) -> dict:
             "kernels": kernels, "resident": resident, "hostfed": hostfed,
             "track": track,
             "launches": {n: resident["launches"][n] + hostfed["launches"][n]
-                         for n in resident["launches"]}}
+                         for n in resident["launches"]}}, sharded
+
+
+def resident_stacks(torch, cap, device) -> list:
+    """The capture zero-padded to whole K-step dispatches of the resident
+    point, as [K, chunk] stacks on the card: [first feed, second feed],
+    the second scaled by 1 + 1e-6 (distinct buffers for timed runs)."""
+    import numpy as np
+    chunk, k = C5_RESIDENT
+    per = chunk * k
+    n_disp = -(-cap.shape[0] // per)
+    padded = np.zeros(n_disp * per, np.complex64)
+    padded[:cap.shape[0]] = cap
+    return [[torch.from_numpy(padded[d * per:(d + 1) * per].reshape(
+        k, chunk)).to(device) * torch.tensor(1 + 1e-6 * v, device=device)
+        for d in range(n_disp)] for v in range(2)]
+
+
+def run_c5_sharded(torch, spec, device, stacks, pays, one_shard, samples,
+                   dispatches) -> dict:
+    """The time-sharded stream on a virtual mesh of C5_SHARDS entries of
+    the one card, at the resident point, three ways: the halos moved as
+    the reference's ppermute, by the halo kernel, and with the slot
+    reshard. Each run decodes every frame (duplicates at the inner shard
+    boundaries counted apart) and, less those, gives the one-shard run's
+    starts and payloads; the halo-kernel run gives the ppermute run's
+    frames exactly (eps and EVM included), the reshard run its frames
+    (eps and EVM within 1e-5 and 0.01 dB). Before them, the steps and
+    kernels of the path on the first step's window, cut into the shards'
+    rows [4, Cb + H] by the halo exchange, each kernel held against its
+    plain version there (the Viterbi on the 1032 rows' LLRs at 512/96, the
+    geometry the algorithm takes at one shard's 258 slots). Then the
+    receivers' times in interleaved rounds, K10 against its plain version,
+    the frame and stage axes, and a two-card mesh where there are two
+    cards."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.kernels import policy, viterbi
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    from ofdm_uhd_tpu_torch.shard import make_mesh
+    chunk, k = C5_RESIDENT
+    mesh = make_mesh(1, C5_SHARDS, [device] * C5_SHARDS)
+    step, window = first_sharded_window(torch, spec, mesh, stacks[0][0][0])
+    check(len(step.groups) == 1, "c5_sharded: the virtual mesh's shards "
+          "are not one batch of rows")
+    ins, stages = phase_stages(
+        torch, spec, "c5_sharded", None, step.mf, front=(
+            "agc+halo", lambda: step.extend(agc_window(window))[0]),
+        algo_batch=step.mf)
+    kernels = phase_kernels(torch, spec, "c5_sharded", ins, C5_PATH[:-1])
+    # the windows the algorithm chosen at one shard's slots decodes with
+    # (C5 trellis: 'windowed' 512/96 at 258 slots, 'fused' 256/64 at <= 96)
+    geometry = (viterbi.XLA_WINDOW if policy.viterbi_impl(
+        0, step.mf, spec.kernel_backend, spec.viterbi_mode) == "windowed"
+        else viterbi.FUSED_WINDOW)
+    vit = {f"viterbi_windowed_{geometry[0]}": hold_windowed(
+        torch, ins["llr"], geometry)}
+    log_kernels("c5_sharded", vit)
+    kernels.update(vit)
+    del ins
+    variants = {"ppermute": {}, "pallas_halo": {"pallas_halo": True},
+                "reshard": {"reshard": True}}
+    makers = {name: (lambda kw=kw: StreamRx(
+        spec, mesh=mesh, chunk_len=chunk, steps_per_dispatch=k, **kw))
+        for name, kw in variants.items()}
+    runs, frames = {}, {}
+    for name, kw in variants.items():
+        runs[name], frames[name] = phase_stream_run(
+            torch, spec, f"c5_sharded {name}", makers[name],
+            stacks, lambda rx, st: rx.process_device(st), pays, samples,
+            dispatches, path=C5_PATH + (("halo",) if kw.get("pallas_halo")
+                                        else ()))
+        inner = {s for s, _ in runs[name]["inner_duplicates"]}
+        same_frames(f"c5_sharded {name} against one shard",
+                    [f for f in frames[name] if f.start not in inner],
+                    one_shard)
+    base = frames["ppermute"]
+    for name, exact in (("pallas_halo", True), ("reshard", False)):
+        got = frames[name]
+        check(len(got) == len(base) and all(
+            a.start == b.start and a.crc_ok == b.crc_ok
+            and np.array_equal(a.payload, b.payload)
+            and (((a.eps, a.evm_db) == (b.eps, b.evm_db)) if exact else
+                 (abs(a.eps - b.eps) <= 1e-5
+                  and abs(a.evm_db - b.evm_db) <= 0.01))
+            for a, b in zip(got, base)),
+            f"c5_sharded: the {name} run's slots differ from the ppermute "
+            "run's")
+    log(f"c5_sharded: ok  the halo-kernel run equals the ppermute run on "
+        f"all {len(base)} slots (starts, crc_ok, payloads, eps, EVM), the "
+        "reshard run on starts, crc_ok and payloads; all three equal the "
+        "one-shard run less the inner-boundary duplicates")
+    # per_block: one shard at chunk Cb, T steps a chunk, so the chain is
+    # issued once per block as a loop over the shards would issue it
+    cb, kb = chunk // C5_SHARDS, k * C5_SHARDS
+    blocks = [st.view(kb, cb) for st in stacks[1]]
+    rounds = interleaved_rounds(torch, {
+        "one_shard": (lambda: StreamRx(spec, chunk_len=chunk,
+                                       steps_per_dispatch=k, device=device),
+                      stacks[1]),
+        **{name: (make, stacks[1]) for name, make in makers.items()},
+        "per_block": (lambda: StreamRx(spec, chunk_len=cb,
+                                       steps_per_dispatch=kb, device=device),
+                      blocks)}, dispatches)
+    kernels["halo"] = hold_halo(torch, spec, mesh, stacks[0][0][0])
+    log_kernels("c5_sharded", {"halo": kernels["halo"]})
+    two = phase_two_cards(torch, spec, stacks, pays)
+    if two is not None:
+        kernels.update(two["kernels"])
+    return {"stages_ms": stages, "runs": runs,
+            "rounds_ms_per_dispatch": rounds, "kernels": kernels,
+            "launches": runs["pallas_halo"]["launches"],
+            "axes": phase_axes(torch, device), "two_cards": two}
+
+
+def interleaved_rounds(torch, makers, dispatches) -> dict:
+    """ms per dispatch of each receiver, makers = {name: (make_rx, its
+    chunk stacks)}, all over the same samples, the receivers taking turns
+    over ROUNDS_SHARDED rounds (host clock around process_device,
+    synchronized): {name: [ms, ...]}."""
+    out = {name: [] for name in makers}
+    for _ in range(ROUNDS_SHARDED):
+        for name, (make, stacks) in makers.items():
+            rx = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rx.process_device(stacks)
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t0) * 1e3 / dispatches)
+    log("c5_sharded rounds: ms per dispatch, median of "
+        f"{ROUNDS_SHARDED} rounds taken in turn: " + ", ".join(
+            f"{n} {statistics.median(v):.2f} (spread {min(v):.2f}-"
+            f"{max(v):.2f})" for n, v in out.items()))
+    return out
+
+
+def first_sharded_window(torch, spec, mesh, chunk):
+    """The stream step of `mesh` at the chunk length of `chunk` (halos
+    moved as the reference's ppermute), and its first window before the
+    AGC: the initial zero tail, then the chunk ([H + chunk] complex64)."""
+    from ofdm_uhd_tpu_torch.shard.time_parallel import StreamStep
+    step = StreamStep(spec, mesh, chunk.shape[0], None, 0.5, 0.25,
+                      pallas_halo=False, reshard=False, track_mode=True,
+                      agc=True, input_format="fc32")
+    return step, torch.cat([chunk.new_zeros(step.h), chunk])
+
+
+def agc_window(window):
+    """The window's one AGC gain applied, as the stream step applies it."""
+    from ofdm_uhd_tpu_torch.phy import agc
+    return agc.agc_normalize(window)[0]
+
+
+def hold_halo(torch, spec, mesh, chunk) -> dict:
+    """K10 against its plain version (shard-to-shard copies) on the first
+    window's blocks of `mesh`'s shards, exactly; library_ms: one
+    Tensor.copy_ of the heads into the halos where that is one call (the
+    shards share a card, or one pair across two cards), else None."""
+    from ofdm_uhd_tpu_torch.kernels import halo
+    step, window = first_sharded_window(torch, spec, mesh, chunk)
+    cb, h = step.cb, step.h
+    exts = step.blocks(agc_window(window))
+    for e in exts:
+        e[:, cb:].zero_()
+    ext_k, ext_p, lib = ([e.clone() for e in exts] for _ in range(3))
+
+    def close(k, p):
+        same = all(torch.equal(torch.view_as_real(a), torch.view_as_real(b))
+                   for a, b in zip(k, p))
+        return same, max(float((a - b).abs().max()) for a, b in zip(k, p))
+    pair = len(lib) == 2 and lib[0].shape[0] == lib[1].shape[0] == 1
+    library = ((lambda: lib[0][:-1, cb:].copy_(lib[0][1:, :h]))
+               if len(lib) == 1 else
+               (lambda: lib[0][0, cb:].copy_(lib[1][0, :h])) if pair else None)
+    return held(torch, "halo",
+                lambda: (halo._halo_cuda(ext_k, cb, h), ext_k)[1],
+                lambda: (halo.halo_plain(ext_p, cb, h), ext_p)[1], close,
+                (step.t, cb + h), (16.0 * h * (step.t - 1), 0.0), library)
+
+
+def phase_axes(torch, device) -> dict:
+    """The frame and stage axes on the card: AXES_FRAMES C3 frames from
+    the port's TX (payloads seed 0) with AWGN at AXES_SNR dB (torch
+    generator seed 0), through rx_frames_sharded over a (4, 1) mesh and
+    rx_aligned_pipelined over 2 stages (4 microbatches), each against
+    RxPipeline.rx_aligned on the same batch: payloads and crc_ok equal,
+    EVM within 0.01 dB, every frame bit-exact; ms of each (CUDA events,
+    median of REPS)."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline, TxPipeline
+    from ofdm_uhd_tpu_torch.shard import make_mesh, rx_frames_sharded
+    from ofdm_uhd_tpu_torch.shard.mesh import make_stage_mesh
+    from ofdm_uhd_tpu_torch.shard.stage_pipeline import rx_aligned_pipelined
+    spec = config("c3")
+    rng = np.random.default_rng(0)
+    pays = torch.from_numpy(rng.integers(
+        0, 2, (AXES_FRAMES, spec.payload_bits_per_frame)).astype(
+            np.uint8)).to(device)
+    frames = TxPipeline(spec)(pays)
+    g = torch.Generator(device=device).manual_seed(0)
+    sigma = torch.sqrt((frames.abs() ** 2).mean() / 10 ** (AXES_SNR / 10)
+                       / 2)
+    noisy = frames + sigma * torch.complex(
+        torch.randn(frames.shape, generator=g, device=device),
+        torch.randn(frames.shape, generator=g, device=device))
+    fused = RxPipeline(spec).rx_aligned
+    want = fused(noisy)
+    check(torch.equal(want["payload"], pays), "axes: rx_aligned missed a "
+          "frame of the batch")
+    res = {"frames": AXES_FRAMES, "rx_aligned_ms": cuda_ms(
+        torch, lambda: fused(noisy))}
+    for name, fn in (
+            ("frame", rx_frames_sharded(spec, make_mesh(4, 1, [device] * 4))),
+            ("stage", rx_aligned_pipelined(
+                spec, make_stage_mesh(2, [device] * 2), 4))):
+        got = fn(noisy)
+        torch.cuda.synchronize()
+        evm = float((got["evm_db"] - want["evm_db"]).abs().max())
+        check(torch.equal(got["payload"], want["payload"])
+              and torch.equal(got["crc_ok"], want["crc_ok"]) and evm <= 0.01,
+              f"axes: the {name} axis differs from rx_aligned (EVM by {evm})")
+        if name == "frame":
+            check(int(got["n_ok_global"]) == AXES_FRAMES,
+                  f"axes: n_ok_global {int(got['n_ok_global'])}")
+        res[name] = {"ms": cuda_ms(torch, lambda: fn(noisy)),
+                     "max_evm_diff_db": evm}
+    log(f"c5_sharded axes: ok  {AXES_FRAMES} C3 frames at {AXES_SNR} dB, "
+        f"bit-exact; rx_aligned {res['rx_aligned_ms']:.2f} ms, frame axis "
+        f"(4, 1) {res['frame']['ms']:.2f} ms, stage axis (2 stages, 4 "
+        f"microbatches) {res['stage']['ms']:.2f} ms, equal to rx_aligned "
+        "(payloads, crc_ok; EVM within "
+        f"{max(res['frame']['max_evm_diff_db'], res['stage']['max_evm_diff_db']):.2g} dB)")
+    return res
+
+
+def phase_two_cards(torch, spec, stacks, pays) -> dict | None:
+    """With two cards or more: the resident point over a (1, 2) mesh of
+    cuda:0 and cuda:1 (Cb = chunk / 2 per card, 2K steps a dispatch) with
+    the halo kernel, whose last shard on cuda:0 reads cuda:1's head by
+    peer access; every frame decoded. None on a one-card machine."""
+    from ofdm_uhd_tpu_torch.kernels import policy
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    from ofdm_uhd_tpu_torch.shard import make_mesh
+    if torch.cuda.device_count() < 2:
+        log("c5_sharded two cards: not run (this machine has one card)")
+        return None
+    chunk, k = C5_RESIDENT[0] // 2, 2 * C5_RESIDENT[1]
+    mesh = make_mesh(1, 2, [torch.device("cuda", i) for i in range(2)])
+    rx = StreamRx(spec, mesh=mesh, chunk_len=chunk, steps_per_dispatch=k,
+                  pallas_halo=True)
+    policy.reset_launches()
+    t0 = time.perf_counter()
+    got = rx.process_device([s.view(k, chunk) for s in stacks[0]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = policy.launches()
+    check(launches["halo"] > 0, "two cards: the halo kernel never ran")
+    dups = check_stream("c5_sharded two cards", got, pays, spec, rx.cb)
+    peer = {"halo_peer": hold_halo(torch, spec, mesh, stacks[0][0][0][:chunk])}
+    log_kernels("c5_sharded two cards", peer)
+    log(f"c5_sharded two cards: ok  {pays.shape[0]} frames bit-exact over "
+        f"(1, 2) on two cards ({len(dups)} boundary duplicates), first "
+        f"run {wall:.2f} s, halo launches {launches['halo']}")
+    return {"frames_ok": pays.shape[0], "first_run_s": wall,
+            "launches": launches, "kernels": peer}
 
 
 def path_launches(paths) -> dict:
     """Launches per kernel of every counted main-path run: each path's RX
-    slice (C5: its two operating points) and the TX input builds of C4 and
-    the 'pallas' paths."""
+    slice (C5: its two operating points; c5_sharded: its halo-kernel run)
+    and the TX input builds of C4 and the 'pallas' paths."""
     out = {}
     for p, r in paths.items():
-        out[p] = r["launches"] if p == "c5" else r["slice"]["launches"]
+        out[p] = r["launches"] if "launches" in r else r["slice"]["launches"]
         if "tx_launches" in r:
             out[p + "_tx"] = r["tx_launches"]
     return out
@@ -1114,7 +1413,8 @@ def kernel_entry(name, paths, by_path) -> dict:
     those checks, `paths` gives each check's numbers, and ms / plain_ms are
     those of the first path's check (C3's for the kernels C3 runs, C5
     resident's for viterbi_windowed, c3_pallas's for cpfft and ifftcp,
-    c2_pallas's for sccorr), as are bound_ms, bound_by and library_ms.
+    c2_pallas's for sccorr, c5_sharded's for halo), as are bound_ms,
+    bound_by and library_ms.
     launches sums the counted main-path runs (every path's RX and the TX
     input builds of C4 and the 'pallas' paths), and launches_by_path
     splits them."""
@@ -1152,16 +1452,16 @@ def main() -> int:
         device = torch.device("cuda", 0)
         torch.cuda.set_device(device)
         build_info = phase_build()
-        c3 = run_c3(torch, config, device)
+        c3 =run_c3(torch, config, device)
         c4 = run_c4(torch, config, device)
-        c5 = run_c5(torch, config, device)
+        c5, c5_sharded = run_c5(torch, config, device)
         c3_pallas = run_c3_pallas(torch, config, device)
         c2_pallas = run_c2_pallas(torch, config, device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    paths = {"c3": c3, "c4": c4, "c5": c5, "c3_pallas": c3_pallas,
-             "c2_pallas": c2_pallas}
+    paths = {"c3": c3, "c4": c4, "c5": c5, "c5_sharded": c5_sharded,
+             "c3_pallas": c3_pallas, "c2_pallas": c2_pallas}
     by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)
                         for k in KERNEL_INFO]}

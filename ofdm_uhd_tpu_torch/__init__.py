@@ -12,6 +12,8 @@ reference so each module's counterpart is found by name:
              and picks formulations from the spec as the reference does
   channel/   impairment models (NumPy)
   pipeline/  RxPipeline (capture-mode RX), TxPipeline and StreamRx
+  shard/     device meshes, the stream over a mesh's time axis, the
+             frame-parallel TX/RX and the 2-stage pipelined RX
   convert.py spec / tables from the reference's plain data
   bench_lib.py  synthetic captures (build_capture) without JAX
 

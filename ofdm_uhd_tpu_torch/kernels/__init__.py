@@ -4,7 +4,8 @@ localize.py, extract.py, scfront.py and sync.py (the boxcar S&C
 correlator, whose plain version is also scfront.py's) hold one kernel
 each, fft.py two (the FFT and its CP-fused forms), viterbi.py two (whole
 sequence and windowed), fir.py two (the strided FIR / decimation and the
-polyphase interpolation): the wrapper launches the kernel for a CUDA
+polyphase interpolation), halo.py one (the time-sharded stream's halo
+exchange, one launch per device): the wrapper launches the kernel for a CUDA
 tensor and runs the plain version for a CPU tensor (policy.py, which also
 routes formulations by the spec as the reference does). build.py
 compiles csrc/ at first use.

@@ -19,13 +19,14 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
-           "fir.cu", "scfront.cu")
+           "fir.cu", "scfront.cu", "halo.cu")
 HEADERS = ("ofdm_kernels.h",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -54,6 +55,12 @@ _SIGNATURES = {
     "ofdm_scfront": [_P, _P, _P, _I, _I, _I, _P],
     # r, p, rr, rows, n, l, stream
     "ofdm_sc_correlate": [_P, _P, _P, _I, _I, _I, _P],
+    # src pointers, dst pointers (host arrays), pairs, h, stream
+    "ofdm_halo_from_right": [_P, _P, _I, _I, _P],
+    # device, peer
+    "ofdm_enable_peer_access": [_I, _I],
+    # device
+    "ofdm_set_device": [_I],
 }
 
 
@@ -63,6 +70,9 @@ class _Loaded:
 
 
 _LOADED = _Loaded()
+# the device last made current for the library's runtime, per host thread
+# (a CUDA runtime's current device is per thread)
+_CURRENT = threading.local()
 
 
 def build_dir() -> Path:
@@ -159,5 +169,16 @@ def check_inputs(kernel: str, *tensors: torch.Tensor) -> None:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current CUDA stream on `device`, as a pointer value."""
+    """PyTorch's current CUDA stream on `device`, as a pointer value; also
+    makes `device` current for the kernels' runtime (the library carries
+    its own, and a launch must go to a stream of its current device). The
+    library is asked only when the device differs from the one it was last
+    given on this thread or from PyTorch's current one, so a one-card run
+    makes the call once."""
+    device = torch.device(device)
+    current = torch.cuda.current_device()
+    index = device.index if device.index is not None else current
+    if getattr(_CURRENT, "index", None) != index or current != index:
+        check(library().ofdm_set_device(index), "set device")
+        _CURRENT.index = index
     return torch.cuda.current_stream(device).cuda_stream

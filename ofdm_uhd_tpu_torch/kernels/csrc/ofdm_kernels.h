@@ -75,4 +75,21 @@ OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
 OFDM_API int ofdm_sc_correlate(const float2* r, float2* p, float* rr,
                                int rows, int n, int l, void* stream);
 
+// Halo exchange: for each of `pairs` (source, destination) pointer pairs
+// (host arrays of device pointers; a source may lie on a peer card whose
+// access the caller has enabled), copy h complex64 samples, dst[p][k] =
+// src[p][k]; pairs <= 64, launched on the destination device's stream.
+OFDM_API int ofdm_halo_from_right(const void* const* src, void* const* dst,
+                                  int pairs, int h, void* stream);
+
+// Enable `device`'s access to `peer`'s memory (once per pair; enabled
+// already counts as success; the current device is left as it was);
+// cudaErrorPeerAccessUnsupported where the two cards cannot reach each
+// other.
+OFDM_API int ofdm_enable_peer_access(int device, int peer);
+
+// Make `device` current for the kernels' runtime: a launch must go to a
+// stream of the current device.
+OFDM_API int ofdm_set_device(int device);
+
 OFDM_API const char* ofdm_error_string(int err);

@@ -33,7 +33,7 @@ import torch
 
 # "fir" counts the strided kernel: 'same' FIR and decimation launches
 KERNELS = ("localize", "extract", "fft", "viterbi", "viterbi_windowed",
-           "fir", "interp", "scfront", "cpfft", "ifftcp", "sccorr")
+           "fir", "interp", "scfront", "cpfft", "ifftcp", "sccorr", "halo")
 
 # the reference's batch crossovers between its Viterbi algorithms
 _VITERBI_FUSED_MAX_BATCH = 96

@@ -135,19 +135,21 @@ def _frontend(spec: WaveformSpec, frames: torch.Tensor, shift: int) -> dict:
 
 
 def _decode(spec: WaveformSpec, llr: torch.Tensor,
-            batch_hint: int | None = None
+            algo_batch: int | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Interleaved coded LLRs [B, coded] -> (payload [B, n], crc_ok [B]).
 
-    batch_hint: the decode batch of the whole dispatch when it exceeds B
-    (the reference's vmapped capture batch); the Viterbi algorithm is
-    chosen from the spec at max(B, batch_hint), as the reference chooses.
+    algo_batch: the batch the spec's Viterbi algorithm is chosen at
+    (default B), the reference's trace-time batch: the whole dispatch on
+    the capture path (its batch_hint; here B), one shard's slots in the
+    sharded stream, which decodes several shards' slots in one call where
+    the reference decodes each shard's inside shard_map.
     """
     llr_d = PB.deinterleave_soft(llr, spec.coded_bits_per_sym)
     llr_d = PB.depuncture_llr(llr_d, spec.fec_rate,
                               2 * spec.uncoded_bits_per_frame)
     algorithm = policy.viterbi_impl(llr_d.shape[-1] // 2,
-                                    max(llr_d.shape[0], batch_hint or 0),
+                                    algo_batch or llr_d.shape[0],
                                     requested=spec.kernel_backend,
                                     mode=spec.viterbi_mode)
     decoded = KV.decode(llr_d, algorithm, spec.viterbi_impl)
@@ -158,10 +160,11 @@ def _decode(spec: WaveformSpec, llr: torch.Tensor,
 
 
 def _demod_frames(spec: WaveformSpec, frames: torch.Tensor, shift: int,
-                  diag: bool = True) -> dict:
-    """Symbol/bit recovery for frame-aligned samples [B, frame_len]."""
+                  diag: bool = True, algo_batch: int | None = None) -> dict:
+    """Symbol/bit recovery for frame-aligned samples [B, frame_len]
+    (algo_batch: as _decode's)."""
     out = _frontend(spec, frames, shift)
-    payload, crc_ok = _decode(spec, out.pop("llr"))
+    payload, crc_ok = _decode(spec, out.pop("llr"), algo_batch=algo_batch)
     out.update({"payload": payload, "crc_ok": crc_ok})
     if not diag:
         for k in ("data_syms", "cpe", "h"):
@@ -170,13 +173,14 @@ def _demod_frames(spec: WaveformSpec, frames: torch.Tensor, shift: int,
 
 
 def _demod_frames_with_h(spec: WaveformSpec, frames: torch.Tensor,
-                         shift: int, h: torch.Tensor) -> dict:
+                         shift: int, h: torch.Tensor,
+                         algo_batch: int | None = None) -> dict:
     """_demod_frames with an external channel estimate h [B, n_occupied]
     in place of the frames' own preamble estimate (the stream's TRACK
     retry demodulates with its tracked estimate)."""
     grid = PF.ofdm_demodulate(spec, frames, shift=shift)
     out = _grid_demod(spec, grid, h)
-    payload, crc_ok = _decode(spec, out.pop("llr"))
+    payload, crc_ok = _decode(spec, out.pop("llr"), algo_batch=algo_batch)
     out.update({"payload": payload, "crc_ok": crc_ok})
     return out
 

@@ -1,14 +1,16 @@
 """Continuous-stream receiver: the host loop around the stream step.
 
-The counterpart of ofdm_uhd_tpu/pipeline/stream.py on one device. The host
-buffers radio samples and feeds fixed-size chunks; K = steps_per_dispatch
-buffered chunks run as one K-step dispatch (shard/time_parallel.py), the
-rest one at a time, with identical numerics; `process_device` takes chunk
-stacks already on the device. The step returns
-fixed-capacity frame slots, which the host filters to the owned ones and
-orders by start.
+The counterpart of ofdm_uhd_tpu/pipeline/stream.py. The host buffers radio
+samples and feeds fixed-size chunks; K = steps_per_dispatch buffered
+chunks run as one K-step dispatch (shard/time_parallel.py, over the time
+axis of the mesh), the rest one at a time, with identical numerics;
+`process_device` takes chunk stacks already on the device. The step
+returns fixed-capacity frame slots, which the host filters to the owned
+ones and orders by start.
 
-Feed: on a CUDA device each dispatch's chunks are staged in pinned host
+Feed: the chunks go to the mesh's first device, where the step's
+decimation and AGC run and the carried state lives. On a CUDA device each
+dispatch's chunks are staged in pinned host
 memory and uploaded on a side stream while the card computes the previous
 dispatch, and each dispatch is issued before the previous one's outputs
 are read; those outputs are copied to
@@ -27,7 +29,8 @@ import torch
 from ..core.spec import WaveformSpec
 from ..core.state import StreamState
 from ..kernels import fir as KF
-from ..shard.time_parallel import LATER_SLICE, make_stream_step
+from ..shard.mesh import make_mesh
+from ..shard.time_parallel import make_stream_step
 
 
 @dataclasses.dataclass
@@ -40,13 +43,17 @@ class StreamFrame:
 
 
 class StreamRx:
-    """Streaming OFDM receiver on one device (`device`, default the first
-    CUDA card; without one, torch raises: pass device='cpu' to run the
-    plain versions on the CPU).
+    """Streaming OFDM receiver over the time axis of a ('frame', 'time')
+    mesh (shard/mesh.py make_mesh; row 0 of its frame axis), or, with
+    mesh=None, one shard on `device` (default the first CUDA card; without
+    one, torch raises: pass device='cpu' to run the plain versions on the
+    CPU). The reference's mesh=None is every device; the two agree on a
+    one-card machine.
 
-    The reference's constructor arguments; `mesh` must be None (one
-    device), and pallas_halo, reshard and threshold_mode='cfar' raise
-    NotImplementedError until the multi-GPU slice.
+    The reference's constructor arguments: chunk_len defaults to T blocks
+    of the one-shard chunk; pallas_halo=True moves the halos with the halo
+    kernel (K10) on CUDA meshes; reshard=True balances the demod over the
+    shards (all_to_all). threshold_mode='cfar' raises NotImplementedError.
     """
 
     def __init__(self, spec: WaveformSpec, mesh=None,
@@ -58,18 +65,18 @@ class StreamRx:
                  agc: bool = True, steps_per_dispatch: int = 8,
                  input_format: str = "fc32",
                  device: str | torch.device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(f"a device mesh comes with "
-                                      f"{LATER_SLICE}")
         KF.check_filter_precision(spec)
         self.spec = spec
-        self.device = torch.device(device)
+        self.mesh = (mesh if mesh is not None
+                     else make_mesh(1, 1, [torch.device(device)]))
+        self.device = self.mesh.first_device
+        t = self.mesh.shape["time"]
         h = StreamState.halo_len(spec)
         m = spec.resample_m
         if chunk_len is None:
-            # block rounded up to a multiple of M so the radio chunk
-            # (chunk_len * L / M) is integral and L-aligned
-            chunk_len = -(-max(2 * h, 4 * spec.frame_len) // m) * m
+            # per-shard block rounded up to a multiple of M so the radio
+            # chunk (chunk_len * L / M) is integral and L-aligned
+            chunk_len = t * (-(-max(2 * h, 4 * spec.frame_len) // m) * m)
         if (chunk_len * spec.resample_l) % m:
             raise ValueError("chunk_len*L must be divisible by M")
         if steps_per_dispatch < 1:
@@ -79,7 +86,7 @@ class StreamRx:
         self.steps_per_dispatch = steps_per_dispatch
         self.input_format = input_format
         _, self._multi, self.cb, self.h = make_stream_step(
-            spec, chunk_len, max_frames_per_shard,
+            spec, self.mesh, chunk_len, max_frames_per_shard,
             (threshold, threshold_mode),
             pallas_halo=pallas_halo, reshard=reshard, track_mode=track_mode,
             agc=agc, input_format=input_format)
@@ -132,7 +139,7 @@ class StreamRx:
         for k, v in outs.items():
             host[k].copy_(v, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(self.device))
         return host, done
 
     def process(self, samples: np.ndarray) -> list[StreamFrame]:

@@ -1,2 +1,10 @@
-"""The streaming step's sharding layer; one device for now
-(time_parallel.py, the single-time-shard part of the reference's)."""
+"""The sharding layer, the counterpart of ofdm_uhd_tpu/shard/: device
+meshes (mesh.py), frame-parallel batched TX/RX (frame_parallel.py), the
+time-sharded stream step with its halo exchange, summed tracker and slot
+reshard (time_parallel.py), and the 2-stage pipelined RX
+(stage_pipeline.py). One process drives every device of a mesh."""
+
+from .mesh import make_mesh
+from .frame_parallel import rx_frames_sharded, tx_frames_sharded
+
+__all__ = ["make_mesh", "rx_frames_sharded", "tx_frames_sharded"]

@@ -1,27 +1,47 @@
-"""The continuous-stream step on one device: the single-time-shard part of
-ofdm_uhd_tpu/shard/time_parallel.py (`make_stream_step`, `_shard_step`,
-`_track_retry`).
+"""The continuous-stream step over the 'time' axis of a device mesh: the
+counterpart of ofdm_uhd_tpu/shard/time_parallel.py (`make_stream_step`,
+`_shard_step`, `_track_retry`, `_reshard_demod`).
 
 Chunk protocol (overlap-save with a one-chunk delay): every step consumes
-a chunk of C baseband samples plus the carried tail [H] of the previous
-one; the processing window is tail ++ chunk. With one shard the window's
-last H samples are both the halo of the block and the next step's tail
-(taken before AGC: each window is scaled as a whole, so the tail re-enters
-raw). A detection at window offset d is OWNED iff d < C, which gives
-disjoint ownership [k*C - H, (k+1)*C - H) over steps: no frame is decoded
-twice and none is lost (H >= frame_len + n_sc). The owned first-pass
-successes feed an EMA of the channel and CFO (phase-aligned per frame),
-and the TRACK retry re-demodulates failed slots with it.
+a chunk of C = T * Cb baseband samples plus the carried tail [H] of the
+previous one; the processing window is tail ++ chunk. The sc16
+conversion, the rational decimation and the AGC (one gain per window) run
+on the whole chunk or window, on the mesh's first device, as the
+reference runs them outside shard_map. Shard i then gets block i =
+window[i*Cb : (i+1)*Cb] on its device and a halo of H samples after it:
+the head of shard i + 1's block, moved by the halo exchange (the
+reference's ppermute: `heads[i+1].to(dev_i)`, or the halo kernel K10
+under pallas_halo=True). The last shard's halo is the window's last H
+samples, which are also the next step's tail (taken before the AGC, so it
+re-enters raw). A detection at offset d of a shard's [Cb + H] is OWNED iff
+d < Cb, which gives disjoint ownership over shards and steps: no frame is
+decoded twice and none is lost (H >= frame_len + n_sc).
 
-The reference's sums over the mesh (psum) and gathers are the local values
-here; the multi-GPU shards, the all_to_all reshard, the halo kernel and
-the CFAR threshold come with the shard/ slice and raise here.
+Placement. The shards of one device form one batch of rows [T_d, Cb + H]
+through detection, extraction, CFO and demod, so a device's launches do
+not grow with its shard count; devices are issued one after another from
+the host. A device's shards must be neighbours on the time axis. The
+Viterbi algorithm is chosen at one shard's slot count all the same, as
+the reference decodes each shard inside shard_map (`algo_batch`).
 
-The TRACK retry is a `lax.cond` on a device predicate in the reference.
-Here it is a host branch: one sync per step, on whether an owned slot
-failed its CRC while the tracker has history. A K-step dispatch enqueues
-step k+1's first pass (everything up to the first decode) before it reads
-step k's predicate, so the card has work queued while the host waits.
+The reference's collectives: the sums over the mesh (psum) are per-shard
+sums moved to the first device and added there; the outputs are
+concatenated in shard order there (all_gather), [T * mf, ...] a step; the
+carried StreamState stays there, and a shard on another device reads a
+copy. reshard=True pads each shard's slots to f2 = ceil(mf / T) * T and
+applies the slot transpose Y[j][i] = X[i][j] (the reference's all_to_all;
+on one device a permutation of rows) before the demod, and again after it.
+The owned first-pass successes feed an EMA of the channel and CFO (each
+estimate phase-aligned), and the TRACK retry re-demodulates failed slots
+with it.
+
+The TRACK retry is a `lax.cond` on each shard's device predicate in the
+reference. Here it is a host branch: one sync per step reads all T
+predicates (an owned slot failed its CRC while the tracker has history);
+a device whose shards all say no skips the retry, and a shard that says
+no keeps its first pass. A K-step dispatch enqueues step k+1's first pass
+(everything up to the first decode) before it reads step k's predicates,
+so the card has work queued while the host waits.
 """
 
 from __future__ import annotations
@@ -33,43 +53,82 @@ import torch
 from ..core.spec import WaveformSpec
 from ..core.state import StreamState
 from ..kernels import fir as KF
+from ..kernels import halo as KH
 from ..phy import agc as PA
 from ..phy import sync as PS
 from ..phy import tables as T
 from ..pipeline import rx as RXP
+from .mesh import Mesh, make_mesh
 
-LATER_SLICE = "the multi-GPU shard/ slice (ROADMAP Queue 1, item 10)"
+
+@dataclasses.dataclass
+class _Group:
+    """Shards [lo, hi) of the time axis, all on `device`."""
+    device: torch.device
+    lo: int
+    hi: int
+
+    @property
+    def n(self) -> int:
+        return self.hi - self.lo
+
+
+def _groups(devices) -> list[_Group]:
+    groups: list[_Group] = []
+    for i, d in enumerate(devices):
+        if groups and groups[-1].device == d:
+            groups[-1].hi = i + 1
+        elif any(g.device == d for g in groups):
+            raise ValueError(f"the shards on {d} must be neighbours on the "
+                             "mesh's time axis")
+        else:
+            groups.append(_Group(d, i, i + 1))
+    return groups
 
 
 @dataclasses.dataclass
 class _FirstPass:
-    """One step up to its first decode, before the TRACK retry."""
-    ds: torch.Tensor          # [mf] i32 frame starts in the window
-    owned: torch.Tensor       # [mf] bool
-    frames: torch.Tensor      # [mf, frame_len] c64, CFO-corrected
-    eps: torch.Tensor         # [mf] f32 total CFO
-    out: dict                 # _demod_frames result (diag leaves kept)
-    tail: torch.Tensor        # the next step's carried tail
-    rtail: torch.Tensor       # the next step's radio-rate carry
+    """One step up to its first decode, before the TRACK retry; one entry
+    per device group, rows [T_d * mf] in shard order."""
+    ds: list            # i32 frame starts in each shard's [Cb + H]
+    owned: list         # bool
+    frames: list        # [T_d * mf, frame_len] c64, CFO-corrected
+    eps: list           # f32 total CFO
+    out: list           # demod results: payload, crc_ok, evm_db, h
+    tail: torch.Tensor  # the next step's carried tail
+    rtail: torch.Tensor  # the next step's radio-rate carry
 
 
 class StreamStep:
-    """The stream step of one spec at one chunk length (C = chunk_len
-    baseband samples; radio chunks of C * L / M samples)."""
+    """The stream step of one spec at one chunk length over the 'time'
+    axis of `mesh` (row 0 of its 'frame' axis: the reference replicates
+    the stream over that axis): C = chunk_len baseband samples a step,
+    radio chunks of C * L / M samples."""
 
-    def __init__(self, spec: WaveformSpec, chunk_len: int,
+    def __init__(self, spec: WaveformSpec, mesh: Mesh, chunk_len: int,
                  max_frames: int | None, threshold: float, ema: float,
-                 track_mode: bool, agc: bool, input_format: str):
+                 pallas_halo: bool, reshard: bool, track_mode: bool,
+                 agc: bool, input_format: str):
         self.spec = spec
-        self.cb = chunk_len
+        self.groups = _groups(list(mesh.devices.reshape(
+            -1, mesh.shape["time"])[0]))
+        self.device = self.groups[0].device
+        self.t = mesh.shape["time"]
+        if chunk_len % self.t:
+            raise ValueError(f"chunk {chunk_len} must divide over the "
+                             f"{self.t} time shards")
+        self.c = chunk_len
+        self.cb = chunk_len // self.t
         self.h = StreamState.halo_len(spec)
         if self.cb < self.h:
-            raise ValueError(f"chunk {self.cb} must be >= the halo {self.h}")
+            raise ValueError(f"block {self.cb} must be >= the halo {self.h}")
         # back-to-back frames: at most one start per frame_len, +1 boundary
-        self.max_frames = (max_frames if max_frames is not None
-                           else self.cb // spec.frame_len + 2)
+        self.mf = (max_frames if max_frames is not None
+                   else self.cb // spec.frame_len + 2)
         self.threshold = threshold
         self.ema = ema
+        self.halo = KH.halo_from_right if pallas_halo else KH.halo_plain
+        self.reshard = reshard
         self.track_mode = track_mode
         self.agc = agc
         self.sc16 = input_format == "sc16"
@@ -77,6 +136,34 @@ class StreamStep:
         self.taps = None
         if (spec.resample_l, spec.resample_m) != (1, 1):
             self.taps = T.resample_filter(spec.resample_l, spec.resample_m)
+        # each shard's block offset in the chunk, less H: d_rel = ds + this
+        self.offsets = [(torch.arange(g.lo, g.hi, dtype=torch.int32,
+                                      device=g.device) * self.cb
+                         - self.h)[:, None] for g in self.groups]
+
+    # ---- the halo exchange ----
+
+    def blocks(self, window: torch.Tensor) -> list[torch.Tensor]:
+        """window [C + H] -> per device group [T_d, Cb + H], each row a
+        shard's block, its halo not yet filled."""
+        blocks = window[:self.c].view(self.t, self.cb)
+        exts = []
+        for g in self.groups:
+            e = torch.empty((g.n, self.cb + self.h), dtype=window.dtype,
+                            device=g.device)
+            e[:, :self.cb].copy_(blocks[g.lo:g.hi])
+            exts.append(e)
+        return exts
+
+    def extend(self, window: torch.Tensor) -> list[torch.Tensor]:
+        """Every shard's block ++ halo: the exchange for shards < T - 1,
+        the window's last H samples for the last."""
+        exts = self.blocks(window)
+        self.halo(exts, self.cb, self.h)
+        exts[-1][-1, self.cb:].copy_(window[self.c:])
+        return exts
+
+    # ---- the step ----
 
     def first_pass(self, tail: torch.Tensor, rtail: torch.Tensor,
                    chunk: torch.Tensor) -> _FirstPass:
@@ -90,71 +177,151 @@ class StreamStep:
             rtail = chunk[chunk.shape[-1] - rtail.shape[-1]:]
             chunk = KF.rational_decim_stream(w, spec.resample_l,
                                              spec.resample_m, self.taps)
-        fresh_raw = chunk[self.cb - self.h:]
+        fresh_raw = chunk[self.c - self.h:]
         window = torch.cat([tail, chunk])
         if self.agc:
             # one gain per window: no frame sees a gain step
             window, _ = PA.agc_normalize(window)
-        ext = window[None]                      # block ++ halo, one shard
-        ds, eps_f, valid, _ = PS.detect_frames(spec, ext, self.max_frames,
-                                               threshold=self.threshold)
-        frames = PS.extract_frames(spec, ext, ds)
-        # two CFO ramps, as pipeline/rx.py applies them
-        frames = PS.cfo_correct(frames, eps_f, spec.n_sc)
-        k = PS.integer_cfo(spec, frames)
-        frames = PS.cfo_correct(frames, k, spec.n_sc)[0]
-        ds = ds[0]
-        out = RXP._demod_frames(spec, frames, shift=self.shift)
-        return _FirstPass(ds=ds, owned=valid[0] & (ds < self.cb),
-                          frames=frames, eps=(eps_f + k)[0], out=out,
-                          tail=fresh_raw, rtail=rtail)
+        ds, owned, frames, eps = [], [], [], []
+        for ext in self.extend(window):
+            d, eps_f, valid, _ = PS.detect_frames(spec, ext, self.mf,
+                                                  threshold=self.threshold)
+            fr = PS.extract_frames(spec, ext, d)
+            # two CFO ramps, as pipeline/rx.py applies them
+            fr = PS.cfo_correct(fr, eps_f, spec.n_sc)
+            k = PS.integer_cfo(spec, fr)
+            fr = PS.cfo_correct(fr, k, spec.n_sc)
+            ds.append(d)
+            owned.append((valid & (d < self.cb)).reshape(-1))
+            frames.append(fr.reshape(-1, spec.frame_len))
+            eps.append((eps_f + k).reshape(-1))
+        return _FirstPass(ds=ds, owned=owned, frames=frames, eps=eps,
+                          out=self._demod(frames), tail=fresh_raw,
+                          rtail=rtail)
+
+    def _demod(self, frames: list[torch.Tensor]) -> list[dict]:
+        """Each device group's slots demodulated, the Viterbi algorithm
+        chosen at one shard's batch; with reshard, across the slot
+        transpose and back."""
+        keep = ("payload", "crc_ok", "evm_db", "h")
+        if not self.reshard:
+            outs = [RXP._demod_frames(self.spec, f, self.shift,
+                                      algo_batch=self.mf) for f in frames]
+            return [{k: o[k] for k in keep} for o in outs]
+        f2 = -(-self.mf // self.t) * self.t
+        pad = [torch.nn.functional.pad(
+            f.view(g.n, self.mf, -1), (0, 0, 0, f2 - self.mf))
+            for g, f in zip(self.groups, frames)]
+        outs = [RXP._demod_frames(self.spec, x.reshape(g.n * f2, -1),
+                                  self.shift, algo_batch=f2)
+                for g, x in zip(self.groups, self._slot_transpose(pad))]
+        back = {k: self._slot_transpose(
+            [o[k].view((g.n, f2) + o[k].shape[1:])
+             for g, o in zip(self.groups, outs)]) for k in keep}
+        return [{k: back[k][i][:, :self.mf].reshape(
+            (g.n * self.mf,) + back[k][i].shape[2:]) for k in keep}
+            for i, g in enumerate(self.groups)]
+
+    def _slot_transpose(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Per group [T_d, f2, ...] -> the same shapes with shard j's slot
+        chunk i taken from shard i's chunk j (f2 = T chunks): an
+        involution, moved across devices with .to()."""
+        t = self.t
+        q = xs[0].shape[1] // t
+        rest = xs[0].shape[2:]
+        out = []
+        for gd in self.groups:
+            y = torch.empty((gd.n, t, q) + rest, dtype=xs[0].dtype,
+                            device=gd.device)
+            for gs, x in zip(self.groups, xs):
+                part = x.view((gs.n, t, q) + rest)[:, gd.lo:gd.hi]
+                y[:, gs.lo:gs.hi] = part.transpose(0, 1).to(gd.device)
+            out.append(y.view((gd.n, t * q) + rest))
+        return out
 
     def _track_retry(self, fp: _FirstPass, state: StreamState):
         """Re-demodulate the slots that failed CRC with the tracked channel
-        and CFO; a slot keeps its first-pass result whenever its CRC
-        passed, so on clean streams the retry changes nothing."""
-        out, eps = fp.out, fp.eps
-        ok0 = out["crc_ok"]
+        and CFO, on the devices holding a shard whose predicate is true; a
+        slot keeps its first-pass result whenever its CRC passed, so on
+        clean streams the retry changes nothing."""
+        mf = self.mf
+        preds = [(own & ~o["crc_ok"]).view(-1, mf).any(-1)
+                 for own, o in zip(fp.owned, fp.out)]
         have = state.track_wt > 0.0
-        if not bool(((fp.owned & ~ok0).any() & have).item()):   # host sync
-            return out, eps, torch.zeros_like(ok0)
-        # replace each frame's own CFO by the tracked one (the frames were
-        # derotated by their own eps: apply the difference)
-        fr2 = PS.cfo_correct(fp.frames, state.eps_track - eps, self.spec.n_sc)
-        h_t = state.h_track[None, :].expand(fr2.shape[0], -1)
-        o2 = RXP._demod_frames_with_h(self.spec, fr2, self.shift, h_t)
-        use2 = ~ok0 & have & o2["crc_ok"]
-        merged = dict(out)
-        merged["payload"] = torch.where(use2[:, None], o2["payload"],
-                                        out["payload"])
-        merged["crc_ok"] = ok0 | use2
-        merged["evm_db"] = torch.where(use2, o2["evm_db"], out["evm_db"])
-        return merged, torch.where(use2, state.eps_track, eps), use2
+        pred = (torch.cat([p.to(self.device) for p in preds])
+                & have).tolist()                           # one host sync
+        outs, epss, used = [], [], []
+        for g, p, out, eps, frames in zip(self.groups, preds, fp.out,
+                                          fp.eps, fp.frames):
+            if not any(pred[g.lo:g.hi]):
+                outs.append(out)
+                epss.append(eps)
+                used.append(torch.zeros_like(out["crc_ok"]))
+                continue
+            # replace each frame's own CFO by the tracked one (the frames
+            # were derotated by their own eps: apply the difference)
+            eps_t = state.eps_track.to(g.device)
+            have_g = have.to(g.device)
+            fr2 = PS.cfo_correct(frames, eps_t - eps, self.spec.n_sc)
+            h_t = state.h_track.to(g.device)[None, :].expand(fr2.shape[0], -1)
+            o2 = RXP._demod_frames_with_h(self.spec, fr2, self.shift, h_t,
+                                          algo_batch=mf)
+            ok0 = out["crc_ok"]
+            # a shard whose predicate is false skips the retry: ok2 = 0
+            retried = (p & have_g)[:, None].expand(g.n, mf).reshape(-1)
+            use2 = ~ok0 & have_g & o2["crc_ok"] & retried
+            merged = dict(out)
+            merged["payload"] = torch.where(use2[:, None], o2["payload"],
+                                            out["payload"])
+            merged["crc_ok"] = ok0 | use2
+            merged["evm_db"] = torch.where(use2, o2["evm_db"], out["evm_db"])
+            outs.append(merged)
+            epss.append(torch.where(use2, eps_t, eps))
+            used.append(use2)
+        return outs, epss, used
+
+    def _gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """Per-group tensors -> one, in shard order, on the first device."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device) for p in parts])
 
     def finish(self, fp: _FirstPass, state: StreamState
                ) -> tuple[StreamState, dict]:
         """The TRACK retry, the tracker update and the step's outputs."""
-        out, eps, owned = fp.out, fp.eps, fp.owned
-        used = torch.zeros_like(owned)
+        outs, epss = fp.out, fp.eps
+        used = [torch.zeros_like(o) for o in fp.owned]
         if self.track_mode:
-            out, eps, used = self._track_retry(fp, state)
-        n_rescued = (used & owned).sum(dtype=torch.int32)
-        ok = out["crc_ok"] & owned
-
-        # fold in first-pass successes only (a rescued slot's own preamble
-        # estimate is the noise that made it fail), each estimate rotated
-        # so the phase of its bin sum is zero (frames carry arbitrary
-        # common phases; raw averaging would be incoherent)
-        wt = (ok & ~used).float()
-        h_est = out["h"]
-        ref = h_est.sum(-1, keepdim=True)
-        refa = ref.abs()
-        align = torch.where(refa > 0,
-                            torch.conj(ref) / torch.clamp_min(refa, 1e-30),
-                            torch.ones_like(ref))
-        h_sum = (h_est * align * wt[:, None].to(torch.complex64)).sum(0)
-        eps_sum = (eps * wt).sum()
-        n_sum = wt.sum()
+            outs, epss, used = self._track_retry(fp, state)
+        mf = self.mf
+        h_parts, f_parts, i_parts, oks = [], [], [], []
+        for g, out, eps, own, u in zip(self.groups, outs, epss, fp.owned,
+                                       used):
+            ok = out["crc_ok"] & own
+            oks.append(ok)
+            # fold in first-pass successes only (a rescued slot's own
+            # preamble estimate is the noise that made it fail), each
+            # estimate rotated so the phase of its bin sum is zero (frames
+            # carry arbitrary common phases; raw averaging is incoherent)
+            wt = (ok & ~u).float()
+            h_est = out["h"]
+            ref = h_est.sum(-1, keepdim=True)
+            refa = ref.abs()
+            align = torch.where(refa > 0,
+                                torch.conj(ref) / torch.clamp_min(refa, 1e-30),
+                                torch.ones_like(ref))
+            h_al = h_est * align * wt[:, None].to(torch.complex64)
+            # per-shard sums: the terms of the reference's psum
+            h_parts.append(h_al.view(g.n, mf, -1).sum(1))
+            f_parts.append(torch.stack([(eps * wt).view(g.n, mf).sum(1),
+                                        wt.view(g.n, mf).sum(1)], -1))
+            i_parts.append(torch.stack(
+                [x.view(g.n, mf).sum(1, dtype=torch.int32)
+                 for x in (own, ok, u & own)], -1))
+        h_sum = self._gather(h_parts).sum(0)
+        eps_sum, n_sum = self._gather(f_parts).sum(0).unbind()
+        n_owned, n_ok, n_rescued = self._gather(i_parts).sum(
+            0, dtype=torch.int32).unbind()
         have = n_sum > 0
         h_new = torch.where(have, h_sum / torch.clamp_min(n_sum, 1.0),
                             state.h_track)
@@ -170,29 +337,34 @@ class StreamStep:
                                   + a * eps_new, state.eps_track),
             track_wt=state.track_wt + have.float(),
             steps=state.steps + 1,
-            frames=state.frames + owned.sum(dtype=torch.int32),
-            crc_ok=state.crc_ok + ok.sum(dtype=torch.int32))
+            frames=state.frames + n_owned,
+            crc_ok=state.crc_ok + n_ok)
 
         # start of each detection relative to the chunk's first sample (may
         # be negative: a frame can begin in the carried tail)
-        d_rel = fp.ds - self.h
+        d_rel = self._gather([(d + off).reshape(-1)
+                              for d, off in zip(fp.ds, self.offsets)])
+        ok, owned = self._gather(oks), self._gather(fp.owned)
         meta_i = torch.stack([ok.int(), owned.int(), d_rel,
                               n_rescued.expand(d_rel.shape)], dim=-1)
-        meta_f = torch.stack([eps, out["evm_db"]], dim=-1)
-        return new_state, {"payload": _pack_bits(out["payload"]),
-                           "meta_i": meta_i, "meta_f": meta_f}
+        meta_f = torch.stack([self._gather(epss),
+                              self._gather([o["evm_db"] for o in outs])],
+                             dim=-1)
+        payload = self._gather([_pack_bits(o["payload"]) for o in outs])
+        return new_state, {"payload": payload, "meta_i": meta_i,
+                           "meta_f": meta_f}
 
     def step(self, state: StreamState, chunk: torch.Tensor
              ) -> tuple[StreamState, dict]:
-        """One chunk -> (state, outputs [mf, ...])."""
+        """One chunk -> (state, outputs [T * mf, ...])."""
         return self.finish(self.first_pass(state.tail, state.rtail, chunk),
                            state)
 
     def multi(self, state: StreamState, chunks: torch.Tensor
               ) -> tuple[StreamState, dict]:
-        """K chunks [K, ...] -> (state, outputs [K, mf, ...]), the state
+        """K chunks [K, ...] -> (state, outputs [K, T * mf, ...]), the state
         kept on the device; step k+1's first pass is enqueued before step
-        k's retry predicate is read."""
+        k's retry predicates are read."""
         outs, pending = [], None
         tail, rtail = state.tail, state.rtail
         for chunk in chunks:
@@ -219,28 +391,27 @@ def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return (groups << shifts).sum(-1).to(torch.uint8)
 
 
-def make_stream_step(spec: WaveformSpec, chunk_len: int,
+def make_stream_step(spec: WaveformSpec, mesh: Mesh | None, chunk_len: int,
                      max_frames_per_shard: int | None = None,
                      threshold=0.5, ema: float = 0.25,
                      pallas_halo: bool = False, reshard: bool = False,
                      track_mode: bool = True, agc: bool = True,
                      input_format: str = "fc32"):
-    """The stream step on one device -> (step, multi, cb, h), as the
-    reference's make_stream_step returns them for a one-shard mesh:
-      step(state, chunk [radio_chunk])       -> (state, outs)
-      multi(state, chunks [K, radio_chunk])  -> (state, outs with [K])
-    (sc16: chunk [2, radio_chunk], chunks [K, 2, radio_chunk] int16).
-    threshold: a float, or (threshold, mode) with mode 'fixed'."""
+    """The stream step over `mesh`'s time axis (None: one shard on the
+    first CUDA card) -> (step, multi, cb, h), as the reference's:
+      step(state, chunk [radio_chunk])       -> (state, outs [T * mf, ...])
+      multi(state, chunks [K, radio_chunk])  -> (state, outs [K, T*mf, ...])
+    (sc16: chunk [2, radio_chunk], chunks [K, 2, radio_chunk] int16), the
+    chunk and the state on the mesh's first device. threshold: a float, or
+    (threshold, mode) with mode 'fixed'."""
     thr, mode = (threshold if isinstance(threshold, tuple)
                  else (threshold, "fixed"))
-    for flag, what in ((pallas_halo, "pallas_halo=True"),
-                       (reshard, "reshard=True"),
-                       (mode != "fixed", f"threshold_mode={mode!r}")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported; it comes with "
-                                      f"{LATER_SLICE}")
+    if mode != "fixed":
+        raise NotImplementedError(f"threshold_mode={mode!r} is not ported "
+                                  "(ROADMAP Queue 1, item 12)")
     if input_format not in ("fc32", "sc16"):
         raise ValueError(f"unknown input_format {input_format!r}")
-    s = StreamStep(spec, chunk_len, max_frames_per_shard, thr, ema,
-                   track_mode, agc, input_format)
+    s = StreamStep(spec, mesh if mesh is not None else make_mesh(1, 1),
+                   chunk_len, max_frames_per_shard, thr, ema, pallas_halo,
+                   reshard, track_mode, agc, input_format)
     return s.step, s.multi, s.cb, s.h

@@ -75,3 +75,36 @@ def test_refuses_to_run_without_a_card():
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
     assert "no CUDA device" in res.stderr
+
+
+def test_halo_bound_at_c5():
+    """K10's work at c5_sharded: 3 halos of H = 4288 complex64 samples,
+    each read once and written once (16 H bytes), 6.144e-5 ms."""
+    ms, by = chip_smoke.bound(16.0 * 4288 * 3, 0.0)
+    assert by == "bytes" and abs(ms - 6.144e-5) < 1e-9
+
+
+def test_check_stream_finds_shard_boundary_duplicates():
+    """A frame that starts a few samples before a shard's extended block
+    (start = k * Cb - H) is returned again at the block's first sample;
+    check_stream keeps every sent frame and returns that duplicate."""
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.core.state import StreamState
+    from ofdm_uhd_tpu_torch.pipeline import StreamFrame
+    spec = config("c5")
+    h = StreamState.halo_len(spec)
+    rng = np.random.default_rng(0)
+    pays = rng.integers(0, 2, (6, spec.payload_bits_per_frame)).astype(
+        np.uint8)
+    starts = chip_smoke.C5_OFFSET + np.arange(6) * (spec.frame_len
+                                                    + chip_smoke.GAP)
+    frames = [StreamFrame(int(s), p, True, 0.1, -30.0)
+              for s, p in zip(starts, pays)]
+    block = int(starts[3]) + 5 + h          # frame 3 starts 5 before
+    dup = StreamFrame(block - h, pays[3], False, 0.1, -20.0)
+    got = chip_smoke.check_stream("t", frames[:4] + [dup] + frames[4:], pays,
+                                  spec, block)
+    assert [d.start for d in got] == [block - h]
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.check_stream("t", frames[:4] + [dup] + frames[4:], pays,
+                                spec, block + 1)

@@ -396,3 +396,159 @@ def test_pallas_slice_on_card_matches_cpu(dev, name):
                        cpu["payload"][cpu["valid"]])
     assert np.array_equal(gpu["payload"][:, :3].cpu().numpy(), pays)
     assert (gpu["eps"].cpu() - cpu["eps"]).abs().max() <= 1e-4
+
+
+def _halo_rows(devices, cb, h, seed):
+    """Per-device shard rows [n, cb + h]: random blocks, zero halos; the
+    same rows for the kernel and for its plain version."""
+    from collections import Counter
+    g = torch.Generator().manual_seed(seed)
+    runs = []
+    for d, n in Counter(devices).items():
+        e = torch.zeros((n, cb + h), dtype=torch.complex64)
+        e[:, :cb] = torch.randn((n, cb), dtype=torch.complex64, generator=g)
+        runs.append(e.to(d))
+    return runs, [e.clone() for e in runs]
+
+
+@pytest.mark.parametrize("cb,h", [(300, 128), (301, 128), (1001, 77),
+                                  (1032192, 4288)])
+def test_halo_kernel_exact(dev, cb, h):
+    """K10 with 4 shards on one card: one launch fills the halos of
+    shards 0-2 with the next shard's head (16-byte copies; 8-byte ones
+    where h or the row is odd), exactly as the plain version."""
+    from ofdm_uhd_tpu_torch.kernels import halo
+    ext_k, ext_p = _halo_rows([dev] * 4, cb, h, seed=cb)
+    policy.reset_launches()
+    halo.halo_from_right(ext_k, cb, h)
+    assert policy.launches()["halo"] == 1
+    halo.halo_plain(ext_p, cb, h)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.view_as_real(ext_k[0]),
+                       torch.view_as_real(ext_p[0]))
+    assert torch.equal(ext_k[0][:3, cb:], ext_k[0][1:, :h])
+    assert not ext_k[0][3, cb:].any()            # the last shard's: the caller's
+
+
+def test_halo_kernel_peer_exact(dev):
+    """K10 across two cards: the last shard of cuda:0 reads cuda:1's first
+    head by peer access (one launch per destination card)."""
+    from ofdm_uhd_tpu_torch.kernels import halo
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards for the peer read")
+    devs = [torch.device("cuda", 0)] * 2 + [torch.device("cuda", 1)] * 2
+    ext_k, ext_p = _halo_rows(devs, 5000, 4288, seed=1)
+    policy.reset_launches()
+    halo.halo_from_right(ext_k, 5000, 4288)
+    assert policy.launches()["halo"] == 2
+    halo.halo_plain(ext_p, 5000, 4288)
+    for k, p in zip(ext_k, ext_p):
+        assert torch.equal(torch.view_as_real(k.cpu()),
+                           torch.view_as_real(p.cpu()))
+
+
+def test_halo_rejects_bad_input(dev):
+    from ofdm_uhd_tpu_torch.kernels import halo
+    with pytest.raises(ValueError):
+        halo.halo_from_right([torch.zeros((4, 300), device=dev)], 200, 100)
+    with pytest.raises(ValueError):
+        halo.halo_from_right([torch.zeros((4, 299), dtype=torch.complex64,
+                                          device=dev)], 200, 100)
+    with pytest.raises(ValueError):
+        halo.halo_from_right([torch.zeros((65, 300), dtype=torch.complex64,
+                                          device=dev)], 200, 100)
+
+
+@pytest.mark.parametrize("kw", [{"pallas_halo": True}, {"reshard": True}])
+def test_sharded_stream_on_card_matches_cpu(dev, kw):
+    """A C5 stream over 4 shards on the card (K10 for the halos, or the
+    slot reshard) gives the frames and counters of the same mesh on the
+    CPU's plain versions."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    from ofdm_uhd_tpu_torch.shard import make_mesh
+    spec = config("c5").with_(kernel_backend="auto")
+    cap, pays = build_capture(spec, 30, 300, seed=3, phase_noise_std=0.0,
+                              device=dev)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        rx = StreamRx(spec, mesh=make_mesh(1, 4, [d] * 4),
+                      chunk_len=4 * 16128, steps_per_dispatch=2, **kw)
+        policy.reset_launches()
+        frames = rx.process(cap) + rx.flush()
+        runs.append((frames, rx, policy.launches()))
+    (got, rx, launched), (want, rx_c, plain) = runs
+    path = ("scfront", "localize", "extract", "fft", "viterbi_windowed")
+    assert all(launched[k] > 0 for k in path), launched
+    assert (launched["halo"] > 0) == bool(kw.get("pallas_halo"))
+    assert sum(plain.values()) == 0
+    assert [g.start for g in got] == [w.start for w in want]
+    assert len(got) == 30 and all(g.crc_ok for g in got)
+    for g, w, p in zip(got, want, pays):
+        assert np.array_equal(g.payload, w.payload)
+        assert np.array_equal(g.payload, p)
+        assert abs(g.eps - w.eps) <= 1e-4
+    for f in ("steps", "frames", "crc_ok", "track_wt"):
+        assert int(getattr(rx.state, f)) == int(getattr(rx_c.state, f)), f
+
+
+def test_frame_and_stage_axes_on_card_match_cpu(dev):
+    """rx_frames_sharded over a (4, 1) mesh and rx_aligned_pipelined over
+    a 2-stage mesh, both on one card, equal rx_aligned on the CPU."""
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline, TxPipeline
+    from ofdm_uhd_tpu_torch.shard import make_mesh, rx_frames_sharded
+    from ofdm_uhd_tpu_torch.shard.mesh import make_stage_mesh
+    from ofdm_uhd_tpu_torch.shard.stage_pipeline import rx_aligned_pipelined
+    spec = config("c2")
+    g = torch.Generator().manual_seed(5)
+    pays = torch.randint(0, 2, (16, spec.payload_bits_per_frame),
+                         generator=g, dtype=torch.uint8)
+    frames = TxPipeline(spec)(pays)
+    frames = frames + 0.05 * torch.randn(frames.shape, dtype=torch.complex64,
+                                         generator=g)
+    want = RxPipeline(spec).rx_aligned(frames)
+    fp = rx_frames_sharded(spec, make_mesh(4, 1, [dev] * 4))(frames.to(dev))
+    pp = rx_aligned_pipelined(spec, make_stage_mesh(2, [dev] * 2), 4)(
+        frames.to(dev))
+    for got in (fp, pp):
+        for k in ("payload", "crc_ok"):
+            assert torch.equal(got[k].cpu(), want[k]), k
+        assert (got["evm_db"].cpu() - want["evm_db"]).abs().max() <= 0.01
+    assert torch.equal(fp["payload"].cpu(), pays)
+    assert int(fp["n_ok_global"]) == 16
+
+
+@pytest.mark.parametrize("kw", [{"pallas_halo": True}, {"reshard": True}])
+def test_sharded_stream_across_cards_matches_cpu(dev, kw):
+    """4 shards over two cards (2 each): the halo of shard 1 crosses from
+    cuda:1 to cuda:0 (K10's peer read, or the ppermute copy), the sums,
+    the gathers and the reshard's slot transpose cross the cards; the
+    frames and counters equal the same mesh on the CPU."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    from ofdm_uhd_tpu_torch.shard import make_mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    spec = config("c5").with_(kernel_backend="auto")
+    cap, pays = build_capture(spec, 30, 300, seed=4, phase_noise_std=0.0,
+                              device=dev)
+    cards = [torch.device("cuda", i) for i in (0, 0, 1, 1)]
+    runs = []
+    for devices in (cards, ["cpu"] * 4):
+        rx = StreamRx(spec, mesh=make_mesh(1, 4, devices),
+                      chunk_len=4 * 16128, steps_per_dispatch=2, **kw)
+        policy.reset_launches()
+        frames = rx.process(cap) + rx.flush()
+        torch.cuda.synchronize()
+        runs.append((frames, rx, policy.launches()))
+    (got, rx, launched), (want, rx_c, _) = runs
+    # K10: one launch per card per step
+    assert launched["halo"] == (2 * rx._steps if kw.get("pallas_halo")
+                                else 0)
+    assert [g.start for g in got] == [w.start for w in want]
+    assert len(got) == 30 and all(g.crc_ok for g in got)
+    for g, w, p in zip(got, want, pays):
+        assert np.array_equal(g.payload, w.payload)
+        assert np.array_equal(g.payload, p)
+    for f in ("steps", "frames", "crc_ok", "track_wt"):
+        assert int(getattr(rx.state, f)) == int(getattr(rx_c.state, f)), f

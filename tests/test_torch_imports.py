@@ -22,7 +22,10 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "ofdm_uhd_tpu_torch.kernels.viterbi" in mods
+    for m in ("kernels.viterbi", "kernels.halo", "shard.mesh",
+              "shard.frame_parallel", "shard.stage_pipeline",
+              "shard.time_parallel"):
+        assert "ofdm_uhd_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
         "for m in sys.argv[1:]:\n"
