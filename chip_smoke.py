@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's five paths through their user entry points, in phases;
+Drives the port's six paths through their user entry points, in phases;
 each prints its findings on a line of its own:
 
   C3, the capture-mode RX chain `RxPipeline(config("c3")).rx_capture_sc16(
@@ -11,6 +11,14 @@ each prints its findings on a line of its own:
       100, SNR 28 dB, CFO 0.8 / 8 at the radio rate, no phase noise, fc32)
       and `RxPipeline(config("c4")).rx_capture(capture, max_frames)`
       decimates by 8 and decodes them;
+  c4_bf16, C4 under the reference's own gate setting for its bf16 filter
+      tier, `config("c4").with_(filter_precision="bf16",
+      kernel_backend="pallas")`: the same captures and traffic, built by
+      the port's TX through the bf16 interpolation kernel and decimated by
+      the bf16 strided kernel (both on the tensor cores), then the S&C
+      front end, the FFT kernel (1024 points: the CP-fused one stops at
+      512) and the windowed Viterbi kernel at 256/64, as the reference
+      routes 'pallas'; the exact FIR kernels never run there;
   C5, the stream: `StreamRx(config("c5").with_(kernel_backend="auto"))` on
       the reference bench's capture (4096 frames from the port's TxPipeline
       on the card, gap 300, SNR 28 dB, CFO 0.8, timing offset 100, seed 0)
@@ -46,11 +54,13 @@ each prints its findings on a line of its own:
   2. build:   builds the hand kernels from ofdm_uhd_tpu_torch/kernels/csrc
               (one nvcc per source, sm_90a, started together) into
               build/ofdm_uhd_tpu_torch/;
-  then for C3, C4, C5 (and c5_sharded), c3_pallas and c2_pallas in turn:
+  then for C3, C4, c4_bf16, C5 (and c5_sharded), c3_pallas and c2_pallas
+  in turn:
   3. input:   the captures, built by the port's TxPipeline on the card
-              (C4's interpolation is the interp kernel; the 'pallas'
-              paths' IFFT + CP the ifftcp kernel), with the TX's launches
-              counted (C4, 'pallas');
+              (C4's interpolation is the interp kernel, c4_bf16's the
+              interp_bf16 kernel; the 'pallas' paths' IFFT + CP the
+              ifftcp kernel), with the TX's launches counted (C4, c4_bf16,
+              'pallas');
   4. stages:  runs the chain's steps one at a time on the whole batch (C5:
               on the first step's window of each operating point;
               c5_sharded: on that window's shard rows) and times each
@@ -58,19 +68,21 @@ each prints its findings on a line of its own:
   5. kernels: holds each kernel against its plain PyTorch version on the
               card, on the inputs those steps gave it, and times both
               (CUDA events, median of 5), beside its bound (the larger of
-              its bytes at 3.35 TB/s and its operations at 67 TFLOP/s)
-              and, where one PyTorch call computes the same function, that
+              its bytes at 3.35 TB/s and its operations at 67 TFLOP/s, or
+              989 TFLOP/s bf16 for the bf16 tier's useful products) and,
+              where one PyTorch call computes the same function, that
               call's time (library_ms: torch.fft.fft, conv1d,
-              conv_transpose1d; the port never calls them); C5 also holds
+              conv_transpose1d, on bf16 planes and weights for the bf16
+              tier; the port never calls them); C5 also holds
               the windowed Viterbi at both geometries and times the
               whole-sequence kernel on the same LLRs;
   6. slice:   decodes every frame, which must match the sent payloads bit
               for bit, with the launch count of every kernel of the path
               > 0 over that run; times the chain with the kernels and with
               the plain versions forced, requires the plain run's frame
-              starts (C3, C4: `d` and `valid`; C5: starts and payloads) to
-              equal the kernel run's, and reads the card's busy share
-              (torch.profiler).
+              starts (capture paths: `d`, `valid` and the valid slots'
+              payloads; C5: starts and payloads) to equal the kernel
+              run's, and reads the card's busy share (torch.profiler).
 
 Then it prints one JSON line with the per-kernel results and, last, the
 line {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -98,16 +110,18 @@ ROUNDS_SHARDED = 5               # interleaved timing rounds of c5_sharded
 AXES_FRAMES, AXES_SNR = 4096, 28.0   # the frame and stage axes' C3 batch
 REPS = 5
 REPS_STREAM = 2
+SLOW_S = 1.0            # a plain version slower than this is timed once
 REL_TOL = 1e-5          # FIR / FFT / S&C P: max error within 1e-5 * max|y|
 M_TOL = 1e-5            # S&C metric M: absolute (M lies in [0, ~1])
 R_TOL = 1e-5            # S&C R: relative, sample by sample
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # a kernel's bound is the larger of its bytes over HBM_BPS and its
-# operations over F32_OPS (all the port's kernels compute in float32
-# outside the tensor cores)
+# operations over F32_OPS (float32 outside the tensor cores) or, for the
+# bf16 filter tier's products on the tensor cores, BF16_OPS
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+BF16_OPS = 989e12
 
 KERNEL_INFO = {
     "localize": ("ofdm_uhd_tpu_torch/kernels/csrc/localize.cu",
@@ -124,6 +138,11 @@ KERNEL_INFO = {
             "ofdm_uhd_tpu/kernels/pallas_fir_mxu.py:154"),
     "interp": ("ofdm_uhd_tpu_torch/kernels/csrc/fir.cu",
                "ofdm_uhd_tpu/kernels/pallas_fir_mxu.py:176"),
+    # the same TPU kernels at Precision.DEFAULT (1-pass bf16 products)
+    "fir_bf16": ("ofdm_uhd_tpu_torch/kernels/csrc/fir_bf16.cu",
+                 "ofdm_uhd_tpu/kernels/pallas_fir_mxu.py:154"),
+    "interp_bf16": ("ofdm_uhd_tpu_torch/kernels/csrc/fir_bf16.cu",
+                    "ofdm_uhd_tpu/kernels/pallas_fir_mxu.py:176"),
     "scfront": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
                 "ofdm_uhd_tpu/kernels/pallas_scfront.py:103"),
     "cpfft": ("ofdm_uhd_tpu_torch/kernels/csrc/fft.cu",
@@ -139,6 +158,8 @@ KERNEL_INFO = {
 # the 'pallas' paths' ifftcp in theirs)
 C3_PATH = ("scfront", "localize", "extract", "fft", "viterbi")
 C4_PATH = ("fir",) + C3_PATH
+C4_BF16_PATH = ("fir_bf16", "scfront", "localize", "extract", "fft",
+                "viterbi_windowed")
 C5_PATH = ("scfront", "localize", "extract", "fft", "viterbi_windowed")
 C3_PALLAS_PATH = ("scfront", "localize", "extract", "cpfft",
                   "viterbi_windowed")
@@ -174,12 +195,38 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def device_ms(torch, fn, reps: int = 20) -> float | None:
+    """Device milliseconds of one run of fn without the host's launch
+    overhead, which events around one call also read where it exceeds the
+    kernel: a spin kernel (~20 ms) holds the card while the host enqueues
+    reps runs between two events, so the card runs them back to back; None
+    if the host took longer to enqueue them than the spin lasted."""
+    fn()
+    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    if host_ms >= spin.elapsed_time(start):
+        return None
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, peak: float = F32_OPS
+          ) -> tuple[float, str]:
     """The least time the card could take for a function that moves
     `nbytes` (each input read once, each output written once) and does
-    `ops` float32 operations: (ms, 'bytes' or 'operations')."""
+    `ops` operations at `peak` per second (float32 by default): (ms,
+    'bytes' or 'operations')."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = ops / F32_OPS * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -288,14 +335,18 @@ def make_input_pallas(torch, spec, label, n_caps, n_frames, device,
     return iq, pays, launches, grid
 
 
-def make_input_c4(torch, spec, device):
+def make_input_c4(torch, spec, device, label="c4"):
     """The reference's C4 row: seeds 0..7, fc32 captures [C, n] on device,
     the sent payloads [C, F, bits], the TX's launch counts, and the
-    baseband frames its interpolation took (the interp kernel's input)."""
+    baseband frames its interpolation took (the input of the interp kernel
+    of the spec's filter tier, which alone must have run)."""
     import numpy as np
     from ofdm_uhd_tpu_torch.bench_lib import build_capture
     from ofdm_uhd_tpu_torch.kernels import policy
     from ofdm_uhd_tpu_torch.pipeline import TxPipeline
+    tier = policy.filter_precision(spec, "interp", spec.resample_l)
+    interp, other = (("interp_bf16", "interp") if tier == "bf16"
+                     else ("interp", "interp_bf16"))
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     policy.reset_launches()
@@ -305,12 +356,13 @@ def make_input_c4(torch, spec, device):
              for s in range(N_CAPS)]
     torch.cuda.synchronize()
     launches = policy.launches()
-    check(launches["interp"] > 0, "c4 input: the TX never launched the "
-          "interp kernel")
+    check(launches[interp] > 0 and launches[other] == 0,
+          f"{label} input: the TX launched {launches}, not the {interp} "
+          "kernel alone")
     caps = torch.from_numpy(np.stack([c for c, _ in built])).to(device)
     pays = torch.from_numpy(np.stack([p for _, p in built])).to(device)
     base = TxPipeline(spec).baseband(pays[0])
-    log(f"c4 input: {N_CAPS} captures x {caps.shape[1]} radio samples, "
+    log(f"{label} input: {N_CAPS} captures x {caps.shape[1]} radio samples, "
         f"{C4_FRAMES} frames each, fc32, built in "
         f"{time.perf_counter() - t0:.1f} s; TX launches {launches}")
     return caps, pays, base, launches
@@ -440,16 +492,23 @@ def held(torch, name, run_k, run_p, tol, shape, work,
          library=None) -> dict:
     """Run a kernel wrapper and its plain version on the same inputs,
     require tol(kernel, plain) -> (ok, err), and time both; work = (bytes,
-    operations) of the function on these inputs, for its bound; library:
+    operations[, peak operations per second]) of the function on these
+    inputs, for its bound; library:
     one PyTorch call computing the same function (timed as library_ms),
-    or None where there is none."""
-    y_k, y_p = run_k(), run_p()
+    or None where there is none. A plain version slower than SLOW_S is
+    timed once after its warm-up, not REPS times."""
+    y_k = run_k()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_p = run_p()
+    torch.cuda.synchronize()
+    plain_reps = 1 if time.perf_counter() - t0 > SLOW_S else REPS
     ok, err = tol(y_k, y_p)
     check(ok, f"{name}: kernel differs from the plain version by {err}")
     bound_ms, bound_by = bound(*work)
     return {"max_abs_err": err, "shape": list(shape),
-            "ms": cuda_ms(torch, run_k), "plain_ms": cuda_ms(torch, run_p),
+            "ms": cuda_ms(torch, run_k),
+            "plain_ms": cuda_ms(torch, run_p, plain_reps),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None if library is None else cuda_ms(torch,
                                                               library)}
@@ -476,31 +535,40 @@ def log_kernels(label, res) -> None:
             + ("none" if lib is None else f"{lib:.3f} ms")
             + f"  max_abs_err {v['max_abs_err']:.3g}"
             + (f"  contiguous {v['ms_contiguous']:.3f} ms"
-               if "ms_contiguous" in v else ""))
+               if "ms_contiguous" in v else "")
+            + (f"  in-kernel {v['device_ms']:.4f} ms"
+               if v.get("device_ms") is not None else ""))
 
 
-def library_fir(torch, x, taps, stride):
+def library_fir(torch, x, taps, stride, dtype=None):
     """One PyTorch call computing the strided 'same' FIR of x [R, n] (the
     fir kernel's function): conv1d over x's (re, im) planes, made before
-    the call, with the taps reversed and the 'same' padding."""
+    the call, with the taps reversed and the 'same' padding. dtype
+    torch.bfloat16: planes and weights in bf16 (the fir_bf16 kernel's
+    function, but cuDNN rounds the output to bf16 where the kernel keeps
+    float32)."""
     import torch.nn.functional as F
     from ofdm_uhd_tpu_torch.kernels import fir
     _, w, pad = fir._corr_weights(taps)       # pad both sides (odd taps)
     planes = torch.cat([x.real, x.imag])[:, None, :].contiguous()
     wt = torch.from_numpy(w.copy()).to(x.device)[None, None, :]
+    if dtype is not None:
+        planes, wt = planes.to(dtype), wt.to(dtype)
     return lambda: F.conv1d(planes, wt, stride=stride, padding=pad)
 
 
-def library_interp(torch, x, l, taps):
+def library_interp(torch, x, l, taps, dtype=None):
     """One PyTorch call computing the L-fold polyphase interpolation of x
     [R, n] (the interp kernel's function): conv_transpose1d over x's (re,
     im) planes with the prototype times L, cropped to the 'same'
-    alignment."""
+    alignment; dtype as library_fir's."""
     import numpy as np
     import torch.nn.functional as F
     h = (np.asarray(taps, np.float64) * l).astype(np.float32)
     planes = torch.cat([x.real, x.imag])[:, None, :].contiguous()
     wt = torch.from_numpy(h).to(x.device)[None, None, :]
+    if dtype is not None:
+        planes, wt = planes.to(dtype), wt.to(dtype)
     return lambda: F.conv_transpose1d(planes, wt, stride=l,
                                       padding=(len(h) - 1) // 2,
                                       output_padding=l - 1)
@@ -662,48 +730,60 @@ def phase_kernel_ifftcp(torch, spec, label, grid) -> dict:
     return res
 
 
-def phase_kernels_fir(torch, spec, ins, base) -> dict:
-    """C4's FIR kernels: decimation of the padded radio-rate captures,
-    the stride-1 FIR of the decimated ones, and the TX's interpolation of
-    its baseband frames."""
-    from ofdm_uhd_tpu_torch.kernels import fir
+def phase_kernels_fir(torch, spec, label, ins, base) -> dict:
+    """The FIR kernels of the spec's filter tier: the decimation of the
+    padded radio-rate captures and the TX's interpolation of its baseband
+    frames; the exact tier also the stride-1 FIR of the decimated captures.
+    The bf16 tier's bound counts its useful products at the bf16 peak."""
+    from ofdm_uhd_tpu_torch.kernels import fir, policy
     from ofdm_uhd_tpu_torch.phy import tables
     res = {}
     lr = spec.resample_l
     taps = tables.resample_filter(lr, spec.resample_m)
     nt = len(taps)
+    bf16 = policy.filter_precision(spec, "decim", lr) == "bf16"
+    peak, dtype = (BF16_OPS, torch.bfloat16) if bf16 else (F32_OPS, None)
+    dname, iname = ("fir_bf16", "interp_bf16") if bf16 else ("fir", "interp")
+    strided = fir._strided_bf16_cuda if bf16 else fir._strided_cuda
+    decim = fir.decim_plain_bf16 if bf16 else fir.decim_plain
+    interp = fir._interp_bf16_cuda if bf16 else fir._interp_cuda
+    interp_plain = fir.interp_plain_bf16 if bf16 else fir.interp_plain
 
     def work(x, stride):
         r, n_in = x.shape
         n_out = n_in // stride
-        return 8.0 * r * (n_in + n_out), 4.0 * nt * r * n_out
+        return 8.0 * r * (n_in + n_out), 4.0 * nt * r * n_out, peak
     xin = ins["radio"]
-    res["fir"] = held(torch, "decim", lambda: fir._strided_cuda(xin, taps, lr),
-                      lambda: fir.decim_plain(xin, lr, taps), rel_close,
-                      xin.shape, work(xin, lr),
-                      library_fir(torch, xin, taps, lr))
-    dec = ins["dec"]
-    res["fir_stride1"] = held(torch, "fir", lambda: fir._strided_cuda(
-        dec, taps, 1), lambda: fir.decim_plain(dec, 1, taps), rel_close,
-        dec.shape, work(dec, 1), library_fir(torch, dec, taps, 1))
+    res[dname] = held(torch, f"{dname} decim",
+                      lambda: strided(xin, taps, lr),
+                      lambda: decim(xin, lr, taps), rel_close, xin.shape,
+                      work(xin, lr), library_fir(torch, xin, taps, lr, dtype))
+    if not bf16:
+        dec = ins["dec"]
+        res["fir_stride1"] = held(torch, "fir", lambda: fir._strided_cuda(
+            dec, taps, 1), lambda: fir.decim_plain(dec, 1, taps), rel_close,
+            dec.shape, work(dec, 1), library_fir(torch, dec, taps, 1))
     r, nb = base.shape
     branch = fir.branch_matrix(taps, lr)[0].shape[1]
-    res["interp"] = held(torch, "interp",
-                         lambda: fir._interp_cuda(base, lr, taps),
-                         lambda: fir.interp_plain(base, lr, taps), rel_close,
-                         base.shape,
-                         (8.0 * r * nb * (1 + lr), 4.0 * branch * r * nb * lr),
-                         library_interp(torch, base, lr, taps))
-    log_kernels("c4", res)
+    res[iname] = held(torch, iname, lambda: interp(base, lr, taps),
+                      lambda: interp_plain(base, lr, taps), rel_close,
+                      base.shape, (8.0 * r * nb * (1 + lr),
+                                   4.0 * branch * r * nb * lr, peak),
+                      library_interp(torch, base, lr, taps, dtype))
+    # events around one call read the host's launch overhead where it
+    # exceeds the kernel (the interpolation): the profiler's in-kernel time
+    res[dname]["device_ms"] = device_ms(torch, lambda: strided(xin, taps, lr))
+    res[iname]["device_ms"] = device_ms(torch, lambda: interp(base, lr, taps))
+    log_kernels(label, res)
     return res
 
 
 def phase_slice(torch, spec, label, x, x2, pays, max_frames, path,
-                sc16) -> dict:
+                sc16, absent=()) -> dict:
     """Decode every frame of x through the entry point (rx_capture_sc16 for
     sc16 planes, rx_capture for fc32), check it, and time it against the
     plain-forced chain; x2 is a second, distinct buffer of the same shape
-    for the timed loop."""
+    for the timed loop; `absent`: kernels the path must never launch."""
     from ofdm_uhd_tpu_torch.kernels import policy
     from ofdm_uhd_tpu_torch.pipeline import RxPipeline
 
@@ -720,6 +800,9 @@ def phase_slice(torch, spec, label, x, x2, pays, max_frames, path,
     for k in path:
         check(launches[k] > 0, f"{label}: the main path never launched the "
               f"{k} kernel")
+    for k in absent:
+        check(launches[k] == 0, f"{label}: the main path launched the {k} "
+              f"kernel {launches[k]} times")
     crc = out["crc_ok"][:, :n_frames]
     n_ok = int(crc.sum())
     exact = bool(torch.equal(out["payload"][:, :n_frames], pays))
@@ -744,7 +827,7 @@ def phase_slice(torch, spec, label, x, x2, pays, max_frames, path,
     samples = n_caps * x.shape[-1]            # at the radio rate
 
     def timed(reps):
-        for xi in xs:
+        for xi in xs[:reps]:                  # warm the buffers it times
             fast(xi, max_frames=max_frames)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -764,10 +847,13 @@ def phase_slice(torch, spec, label, x, x2, pays, max_frames, path,
     busy = device_busy_share(torch, lambda: fast(x, max_frames=max_frames))
     with policy.plain_versions():
         plain_ms, plain_host_ms, plain_out = timed(1)
-    for k in ("d", "valid"):
-        same = bool(torch.equal(plain_out[k], out[k]))
-        check(same, f"{label}: {k} of the plain-forced run differs from the "
-              "kernel run's")
+    valid = out["valid"]
+    for k, a, b in (("d", plain_out["d"], out["d"]),
+                    ("valid", plain_out["valid"], valid),
+                    ("payload", plain_out["payload"][valid],
+                     out["payload"][valid])):
+        check(bool(torch.equal(a, b)), f"{label}: {k} of the plain-forced "
+              "run differs from the kernel run's")
     res = {"ms_per_dispatch": ms, "host_ms_per_dispatch": host_ms,
            "msps": samples / (ms * 1e3),
            "plain_ms_per_dispatch": plain_ms,
@@ -775,7 +861,8 @@ def phase_slice(torch, spec, label, x, x2, pays, max_frames, path,
            "evm_db_mean": evm, "evm_db_mean_slots": evm_slots,
            "launches": launches,
            "frames_ok": n_ok, "profile": busy}
-    log(f"{label} slice: d and valid equal to the plain-forced run; kernels "
+    log(f"{label} slice: d, valid and payloads equal to the plain-forced "
+        "run; kernels "
         f"{ms:.1f} ms/dispatch ({res['msps']:.1f} Msamples/s, host "
         f"{host_ms:.1f} ms), plain versions {plain_ms:.1f} ms/dispatch "
         f"({res['plain_msps']:.1f} Msamples/s), {samples} samples per "
@@ -800,19 +887,38 @@ def run_c3(torch, config, device) -> dict:
     return {"stages_ms": stages, "kernels": kernels, "slice": sl}
 
 
-def run_c4(torch, config, device) -> dict:
-    spec = config("c4")
-    caps, pays, base, tx_launches = make_input_c4(torch, spec, device)
+def run_c4(torch, config, device, label="c4", spec=None, path=C4_PATH,
+           absent=("fir_bf16", "interp_bf16")) -> dict:
+    """C4's row (8 captures x 32 frames, fc32) under `spec` (default
+    config("c4")): its TX builds the captures, and rx_capture decodes them
+    through `path`'s kernels, launching none of `absent`."""
+    spec = spec or config("c4")
+    caps, pays, base, tx_launches = make_input_c4(torch, spec, device, label)
     max_frames = C4_FRAMES + 2
-    ins, stages = phase_stages(torch, spec, "c4", caps, max_frames)
-    kernels = {**phase_kernels(torch, spec, "c4", ins),
-               **phase_kernels_fir(torch, spec, ins, base)}
+    ins, stages = phase_stages(torch, spec, label, caps, max_frames, path)
+    kernels = {**phase_kernels(torch, spec, label, ins, path[1:]),
+               **phase_kernels_fir(torch, spec, label, ins, base)}
     del ins
     x2 = caps * torch.tensor(1 + 1e-6, dtype=torch.float32, device=device)
-    sl = phase_slice(torch, spec, "c4", caps, x2, pays, max_frames,
-                     C4_PATH, sc16=False)
+    sl = phase_slice(torch, spec, label, caps, x2, pays, max_frames, path,
+                     sc16=False, absent=absent)
     return {"stages_ms": stages, "kernels": kernels, "slice": sl,
             "tx_launches": tx_launches}
+
+
+def run_c4_bf16(torch, config, device, c4) -> dict:
+    """C4 under the reference's gate setting for its bf16 filter tier
+    (tests/kernels/test_mxu_fir.py:80-99: filter_precision='bf16',
+    kernel_backend='pallas'), on the same traffic; its mean EVM beside the
+    exact C4 run's (`c4`)."""
+    spec = config("c4").with_(filter_precision="bf16",
+                              kernel_backend="pallas")
+    res = run_c4(torch, config, device, "c4_bf16", spec, C4_BF16_PATH,
+                 absent=("fir", "interp"))
+    evm, evm_exact = (r["slice"]["evm_db_mean"] for r in (res, c4))
+    log(f"c4_bf16 slice: mean EVM {evm:.2f} dB over the frames, exact C4 "
+        f"{evm_exact:.2f} dB")
+    return res
 
 
 def run_pallas(torch, config, device, name, label, n_caps, n_frames, path,
@@ -1390,7 +1496,7 @@ def phase_two_cards(torch, spec, stacks, pays) -> dict | None:
 def path_launches(paths) -> dict:
     """Launches per kernel of every counted main-path run: each path's RX
     slice (C5: its two operating points; c5_sharded: its halo-kernel run)
-    and the TX input builds of C4 and the 'pallas' paths."""
+    and the TX input builds of C4, c4_bf16 and the 'pallas' paths."""
     out = {}
     for p, r in paths.items():
         out[p] = r["launches"] if "launches" in r else r["slice"]["launches"]
@@ -1413,11 +1519,11 @@ def kernel_entry(name, paths, by_path) -> dict:
     those checks, `paths` gives each check's numbers, and ms / plain_ms are
     those of the first path's check (C3's for the kernels C3 runs, C5
     resident's for viterbi_windowed, c3_pallas's for cpfft and ifftcp,
-    c2_pallas's for sccorr, c5_sharded's for halo), as are bound_ms,
-    bound_by and library_ms.
+    c2_pallas's for sccorr, c5_sharded's for halo, c4_bf16's for fir_bf16
+    and interp_bf16), as are bound_ms, bound_by and library_ms.
     launches sums the counted main-path runs (every path's RX and the TX
-    input builds of C4 and the 'pallas' paths), and launches_by_path
-    splits them."""
+    input builds of C4, c4_bf16 and the 'pallas' paths), and
+    launches_by_path splits them."""
     src, rep = KERNEL_INFO[name]
     held_on = {p + k[len(name):]: v for p, r in paths.items()
                for k, v in r["kernels"].items() if held_kernel(k) == name}
@@ -1452,8 +1558,9 @@ def main() -> int:
         device = torch.device("cuda", 0)
         torch.cuda.set_device(device)
         build_info = phase_build()
-        c3 =run_c3(torch, config, device)
+        c3 = run_c3(torch, config, device)
         c4 = run_c4(torch, config, device)
+        c4_bf16 = run_c4_bf16(torch, config, device, c4)
         c5, c5_sharded = run_c5(torch, config, device)
         c3_pallas = run_c3_pallas(torch, config, device)
         c2_pallas = run_c2_pallas(torch, config, device)
@@ -1461,7 +1568,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     paths = {"c3": c3, "c4": c4, "c5": c5, "c5_sharded": c5_sharded,
-             "c3_pallas": c3_pallas, "c2_pallas": c2_pallas}
+             "c3_pallas": c3_pallas, "c2_pallas": c2_pallas,
+             "c4_bf16": c4_bf16}
     by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)
                         for k in KERNEL_INFO]}

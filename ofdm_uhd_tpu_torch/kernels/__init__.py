@@ -3,8 +3,9 @@
 localize.py, extract.py, scfront.py and sync.py (the boxcar S&C
 correlator, whose plain version is also scfront.py's) hold one kernel
 each, fft.py two (the FFT and its CP-fused forms), viterbi.py two (whole
-sequence and windowed), fir.py two (the strided FIR / decimation and the
-polyphase interpolation), halo.py one (the time-sharded stream's halo
+sequence and windowed), fir.py four (the strided FIR / decimation and the
+polyphase interpolation, each in exact float32 and in the bf16 tier on the
+tensor cores), halo.py one (the time-sharded stream's halo
 exchange, one launch per device): the wrapper launches the kernel for a CUDA
 tensor and runs the plain version for a CPU tensor (policy.py, which also
 routes formulations by the spec as the reference does). build.py

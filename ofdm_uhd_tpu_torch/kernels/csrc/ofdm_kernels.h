@@ -65,6 +65,16 @@ OFDM_API int ofdm_fir_interp(const float2* x, const float* g, float2* y,
                              int rows, int n, int l, int nd, int d_max,
                              void* stream);
 
+// The bf16 tier of the two above (tensor cores, mma.sync bf16 -> f32):
+// the same arguments and outputs ('same' padding only), with x and the
+// coefficients rounded to bf16 (nearest even) before each product.
+OFDM_API int ofdm_fir_bf16_strided(const float2* x, const float* w, float2* y,
+                                   int rows, int n_in, int n_out, int nt,
+                                   int stride, int pad_left, void* stream);
+OFDM_API int ofdm_fir_bf16_interp(const float2* x, const float* g, float2* y,
+                                  int rows, int n, int l, int nd, int d_max,
+                                  void* stream);
+
 // Schmidl-Cox front end: r [rows, n] complex64 -> p [rows, nd] complex64,
 // m [rows, nd] f32, nd = n - 2l + 1, l a power of two.
 OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,

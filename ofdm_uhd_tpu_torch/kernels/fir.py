@@ -1,24 +1,32 @@
 """Real-tap FIR, polyphase decimation and interpolation of complex rows:
-two hand kernels + plain versions.
+two hand kernels in each of two tiers, beside their plain versions.
 
 Replaces ofdm_uhd_tpu/kernels/pallas_fir_mxu.py (fir_mxu_pallas and
 polyphase_decim_mxu_pallas through _fir_rows_mxu, and
-polyphase_interp_mxu_pallas); CUDA source csrc/fir.cu. The public
-functions mirror ofdm_uhd_tpu/kernels/fir.py (fir_filter, polyphase_interp,
-polyphase_decim) and the stream's decimations of conv_backend.py
-(polyphase_decim_stream, rational_decim_stream); the plain versions are the
-counterparts of ofdm_uhd_tpu/kernels/conv_backend.py (fir_same,
-polyphase_interp_xla, polyphase_decim_xla and the two stream forms): a 1-D
-correlation over the (re, im) float32 planes. The stream's valid-mode
-decimation runs on the strided kernel with no left padding; its rational
-form (M > 1, an XLA convolution in the reference) stays plain.
+polyphase_interp_mxu_pallas) at both of the reference's filter precisions:
+'exact' (Precision.HIGHEST: CUDA source csrc/fir.cu, float32 FMAs) and
+'bf16' (Precision.DEFAULT, 1-pass bf16 products with float32 sums:
+csrc/fir_bf16.cu, on the tensor cores). The public functions mirror
+ofdm_uhd_tpu/kernels/fir.py (fir_filter, polyphase_interp, polyphase_decim,
+each with `precision`; the caller picks it through policy.filter_precision)
+and the stream's decimations of conv_backend.py (polyphase_decim_stream,
+rational_decim_stream, exact only, as the reference's stream); the plain
+versions are the counterparts of ofdm_uhd_tpu/kernels/conv_backend.py
+(fir_same, polyphase_interp_xla, polyphase_decim_xla and the two stream
+forms): a 1-D correlation over the (re, im) float32 planes. The stream's
+valid-mode decimation runs on the strided kernel with no left padding; its
+rational form (M > 1, an XLA convolution in the reference) stays plain.
 
 Coefficients are bit-equal to the reference's: fir and decimation take the
 taps as float32, reversed (correlation weights); interpolation takes the
-branch matrix `_branch_matrix` (float64 times L, cast to float32). Every
-row is filtered on its own with zeros past both ends. Sums run in another
-order than the reference's banded matmul, so results agree to float32
-rounding, not bit for bit.
+branch matrix `_branch_matrix` (float64 times L, cast to float32). The bf16
+tier rounds those coefficients and the signal's planes to bf16 (nearest
+even) and sums the exact products in float32: its plain versions
+(decim_plain_bf16, interp_plain_bf16) compute what the TPU's MXU computes,
+not the reference's CPU run, whose dot ignores the precision. Every row is
+filtered on its own with zeros past both ends. Sums run in another order
+than the reference's banded matmul, so results agree to float32 rounding,
+not bit for bit.
 """
 
 from __future__ import annotations
@@ -96,13 +104,37 @@ def _merge(planes: torch.Tensor, x: torch.Tensor, n_out: int
         x.shape[:-1] + (n_out,))
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Complex x with each plane rounded to bf16 (nearest even), as
+    float32."""
+    return torch.complex(x.real.to(torch.bfloat16).float(),
+                         x.imag.to(torch.bfloat16).float())
+
+
+def _bf16_np(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _strided_plain(x: torch.Tensor, w: np.ndarray, m: int, pad_l: int
+                   ) -> torch.Tensor:
+    n_out = x.shape[-1] // m
+    out = _correlate_planes(x, w[None], pad_l, len(w) - 1 - pad_l, stride=m)
+    return _merge(out[:, 0, :n_out], x, n_out)
+
+
 def decim_plain(x: torch.Tensor, m: int, taps) -> torch.Tensor:
     """The 'same' FIR at every m-th sample; m = 1 is fir_filter's plain
     version."""
     _, w, pad_l = _corr_weights(taps)
-    n_out = x.shape[-1] // m
-    out = _correlate_planes(x, w[None], pad_l, len(w) - 1 - pad_l, stride=m)
-    return _merge(out[:, 0, :n_out], x, n_out)
+    return _strided_plain(x, w, m, pad_l)
+
+
+def decim_plain_bf16(x: torch.Tensor, m: int, taps) -> torch.Tensor:
+    """decim_plain with the planes and the taps rounded to bf16 first: the
+    exact products of the rounded values, summed in float32."""
+    _, w, pad_l = _corr_weights(taps)
+    return _strided_plain(_bf16(x), _bf16_np(w), m, pad_l)
 
 
 def decim_stream_plain(w: torch.Tensor, m: int, taps) -> torch.Tensor:
@@ -115,7 +147,18 @@ def decim_stream_plain(w: torch.Tensor, m: int, taps) -> torch.Tensor:
 
 
 def interp_plain(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+    return _interp_plain(x, l, *branch_matrix(taps, l))
+
+
+def interp_plain_bf16(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+    """interp_plain with the planes and the branch matrix rounded to bf16
+    first."""
     g, d_min, d_max = branch_matrix(taps, l)
+    return _interp_plain(_bf16(x), l, _bf16_np(g), d_min, d_max)
+
+
+def _interp_plain(x: torch.Tensor, l: int, g: np.ndarray, d_min: int,
+                  d_max: int) -> torch.Tensor:
     n = x.shape[-1]
     # branch p: y_p[q] = sum_d g[p, d] x[q - d], a correlation with g_p
     # reversed; the L branches are output channels, interleaved after
@@ -141,17 +184,17 @@ def _valid_outputs(n_in: int, nt: int, m: int) -> int:
     return (n_in - nt) // m + 1
 
 
-def _strided_cuda(x: torch.Tensor, taps, stride: int, valid: bool = False
-                  ) -> torch.Tensor:
+def _strided_launch(kernel: str, x: torch.Tensor, taps, stride: int,
+                    valid: bool) -> torch.Tensor:
     """The 'same' FIR of every row at stride `stride`: [..., n_in] ->
     [..., n_in // stride] (stride 1: fir_filter; stride M: decimation);
     valid=True: no padding, (n_in - nt) // stride + 1 outputs (the
-    stream's decimation)."""
-    flat = _rows(x, "fir")
+    stream's decimation). kernel: 'fir' (exact) or 'fir_bf16'."""
+    flat = _rows(x, kernel)
     key, w, pad_l = _corr_weights(taps)
     if stride < 1 or len(w) < 1:
-        raise ValueError(f"fir: need stride >= 1 and taps, got {stride}, "
-                         f"{len(w)}")
+        raise ValueError(f"{kernel}: need stride >= 1 and taps, got "
+                         f"{stride}, {len(w)}")
     rows, n_in = flat.shape
     if valid:
         pad_l, n_out = 0, _valid_outputs(n_in, len(w), stride)
@@ -159,67 +202,95 @@ def _strided_cuda(x: torch.Tensor, taps, stride: int, valid: bool = False
         n_out = n_in // stride
     y = torch.empty((rows, n_out), dtype=torch.complex64, device=x.device)
     wt = T.on_device(_reversed_taps, (key,), None, x.device)
-    lib = build.library()
-    err = lib.ofdm_fir_strided(flat.data_ptr(), wt.data_ptr(), y.data_ptr(),
-                               rows, n_in, n_out, len(w), stride, pad_l,
-                               build.stream_ptr(x.device))
-    build.check(err, "fir")
-    policy.count_launch("fir")
+    launch = getattr(build.library(), _ENTRY[kernel])
+    err = launch(flat.data_ptr(), wt.data_ptr(), y.data_ptr(), rows, n_in,
+                 n_out, len(w), stride, pad_l, build.stream_ptr(x.device))
+    build.check(err, kernel)
+    policy.count_launch(kernel)
     return y.reshape(x.shape[:-1] + (n_out,))
 
 
-def _interp_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
-    flat = _rows(x, "interp")
+def _interp_launch(kernel: str, x: torch.Tensor, l: int, taps
+                   ) -> torch.Tensor:
+    """L-fold interpolation of every row; kernel: 'interp' (exact) or
+    'interp_bf16'."""
+    flat = _rows(x, kernel)
     if l < 1:
-        raise ValueError(f"interp: need l >= 1, got {l}")
+        raise ValueError(f"{kernel}: need l >= 1, got {l}")
     key = _f64_key(taps)
     g, _, d_max = _branch_matrix(key, l)
     rows, n = flat.shape
     y = torch.empty((rows, n * l), dtype=torch.complex64, device=x.device)
     gt = T.on_device(_branch_matrix, (key, l), 0, x.device)
-    lib = build.library()
-    err = lib.ofdm_fir_interp(flat.data_ptr(), gt.data_ptr(), y.data_ptr(),
-                              rows, n, l, g.shape[1], d_max,
-                              build.stream_ptr(x.device))
-    build.check(err, "interp")
-    policy.count_launch("interp")
+    launch = getattr(build.library(), _ENTRY[kernel])
+    err = launch(flat.data_ptr(), gt.data_ptr(), y.data_ptr(), rows, n, l,
+                 g.shape[1], d_max, build.stream_ptr(x.device))
+    build.check(err, kernel)
+    policy.count_launch(kernel)
     return y.reshape(x.shape[:-1] + (n * l,))
+
+
+_ENTRY = {"fir": "ofdm_fir_strided", "fir_bf16": "ofdm_fir_bf16_strided",
+          "interp": "ofdm_fir_interp", "interp_bf16": "ofdm_fir_bf16_interp"}
+
+
+def _strided_cuda(x: torch.Tensor, taps, stride: int, valid: bool = False
+                  ) -> torch.Tensor:
+    return _strided_launch("fir", x, taps, stride, valid)
+
+
+def _strided_bf16_cuda(x: torch.Tensor, taps, stride: int) -> torch.Tensor:
+    return _strided_launch("fir_bf16", x, taps, stride, False)
+
+
+def _interp_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+    return _interp_launch("interp", x, l, taps)
+
+
+def _interp_bf16_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+    return _interp_launch("interp_bf16", x, l, taps)
 
 
 # ------------------------------------------------------------------ dispatch
 
-def check_filter_precision(spec) -> None:
-    """Refuse the reference's 1-pass bf16 filter tier (a TPU MXU
-    precision, not ported); 'exact' float32 filtering is the default."""
-    resampled = spec.resample_l != 1 or spec.resample_m != 1
-    if resampled and spec.filter_precision != "exact":
-        raise NotImplementedError(
-            f"filter_precision={spec.filter_precision!r} is not ported; "
-            "the port filters in exact float32")
+def _is_bf16(precision: str) -> bool:
+    if precision not in ("exact", "bf16"):
+        raise ValueError(f"unknown filter precision {precision!r}")
+    return precision == "bf16"
 
 
-def fir_filter(x: torch.Tensor, taps) -> torch.Tensor:
+def fir_filter(x: torch.Tensor, taps, precision: str = "exact"
+               ) -> torch.Tensor:
     """'Same'-aligned real-taps FIR of complex signals, [..., n] -> [..., n]:
-    y[i] = sum_j taps[j] * x[i + half - j], half = (len(taps) - 1) // 2."""
+    y[i] = sum_j taps[j] * x[i + half - j], half = (len(taps) - 1) // 2;
+    precision 'bf16': the bf16 tier."""
+    bf16 = _is_bf16(precision)
     if policy.use_kernel(x):
-        return _strided_cuda(x, taps, 1)
-    return decim_plain(x, 1, taps)
+        return (_strided_bf16_cuda(x, taps, 1) if bf16
+                else _strided_cuda(x, taps, 1))
+    return (decim_plain_bf16 if bf16 else decim_plain)(x, 1, taps)
 
 
-def polyphase_interp(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+def polyphase_interp(x: torch.Tensor, l: int, taps, precision: str = "exact"
+                     ) -> torch.Tensor:
     """L-fold polyphase interpolation, [..., n] -> [..., n*l]; taps = the
-    prototype low-pass (gain L applied here)."""
+    prototype low-pass (gain L applied here); precision 'bf16': the bf16
+    tier."""
+    bf16 = _is_bf16(precision)
     if policy.use_kernel(x):
-        return _interp_cuda(x, l, taps)
-    return interp_plain(x, l, taps)
+        return (_interp_bf16_cuda if bf16 else _interp_cuda)(x, l, taps)
+    return (interp_plain_bf16 if bf16 else interp_plain)(x, l, taps)
 
 
-def polyphase_decim(x: torch.Tensor, m: int, taps) -> torch.Tensor:
+def polyphase_decim(x: torch.Tensor, m: int, taps, precision: str = "exact"
+                    ) -> torch.Tensor:
     """M-fold polyphase decimation, [..., n*m] -> [..., n]: the 'same' FIR
-    evaluated at every m-th sample only."""
+    evaluated at every m-th sample only; precision 'bf16': the bf16 tier."""
+    bf16 = _is_bf16(precision)
     if policy.use_kernel(x):
-        return _strided_cuda(x, taps, m)
-    return decim_plain(x, m, taps)
+        return (_strided_bf16_cuda(x, taps, m) if bf16
+                else _strided_cuda(x, taps, m))
+    return (decim_plain_bf16 if bf16 else decim_plain)(x, m, taps)
 
 
 def polyphase_decim_stream(w: torch.Tensor, m: int, taps) -> torch.Tensor:

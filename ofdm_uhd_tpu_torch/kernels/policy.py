@@ -7,7 +7,10 @@ Two questions, answered apart:
     reference: `choose` (a copy of ofdm_uhd_tpu/kernels/policy.py:96-127,
     with its `_PALLAS_WINS` table) picks, from `kernel_backend`, between
     the reference's Pallas formulations (the fused CP-strip FFT and IFFT +
-    CP, the boxcar S&C correlator) and its XLA ones, and `viterbi_impl`
+    CP, the boxcar S&C correlator) and its XLA ones; `filter_precision`
+    gives, through it, the filter tier (exact or bf16) of each FIR call,
+    since the reference applies spec.filter_precision only where its MXU
+    kernel runs; `viterbi_impl`
     (ofdm_uhd_tpu/kernels/policy.py:68-93) picks the Viterbi algorithm
     from the spec and the batch. The windowed decoders can differ from
     the whole-sequence one on frames whose survivors do not merge
@@ -31,9 +34,11 @@ import contextlib
 
 import torch
 
-# "fir" counts the strided kernel: 'same' FIR and decimation launches
+# "fir" counts the strided kernel: 'same' FIR and decimation launches;
+# "fir_bf16" and "interp_bf16" the bf16 tier's two kernels
 KERNELS = ("localize", "extract", "fft", "viterbi", "viterbi_windowed",
-           "fir", "interp", "scfront", "cpfft", "ifftcp", "sccorr", "halo")
+           "fir", "interp", "fir_bf16", "interp_bf16", "scfront", "cpfft",
+           "ifftcp", "sccorr", "halo")
 
 # the reference's batch crossovers between its Viterbi algorithms
 _VITERBI_FUSED_MAX_BATCH = 96
@@ -84,6 +89,19 @@ def choose(kernel: str, size: int, requested: str, n: int | None = None
         return requested
     win = _PALLAS_WINS.get(kernel)
     return "pallas" if (win is not None and win(size, n)) else "xla"
+
+
+def filter_precision(spec, kernel: str, size: int, n: int | None = None
+                     ) -> str:
+    """The precision of one filter call ('fir' at size = the tap count,
+    'interp' / 'decim' at size = the factor; n = samples): the spec's
+    filter_precision where the reference routes the call to its Pallas MXU
+    kernel (ofdm_uhd_tpu/kernels/fir.py:40-76), 'exact' elsewhere (its XLA
+    convolution has no precision). At C4 (L = 8): 'auto' takes the tier
+    for the TX interpolation only, 'pallas' for both, 'xla' for neither."""
+    if choose(kernel, size, spec.kernel_backend, n) == "pallas":
+        return spec.filter_precision
+    return "exact"
 
 
 class _Dispatch:

@@ -9,13 +9,16 @@ CRC.
 The reference vmapped the chain over captures; here the capture axis C
 is written out and every kernel takes it, so one call processes [C, n]
 captures with C * max_frames frame slots. The spec picks each stage's
-formulation as the reference does (kernels/policy.py): the S&C front end
-(K6) or, under kernel_backend='pallas' when l % 128 != 0, the boxcar
-correlator (K9) and the metric; the CP-fused FFT (K5) under 'pallas', else
-the FFT (K3); the Viterbi algorithm from the spec and the decode batch
-C * max_frames (K4 whole or K4w windowed). The input's device picks the
-tier: on CUDA the hand kernels run (with the decimation FIR, localize and
-extract), on the CPU their plain versions.
+formulation as the reference does (kernels/policy.py): the decimation's
+filter tier, exact float32 or, with filter_precision='bf16' where the
+reference routes its MXU filter kernel (kernel_backend 'pallas'), bf16
+products; the S&C front end (K6) or, under kernel_backend='pallas' when l
+% 128 != 0, the boxcar correlator (K9) and the metric; the CP-fused FFT
+(K5) under 'pallas', else the FFT (K3); the Viterbi algorithm from the
+spec and the decode batch C * max_frames (K4 whole or K4w windowed).
+Detection uses the fixed threshold. The input's device picks the tier: on
+CUDA the hand kernels run (with the decimation FIR, localize and extract),
+on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -36,12 +39,18 @@ from ..phy import tables as T
 
 class RxPipeline:
     """Receive chain for one waveform. Results are dicts of tensors on the
-    input's device, as the reference's RxPipeline returns them. Detection
-    uses the fixed threshold (the reference's 'cfar' mode is not ported)."""
+    input's device, as the reference's RxPipeline returns them. The
+    reference's constructor arguments; sync_threshold_mode 'fixed' detects
+    at sync_threshold, 'cfar' (the noise-floor-adaptive threshold) raises
+    NotImplementedError."""
 
     def __init__(self, spec: WaveformSpec, shift: int = 0,
-                 sync_threshold: float = 0.5, diag: bool = True):
-        KF.check_filter_precision(spec)
+                 sync_threshold: float = 0.5, diag: bool = True,
+                 sync_threshold_mode: str = "fixed"):
+        if sync_threshold_mode != "fixed":
+            raise NotImplementedError(
+                f"sync_threshold_mode={sync_threshold_mode!r} is not ported "
+                "(ROADMAP Queue 1, item 2)")
         self.spec = spec
         self.shift = shift
         self.sync_threshold = sync_threshold
@@ -78,9 +87,11 @@ def _to_baseband(spec: WaveformSpec, x: torch.Tensor) -> torch.Tensor:
         return x
     taps = T.resample_filter(l, m)
     if m > 1:
-        x = KF.polyphase_interp(x, m, taps)
+        x = KF.polyphase_interp(x, m, taps, precision=policy.filter_precision(
+            spec, "interp", m, x.numel()))
     if l > 1:
-        x = KF.polyphase_decim(x, l, taps)
+        x = KF.polyphase_decim(x, l, taps, precision=policy.filter_precision(
+            spec, "decim", l, x.numel()))
     return x
 
 

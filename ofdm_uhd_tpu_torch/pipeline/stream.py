@@ -9,7 +9,10 @@ returns fixed-capacity frame slots, which the host filters to the owned
 ones and orders by start.
 
 Feed: the chunks go to the mesh's first device, where the step's
-decimation and AGC run and the carried state lives. On a CUDA device each
+decimation and AGC run and the carried state lives. The decimation is the
+reference's stream form (valid mode over a carried filter tail) in exact
+float32 whatever the spec's filter_precision: the reference's stream never
+reads it. Detection uses the fixed threshold. On a CUDA device each
 dispatch's chunks are staged in pinned host
 memory and uploaded on a side stream while the card computes the previous
 dispatch, and each dispatch is issued before the previous one's outputs
@@ -28,7 +31,6 @@ import torch
 
 from ..core.spec import WaveformSpec
 from ..core.state import StreamState
-from ..kernels import fir as KF
 from ..shard.mesh import make_mesh
 from ..shard.time_parallel import make_stream_step
 
@@ -54,6 +56,8 @@ class StreamRx:
     of the one-shard chunk; pallas_halo=True moves the halos with the halo
     kernel (K10) on CUDA meshes; reshard=True balances the demod over the
     shards (all_to_all). threshold_mode='cfar' raises NotImplementedError.
+    A spec with filter_precision='bf16' runs, in exact float32, as the
+    reference's stream runs it.
     """
 
     def __init__(self, spec: WaveformSpec, mesh=None,
@@ -65,7 +69,6 @@ class StreamRx:
                  agc: bool = True, steps_per_dispatch: int = 8,
                  input_format: str = "fc32",
                  device: str | torch.device = "cuda"):
-        KF.check_filter_precision(spec)
         self.spec = spec
         self.mesh = (mesh if mesh is not None
                      else make_mesh(1, 1, [torch.device(device)]))
@@ -241,12 +244,23 @@ class StreamRx:
                  **self.state.to_numpy())
 
     def load_state(self, path: str) -> None:
+        """Resume from a checkpoint of either package, the reference's older
+        ones included: those carry `samples` (a sample count) in place of
+        `steps` and no `__steps__`, and the step count is samples //
+        chunk_len, as the reference converts them."""
         with np.load(path) as z:
-            missing = [f.name for f in dataclasses.fields(StreamState)
-                       if f.name not in z]
+            arrays, missing = {}, []
+            for f in dataclasses.fields(StreamState):
+                if f.name in z:
+                    arrays[f.name] = z[f.name]
+                elif f.name == "steps" and "samples" in z:
+                    arrays[f.name] = int(z["samples"]) // self.chunk_len
+                else:
+                    missing.append(f.name)
             if missing:
                 raise ValueError(f"incompatible checkpoint {path!r}: missing "
                                  f"StreamState fields {missing}")
-            self.state = StreamState.from_numpy(z, self.device)
+            self.state = StreamState.from_numpy(arrays, self.device)
             self._buf = z["__buf__"]
-            self._steps = int(z["__steps__"])
+            host = z["__steps__"] if "__steps__" in z else arrays["steps"]
+            self._steps = int(host)

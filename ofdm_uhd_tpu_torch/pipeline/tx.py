@@ -7,7 +7,9 @@ it runs on whatever device its input lies on, through the same kernel
 dispatch as the RX. On CUDA the IFFT + CP is the fused K5 kernel under
 kernel_backend='pallas' (where the reference routes ifft_cp_pallas), else
 the FFT kernel's inverse and a concatenation; the interpolation is the
-interp kernel.
+interp kernel, or its bf16 tier with filter_precision='bf16' where the
+reference routes its MXU filter kernel (kernel_backend 'pallas' or
+'auto').
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..core.spec import WaveformSpec, TAIL_BITS
 from ..kernels import fir as KF
+from ..kernels import policy
 from ..phy import bits as PB
 from ..phy import frame as PF
 from ..phy import qam as PQ
@@ -27,7 +30,6 @@ class TxPipeline:
     [B, frame_len_radio]."""
 
     def __init__(self, spec: WaveformSpec):
-        KF.check_filter_precision(spec)
         self.spec = spec
 
     def encode(self, payloads: torch.Tensor) -> torch.Tensor:
@@ -43,12 +45,19 @@ class TxPipeline:
         return PF.ofdm_modulate(spec, grid)
 
     def __call__(self, payloads: torch.Tensor) -> torch.Tensor:
+        spec = self.spec
         frames = self.baseband(payloads)
-        l, m = self.spec.resample_l, self.spec.resample_m
+        l, m = spec.resample_l, spec.resample_m
         if l > 1:
-            frames = KF.polyphase_interp(frames, l, T.resample_filter(l, m))
+            frames = KF.polyphase_interp(
+                frames, l, T.resample_filter(l, m),
+                precision=policy.filter_precision(spec, "interp", l,
+                                                  frames.numel()))
         if m > 1:
-            frames = KF.polyphase_decim(frames, m, T.resample_filter(l, m))
+            frames = KF.polyphase_decim(
+                frames, m, T.resample_filter(l, m),
+                precision=policy.filter_precision(spec, "decim", m,
+                                                  frames.numel()))
         return frames
 
 

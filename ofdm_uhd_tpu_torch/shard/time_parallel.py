@@ -408,7 +408,7 @@ def make_stream_step(spec: WaveformSpec, mesh: Mesh | None, chunk_len: int,
                  else (threshold, "fixed"))
     if mode != "fixed":
         raise NotImplementedError(f"threshold_mode={mode!r} is not ported "
-                                  "(ROADMAP Queue 1, item 12)")
+                                  "(ROADMAP Queue 1, item 2)")
     if input_format not in ("fc32", "sc16"):
         raise ValueError(f"unknown input_format {input_format!r}")
     s = StreamStep(spec, mesh if mesh is not None else make_mesh(1, 1),

@@ -165,12 +165,17 @@ def test_c4_rx_aligned_exact(ref, port):
                                atol=0.01)
 
 
-def test_c4_bf16_filter_tier_not_ported():
-    spec = config("c4").with_(filter_precision="bf16")
-    with pytest.raises(NotImplementedError):
-        RxPipeline(spec)
-    with pytest.raises(NotImplementedError):
-        TxPipeline(spec)
+def test_c4_sync_threshold_mode(ref, port):
+    """The reference's sync_threshold_mode keyword: 'fixed' gives the
+    default's results; 'cfar' is not ported yet and says where it waits."""
+    got = RxPipeline(port["spec"], diag=True,
+                     sync_threshold_mode="fixed").rx_capture(
+        torch.from_numpy(ref["caps"]), max_frames=MAX_FRAMES)
+    assert set(got) == set(port["out"])
+    for k, v in port["out"].items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+        RxPipeline(port["spec"], sync_threshold_mode="cfar")
 
 
 def test_c4_integer_cfo_exact(ref, port):

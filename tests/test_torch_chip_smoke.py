@@ -1,7 +1,9 @@
 """chip_smoke.py's own pieces on the CPU: the library calls it times as
 `library_ms` compute the functions of the kernels they stand beside (on
 the same inputs, to float32 rounding: cuDNN-style convolutions sum in
-another order than the plain versions), the bound it reports, and its
+another order than the plain versions; the bf16 tier's yardsticks to
+half a bf16 step, 2^-8 of max|y|, since they round their outputs to
+bf16), the bound it reports, the kernels its JSON line names, and its
 refusal to run without a card."""
 
 import os
@@ -16,7 +18,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
-from ofdm_uhd_tpu_torch.kernels import fir  # noqa: E402
+from ofdm_uhd_tpu_torch.kernels import fir, policy  # noqa: E402
 from ofdm_uhd_tpu_torch.phy.tables import resample_filter  # noqa: E402
 
 torch.set_num_threads(2)
@@ -55,6 +57,47 @@ def test_library_interp_is_the_polyphase_interpolation(l):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("stride", [1, 8])
+def test_library_fir_bf16_is_the_bf16_strided_fir(stride):
+    taps = resample_filter(8, 1)
+    x = _x(stride + 2, 3, 4096)
+    planes = chip_smoke.library_fir(torch, x, taps, stride, torch.bfloat16)()
+    assert planes.dtype == torch.bfloat16
+    got = _merge(planes.float(), 3, 4096 // stride)
+    want = fir.decim_plain_bf16(x, stride, taps)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 2.0 ** -8 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("l", [2, 8])
+def test_library_interp_bf16_is_the_bf16_interpolation(l):
+    taps = resample_filter(l, 1)
+    x = _x(l + 2, 2, 1001)
+    planes = chip_smoke.library_interp(torch, x, l, taps, torch.bfloat16)()
+    got = _merge(planes.float(), 2, 1001 * l)
+    want = fir.interp_plain_bf16(x, l, taps)
+    assert float((got - want).abs().max()) <= 2.0 ** -8 * float(
+        want.abs().max())
+
+
+def test_kernels_line_names_every_kernel():
+    """Every counted kernel has its entry in the kernels line, the bf16
+    tier's two included, each naming its source and the TPU kernel it
+    replaces by file and line."""
+    assert set(chip_smoke.KERNEL_INFO) == set(policy.KERNELS)
+    for name in ("fir_bf16", "interp_bf16"):
+        src, rep = chip_smoke.KERNEL_INFO[name]
+        assert os.path.isfile(os.path.join(REPO, src))
+        path, line = rep.split(":")
+        with open(os.path.join(REPO, path)) as f:
+            text = f.read().splitlines()[int(line) - 1]
+        assert text.startswith("def ") and "mxu_pallas" in text
+        assert chip_smoke.held_kernel(name) == name
+    assert chip_smoke.held_kernel("fir_stride1") == "fir"
+    assert chip_smoke.C4_BF16_PATH[0] == "fir_bf16"
+
+
 def test_bound_takes_the_larger_time():
     ms, by = chip_smoke.bound(3.35e9, 1.0)
     assert by == "bytes" and abs(ms - 1.0) < 1e-12
@@ -64,6 +107,14 @@ def test_bound_takes_the_larger_time():
     # never fetched), 256 written (0.1405 ms)
     ms, by = chip_smoke.bound(*chip_smoke.work_fft(114_912, 256, 256, 256))
     assert by == "bytes" and abs(ms - 0.1405) < 1e-4
+    ms, by = chip_smoke.bound(1.0, 989e9, chip_smoke.BF16_OPS)
+    assert by == "operations" and abs(ms - 1.0) < 1e-12
+    # C4's bf16 decimation: 8 padded captures of 4,138,472 samples in,
+    # 517,309 out a row, complex64; 193 taps (0.089 ms, bytes)
+    n_in, n_out = 4_138_472, 517_309
+    ms, by = chip_smoke.bound(8.0 * 8 * (n_in + n_out), 4.0 * 193 * 8 * n_out,
+                              chip_smoke.BF16_OPS)
+    assert by == "bytes" and abs(ms - 0.089) < 1e-3
 
 
 def test_refuses_to_run_without_a_card():

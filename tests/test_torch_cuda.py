@@ -274,6 +274,102 @@ def test_interp_kernel_close(dev, l):
     assert torch.equal(one[0], got[1])
 
 
+@pytest.mark.parametrize("stride", [1, 2, 8])
+@pytest.mark.parametrize("ntaps", [3, 193])
+def test_fir_bf16_strided_kernel_close(dev, stride, ntaps):
+    """The bf16 tier's strided kernel (tensor cores) against its plain
+    version, within 1e-5 of max|y| (f32 summation order); ragged rows; it
+    differs from the exact tier by the bf16 rounding."""
+    taps = resample_filter(8, 1) if ntaps == 193 else [0.25, 0.5, 0.25]
+    x = torch.randn((3, 20011), dtype=torch.complex64,
+                    generator=_gen(ntaps + stride), device=dev)
+    policy.reset_launches()
+    got = (fir.fir_filter(x, taps, precision="bf16") if stride == 1
+           else fir.polyphase_decim(x, stride, taps, precision="bf16"))
+    assert policy.launches()["fir_bf16"] == 1
+    assert policy.launches()["fir"] == 0
+    ref = fir.decim_plain_bf16(x, stride, taps)
+    _within(got, ref)
+    exact = fir.decim_plain(x, stride, taps)
+    assert float((got - exact).abs().max()) > 1e-4 * float(exact.abs().max())
+    one = fir.polyphase_decim(x[1:2].contiguous(), stride, taps,
+                              precision="bf16")
+    assert torch.equal(one[0], got[1])           # rows do not leak
+
+
+@pytest.mark.parametrize("l", [2, 3, 8])
+def test_interp_bf16_kernel_close(dev, l):
+    taps = resample_filter(l, 1)
+    x = torch.randn((2, 5003), dtype=torch.complex64, generator=_gen(l + 7),
+                    device=dev)
+    policy.reset_launches()
+    got = fir.polyphase_interp(x, l, taps, precision="bf16")
+    assert policy.launches()["interp_bf16"] == 1
+    assert policy.launches()["interp"] == 0
+    _within(got, fir.interp_plain_bf16(x, l, taps))
+    one = fir.polyphase_interp(x[1:2].contiguous(), l, taps, precision="bf16")
+    assert torch.equal(one[0], got[1])
+
+
+def test_bf16_kernels_at_c4_shapes(dev):
+    """C4's decimation of 8 padded captures [8, 4,138,472] by 8 and its
+    TX interpolation of [32, 16128] frames by 8, 193 taps."""
+    taps = resample_filter(8, 1)
+    x = torch.randn((8, 4_138_472), dtype=torch.complex64, generator=_gen(8),
+                    device=dev)
+    _within(fir._strided_bf16_cuda(x, taps, 8),
+            fir.decim_plain_bf16(x, 8, taps))
+    base = torch.randn((32, 16128), dtype=torch.complex64, generator=_gen(9),
+                       device=dev)
+    _within(fir._interp_bf16_cuda(base, 8, taps),
+            fir.interp_plain_bf16(base, 8, taps))
+
+
+def test_bf16_kernels_on_second_card(dev):
+    """A tensor on cuda:1 launches the bf16 kernels there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    taps = resample_filter(8, 1)
+    x = torch.randn((2, 9001), dtype=torch.complex64, generator=_gen(1),
+                    device=dev).to("cuda:1")
+    policy.reset_launches()
+    y = fir.polyphase_decim(x, 8, taps, precision="bf16")
+    up = fir.polyphase_interp(x, 8, taps, precision="bf16")
+    assert y.device == up.device == x.device
+    assert policy.launches()["fir_bf16"] == policy.launches()[
+        "interp_bf16"] == 1
+    _within(y.cpu(), fir.decim_plain_bf16(x.cpu(), 8, taps))
+    _within(up.cpu(), fir.interp_plain_bf16(x.cpu(), 8, taps))
+
+
+def test_c4_bf16_slice_on_card_matches_cpu(dev):
+    """C4 under kernel_backend 'pallas' with filter_precision 'bf16': the
+    TX interpolates and the RX decimates through the bf16 kernels, never
+    the exact ones, and decode as the CPU's plain versions."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline
+    spec = config("c4").with_(n_data_syms=2, kernel_backend="pallas",
+                              filter_precision="bf16")
+    policy.reset_launches()
+    built = [build_capture(spec, 3, 300, seed=s, cfo=0.1,
+                           phase_noise_std=0.0, device=dev) for s in range(2)]
+    assert policy.launches()["interp_bf16"] == 2
+    assert policy.launches()["interp"] == 0
+    caps = torch.from_numpy(np.stack([c for c, _ in built]))
+    pays = np.stack([p for _, p in built])
+    rx = RxPipeline(spec)
+    cpu = rx.rx_capture(caps, max_frames=5)
+    policy.reset_launches()
+    gpu = rx.rx_capture(caps.to(dev), max_frames=5)
+    torch.cuda.synchronize()
+    launched = policy.launches()
+    assert launched["fir_bf16"] == 1 and launched["fir"] == 0, launched
+    for k in ("crc_ok", "valid", "d", "det_sat"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    assert np.array_equal(gpu["payload"][:, :3].cpu().numpy(), pays)
+    assert (gpu["eps"].cpu() - cpu["eps"]).abs().max() <= 1e-4
+
+
 @pytest.mark.parametrize("l", [32, 128, 512])
 def test_scfront_kernel_close(dev, l):
     x = torch.randn((3, 50000), dtype=torch.complex64, generator=_gen(l),

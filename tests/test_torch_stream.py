@@ -255,6 +255,55 @@ def test_stream_resampled_c4_matches_reference():
         np.testing.assert_array_equal(g.payload, p)
 
 
+def test_stream_bf16_spec_runs_exact_as_the_reference():
+    """A C4 stream whose spec asks for the bf16 filter tier runs, as the
+    reference's stream does, which never reads filter_precision: the
+    reference's frames, and bit for bit the port's exact-spec stream (the
+    stream's decimation is exact float32 whatever the spec says)."""
+    rspec = ref_config("c4").with_(n_data_syms=2, kernel_backend="pallas",
+                                   filter_precision="bf16")
+    spec = _port_spec(rspec)
+    cap, pays = ref_build_capture(rspec, 3, GAP, seed=1, cfo=0.1,
+                                  phase_noise_std=0.0)
+    want = _run(_ref_rx(rspec, steps_per_dispatch=1), cap)
+    got = _run(StreamRx(spec, steps_per_dispatch=1, device="cpu"), cap)
+    exact = _run(StreamRx(spec.with_(filter_precision="exact"),
+                          steps_per_dispatch=1, device="cpu"), cap)
+    _same_frames(got, want)
+    assert [g.crc_ok for g in got] == [True] * 3
+    for g, e, p in zip(got, exact, pays):
+        np.testing.assert_array_equal(g.payload, p)
+        np.testing.assert_array_equal(g.payload, e.payload)
+        assert (g.start, g.crc_ok, g.eps, g.evm_db) == (e.start, e.crc_ok,
+                                                        e.eps, e.evm_db)
+    assert len(got) == len(exact)
+
+
+def test_stream_loads_samples_era_checkpoint(ref, port, tmp_path):
+    """A checkpoint of the reference's older layout, `samples` (a sample
+    count) in place of `steps` and no `__steps__`: the port and the
+    reference both resume at samples // chunk_len steps and decode the
+    rest of the capture alike."""
+    old = str(tmp_path / "samples_ckpt.npz")
+    with np.load(ref["ckpt"]) as z:
+        steps = int(z["steps"])
+        arrays = {k: z[k] for k in z.files if k not in ("steps", "__steps__")}
+    rx_ref = _ref_rx(ref["spec"], steps_per_dispatch=1)
+    arrays["samples"] = np.int64(steps * rx_ref.chunk_len)
+    np.savez(old, **arrays)
+    rx_ref.load_state(old)
+    rx = StreamRx(port["spec"], steps_per_dispatch=1, device="cpu")
+    rx.load_state(old)
+    assert 0 < rx._steps == rx_ref._steps == steps
+    assert int(rx.state.steps) == int(np.asarray(rx_ref.state.steps))
+    rest = ref["cap"][ref["split"]:]
+    want = rx_ref.process(rest) + rx_ref.flush()
+    got = rx.process(rest) + rx.flush()
+    assert got
+    _same_frames(got, want)
+    _same_state(rx.state, rx_ref.state)
+
+
 @pytest.mark.parametrize("early", [8, 16])
 def test_stream_boundary_duplicate_matches_reference(early):
     """A reference fault the port reproduces: a frame that starts `early`
