@@ -1,11 +1,14 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's six paths through their user entry points, in phases;
-each prints its findings on a line of its own:
+Drives the port's six paths through their user entry points, and the
+shifted-FMA filter tier that no path runs, in phases; each prints its
+findings on a line of its own:
 
   C3, the capture-mode RX chain `RxPipeline(config("c3")).rx_capture_sc16(
       iq, max_frames)` at the size the repository's bench.py judges (8
-      captures x 1024 frames, gap 300, sc16);
+      captures x 1024 frames, gap 300, sc16), and once more with
+      `sync_threshold_mode="cfar"`, which must give its plain-forced run's
+      slots (its slots that differ from the fixed run's are counted);
   C4, the resampled chain: `TxPipeline(config("c4"))` builds 8 captures x
       32 frames on the card (the reference's C4 row: gap 300, timing offset
       100, SNR 28 dB, CFO 0.8 / 8 at the radio rate, no phase noise, fc32)
@@ -47,7 +50,16 @@ each prints its findings on a line of its own:
       `rx_frames_sharded` over a (4, 1) mesh and `rx_aligned_pipelined`
       over 2 stages on 4096 C3 frames built by the port's TX on the card
       (SNR 28 dB), against `RxPipeline.rx_aligned`; and, with two cards or
-      more, a (1, 2) mesh over two cards with the halo kernel's peer read.
+      more, a (1, 2) mesh over two cards with the halo kernel's peer read;
+  shift, the shifted-FMA tier (research/shift.py: fir_shift,
+      polyphase_decim_shift, polyphase_interp_shift, sc_correlate_shift),
+      which the reference keeps as an A/B baseline and no user path runs:
+      bench/kernels_ab.py's K11 rows (a seed-0 signal of 2^20 samples: the
+      193- and 3-tap FIR, the 8x decimation, the S&C correlator at l = 128;
+      the 8x interpolation over 2^17) and C4's decimation [8, 4,138,472]
+      and TX interpolation [32, 16128] at full width, each kernel held
+      against its plain version, at C4 beside the exact K7 kernel on the
+      same input (the A/B of the two exact filter designs).
 
   1. device:  a CUDA card must be present; prints the card's name and
               power limit as nvidia-smi reports them;
@@ -55,7 +67,8 @@ each prints its findings on a line of its own:
               (one nvcc per source, sm_90a, started together) into
               build/ofdm_uhd_tpu_torch/;
   then for C3, C4, c4_bf16, C5 (and c5_sharded), c3_pallas and c2_pallas
-  in turn:
+  in turn (and last the shift phase, whose counted run stands for its
+  slice):
   3. input:   the captures, built by the port's TxPipeline on the card
               (C4's interpolation is the interp kernel, c4_bf16's the
               interp_bf16 kernel; the 'pallas' paths' IFFT + CP the
@@ -78,8 +91,9 @@ each prints its findings on a line of its own:
               whole-sequence kernel on the same LLRs;
   6. slice:   decodes every frame, which must match the sent payloads bit
               for bit, with the launch count of every kernel of the path
-              > 0 over that run; times the chain with the kernels and with
-              the plain versions forced, requires the plain run's frame
+              > 0 over that run, and no shift_* kernel; times the chain
+              with the kernels and with the plain versions forced,
+              requires the plain run's frame
               starts (capture paths: `d`, `valid` and the valid slots'
               payloads; C5: starts and payloads) to equal the kernel
               run's, and reads the card's busy share (torch.profiler).
@@ -153,6 +167,16 @@ KERNEL_INFO = {
                "ofdm_uhd_tpu/kernels/pallas_sync.py:55"),
     "halo": ("ofdm_uhd_tpu_torch/kernels/csrc/halo.cu",
              "ofdm_uhd_tpu/kernels/pallas_halo.py:59"),
+    # the shifted-FMA tier (K11), which no user path runs; its S&C
+    # correlator is served by the sccorr kernel
+    "shift_fir": ("ofdm_uhd_tpu_torch/kernels/csrc/shift.cu",
+                  "ofdm_uhd_tpu/research/pallas_shift.py:133"),
+    "shift_decim": ("ofdm_uhd_tpu_torch/kernels/csrc/shift.cu",
+                    "ofdm_uhd_tpu/research/pallas_shift.py:332"),
+    "shift_interp": ("ofdm_uhd_tpu_torch/kernels/csrc/shift.cu",
+                     "ofdm_uhd_tpu/research/pallas_shift.py:405"),
+    "shift_sc": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
+                 "ofdm_uhd_tpu/research/pallas_shift.py:281"),
 }
 # the kernels each path's RX launches (C4's interp runs in its TX, and
 # the 'pallas' paths' ifftcp in theirs)
@@ -164,6 +188,14 @@ C5_PATH = ("scfront", "localize", "extract", "fft", "viterbi_windowed")
 C3_PALLAS_PATH = ("scfront", "localize", "extract", "cpfft",
                   "viterbi_windowed")
 C2_PALLAS_PATH = ("sccorr", "localize", "extract", "cpfft", "viterbi")
+# the shift phase's launches; no slice may launch any of them
+SHIFT_PATH = ("shift_fir", "shift_decim", "shift_interp", "shift_sc")
+# bench/kernels_ab.py's K11 rows: a seed-0 complex64 signal of SHIFT_N
+# samples through the 193-tap FIR (and the 3-tap one), the 8x decimation
+# and the S&C correlator at l = 128; the 8x interpolation over SHIFT_N / 8
+SHIFT_N = 1 << 20
+SHIFT_M = 8
+SHIFT_SC_L = 128
 
 
 class SmokeFailure(Exception):
@@ -246,6 +278,14 @@ def work_sc(rows, n, l, metric: bool) -> tuple[float, float]:
     lg = l.bit_length() - 1
     per = 11 + 2 * lg + lg + 1 + (8 if metric else 0)
     return 8.0 * rows * n + 12.0 * rows * nd, float(rows * nd * per)
+
+
+def work_filter(rows, n_in, n_out, taps, peak=F32_OPS
+                ) -> tuple[float, float, float]:
+    """(bytes, flops, peak) of a real-tap filter of complex64 rows [rows,
+    n_in] -> [rows, n_out]: each sample read once and each output written
+    once (8 B), and 2 FMAs (4 flops) per output and tap it needs."""
+    return 8.0 * rows * (n_in + n_out), 4.0 * taps * rows * n_out, peak
 
 
 def work_viterbi(rows, n, steps) -> tuple[float, float]:
@@ -519,6 +559,14 @@ def rel_close(y_k, y_p) -> tuple[bool, float]:
     return err <= REL_TOL * float(y_p.abs().max()), err
 
 
+def sc_close(k, p) -> tuple[bool, float]:
+    """(P, R) pairs of the S&C correlator: P within REL_TOL of max|P|, R
+    within R_TOL sample by sample."""
+    ok_p, err = rel_close(k[0], p[0])
+    rel = float(((k[1] - p[1]).abs() / p[1].abs().clamp_min(1e-30)).max())
+    return ok_p and rel <= R_TOL, max(err, rel)
+
+
 def scfront_close(k, p) -> tuple[bool, float]:
     """(P, M) pairs: M within M_TOL absolute, P within REL_TOL of max|P|."""
     ok_p, _ = rel_close(k[0], p[0])
@@ -596,15 +644,9 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
                     cap.shape, work_sc(rows, n, l, metric=True))
 
     def hold_sccorr():
-        # S&C correlator at l = n_sc / 2 (32 on C2): P within REL_TOL of
-        # max|P|, R within R_TOL sample by sample
-        def close(k, p):
-            ok_p, err = rel_close(k[0], p[0])
-            rel = float(((k[1] - p[1]).abs()
-                         / p[1].abs().clamp_min(1e-30)).max())
-            return ok_p and rel <= R_TOL, max(err, rel)
+        # S&C correlator at l = n_sc / 2 (32 on C2)
         return held(torch, "sccorr", lambda: sync._sccorr_cuda(cap, l),
-                    lambda: sync.sc_correlate_plain(cap, l), close,
+                    lambda: sync.sc_correlate_plain(cap, l), sc_close,
                     cap.shape, work_sc(rows, n, l, metric=False))
 
     def hold_localize():
@@ -751,8 +793,7 @@ def phase_kernels_fir(torch, spec, label, ins, base) -> dict:
 
     def work(x, stride):
         r, n_in = x.shape
-        n_out = n_in // stride
-        return 8.0 * r * (n_in + n_out), 4.0 * nt * r * n_out, peak
+        return work_filter(r, n_in, n_in // stride, nt, peak)
     xin = ins["radio"]
     res[dname] = held(torch, f"{dname} decim",
                       lambda: strided(xin, taps, lr),
@@ -767,8 +808,7 @@ def phase_kernels_fir(torch, spec, label, ins, base) -> dict:
     branch = fir.branch_matrix(taps, lr)[0].shape[1]
     res[iname] = held(torch, iname, lambda: interp(base, lr, taps),
                       lambda: interp_plain(base, lr, taps), rel_close,
-                      base.shape, (8.0 * r * nb * (1 + lr),
-                                   4.0 * branch * r * nb * lr, peak),
+                      base.shape, work_filter(r, nb, nb * lr, branch, peak),
                       library_interp(torch, base, lr, taps, dtype))
     # events around one call read the host's launch overhead where it
     # exceeds the kernel (the interpolation): the profiler's in-kernel time
@@ -800,7 +840,7 @@ def phase_slice(torch, spec, label, x, x2, pays, max_frames, path,
     for k in path:
         check(launches[k] > 0, f"{label}: the main path never launched the "
               f"{k} kernel")
-    for k in absent:
+    for k in absent + SHIFT_PATH:
         check(launches[k] == 0, f"{label}: the main path launched the {k} "
               f"kernel {launches[k]} times")
     crc = out["crc_ok"][:, :n_frames]
@@ -881,10 +921,52 @@ def run_c3(torch, config, device) -> dict:
     max_frames = C3_FRAMES + 2
     ins, stages = phase_stages(torch, spec, "c3", iq, max_frames)
     kernels = phase_kernels(torch, spec, "c3", ins)
+    m = ins["m"]
     del ins
     sl = phase_slice(torch, spec, "c3", iq, iq ^ 1, pays, max_frames,
                      C3_PATH, sc16=True)
-    return {"stages_ms": stages, "kernels": kernels, "slice": sl}
+    cfar = phase_cfar(torch, spec, "c3", iq, pays, max_frames, m)
+    return {"stages_ms": stages, "kernels": kernels, "slice": sl,
+            "cfar": cfar}
+
+
+def phase_cfar(torch, spec, label, iq, pays, max_frames, m) -> dict:
+    """The CFAR threshold mode on the path's captures, run once through
+    `RxPipeline(spec, sync_threshold_mode="cfar").rx_capture_sc16`: it
+    must give the plain-forced CFAR run's d, valid and payloads (the plain
+    versions, which the CPU tests hold to the reference's CFAR detection).
+    Reported beside it: the slots whose d differs from the fixed run's and
+    the sent frames each mode decodes (the reference's CFAR anchors a C3
+    frame early here and again; tests/test_torch_cfar.py), each capture's
+    threshold on the metric m [C, nd] the stages gave, and that
+    threshold's time (one sort of every row; CUDA events)."""
+    from ofdm_uhd_tpu_torch.kernels import policy
+    from ofdm_uhd_tpu_torch.phy import sync
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline
+
+    def run(mode):
+        return RxPipeline(spec, diag=False, sync_threshold_mode=mode
+                          ).rx_capture_sc16(iq, max_frames=max_frames)
+    out = {mode: run(mode) for mode in ("fixed", "cfar")}
+    with policy.plain_versions():
+        plain = run("cfar")
+    for k in ("d", "valid", "payload"):
+        check(bool(torch.equal(out["cfar"][k], plain[k])),
+              f"{label} cfar: {k} differs from the plain-forced run's")
+    n = pays.shape[1]
+    sent = {mode: int((o["crc_ok"][:, :n] & (o["payload"][:, :n] == pays)
+                       .all(-1)).sum()) for mode, o in out.items()}
+    moved = int((out["cfar"]["d"] != out["fixed"]["d"]).sum())
+    thr = sync.cfar_threshold(m, 0.5, 16.0)[:, 0].tolist()
+    ms = cuda_ms(torch, lambda: sync.cfar_threshold(m, 0.5, 16.0))
+    log(f"{label} cfar: ok  d, valid and payloads equal to the plain-forced "
+        f"CFAR run's; sent frames decoded: cfar {sent['cfar']}, fixed "
+        f"{sent['fixed']} of {pays.shape[0] * n}; {moved} slots with "
+        f"another d than the fixed run's; thresholds "
+        f"{[f'{t:.4g}' for t in thr]}; threshold of {list(m.shape)} in "
+        f"{ms:.3f} ms")
+    return {"frames_ok": sent, "slots_moved": moved, "thresholds": thr,
+            "threshold_ms": ms, "metric_shape": list(m.shape)}
 
 
 def run_c4(torch, config, device, label="c4", spec=None, path=C4_PATH,
@@ -898,12 +980,13 @@ def run_c4(torch, config, device, label="c4", spec=None, path=C4_PATH,
     ins, stages = phase_stages(torch, spec, label, caps, max_frames, path)
     kernels = {**phase_kernels(torch, spec, label, ins, path[1:]),
                **phase_kernels_fir(torch, spec, label, ins, base)}
+    radio = ins["radio"]
     del ins
     x2 = caps * torch.tensor(1 + 1e-6, dtype=torch.float32, device=device)
     sl = phase_slice(torch, spec, label, caps, x2, pays, max_frames, path,
                      sc16=False, absent=absent)
     return {"stages_ms": stages, "kernels": kernels, "slice": sl,
-            "tx_launches": tx_launches}
+            "tx_launches": tx_launches, "fir_inputs": (radio, base)}
 
 
 def run_c4_bf16(torch, config, device, c4) -> dict:
@@ -915,6 +998,7 @@ def run_c4_bf16(torch, config, device, c4) -> dict:
                               kernel_backend="pallas")
     res = run_c4(torch, config, device, "c4_bf16", spec, C4_BF16_PATH,
                  absent=("fir", "interp"))
+    del res["fir_inputs"]
     evm, evm_exact = (r["slice"]["evm_db_mean"] for r in (res, c4))
     log(f"c4_bf16 slice: mean EVM {evm:.2f} dB over the frames, exact C4 "
         f"{evm_exact:.2f} dB")
@@ -953,6 +1037,120 @@ def run_c2_pallas(torch, config, device) -> dict:
     return run_pallas(torch, config, device, "c2", "c2_pallas", C2_CAPS,
                       C2_FRAMES, C2_PALLAS_PATH, snr_db=28.0, cfo=0.8,
                       phase_noise_std=0.0, timing_offset=100)
+
+
+def run_shift(torch, device, c4_inputs) -> dict:
+    """The shifted-FMA tier (K11, research/shift.py), which no user path
+    runs, on bench/kernels_ab.py's K11 rows and on C4's decimation and TX
+    interpolation at full width (c4_inputs: the padded radio captures [8,
+    4,138,472] the exact decimation kernel was held on, and the TX's
+    baseband frames [32, 16128]). One counted run of the four functions at
+    every shape (this phase's main path: every shift_* kernel launches, no
+    other kernel does), then each kernel held against its plain version
+    with its bound, plain, library and in-kernel times; at C4 the exact K7
+    kernel on the same input beside it, in turns (K7, K11, K11, K7, each
+    in-kernel); and the S&C energy formed as the TPU kernel forms it (re*re
+    + im*im) against K9's |r|^2."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.kernels import fir, policy, sync
+    from ofdm_uhd_tpu_torch.phy import tables
+    from ofdm_uhd_tpu_torch.research import shift
+    taps = tables.resample_filter(SHIFT_M, 1)
+    taps3 = np.asarray([0.25, 0.5, 0.25], np.float32)
+    nt, branch = len(taps), fir.branch_matrix(taps, SHIFT_M)[0].shape[1]
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=SHIFT_N) + 1j * rng.normal(
+        size=SHIFT_N)).astype(np.complex64)).to(device)
+    xs = x[: SHIFT_N // SHIFT_M]
+    radio, base = c4_inputs
+    l, m = SHIFT_SC_L, SHIFT_M
+    torch.cuda.synchronize()
+    policy.reset_launches()
+    outs = [shift.fir_shift(x, taps), shift.fir_shift(x, taps3),
+            shift.polyphase_decim_shift(radio, m, taps),
+            shift.polyphase_decim_shift(x, m, taps),
+            shift.polyphase_interp_shift(base, m, taps),
+            shift.polyphase_interp_shift(xs, m, taps),
+            *shift.sc_correlate_shift(x, l)]
+    torch.cuda.synchronize()
+    launches = policy.launches()
+    for k, c in launches.items():
+        check((c > 0) == (k in SHIFT_PATH), f"shift: the run launched the "
+              f"{k} kernel {c} times")
+    check(all(bool(torch.isfinite(o).all()) for o in outs),
+          "shift: an output is not finite")
+    del outs
+    nd = SHIFT_N - 2 * l + 1
+    r, n_r = radio.shape
+    b, n_b = base.shape
+    cases = {   # key: (kernel, plain version, shape, work, library call)
+        "shift_fir_193": (
+            lambda: shift._fir_cuda(x, taps),
+            lambda: fir.decim_plain(x, 1, taps), x.shape,
+            work_filter(1, SHIFT_N, SHIFT_N, nt),
+            library_fir(torch, x[None], taps, 1)),
+        "shift_fir_3": (
+            lambda: shift._fir_cuda(x, taps3),
+            lambda: fir.decim_plain(x, 1, taps3), x.shape,
+            work_filter(1, SHIFT_N, SHIFT_N, 3),
+            library_fir(torch, x[None], taps3, 1)),
+        "shift_decim_c4": (
+            lambda: shift._decim_cuda(radio, m, taps),
+            lambda: fir.decim_plain(radio, m, taps), radio.shape,
+            work_filter(r, n_r, n_r // m, nt),
+            library_fir(torch, radio, taps, m)),
+        "shift_decim": (
+            lambda: shift._decim_cuda(x, m, taps),
+            lambda: fir.decim_plain(x, m, taps), x.shape,
+            work_filter(1, SHIFT_N, SHIFT_N // m, nt),
+            library_fir(torch, x[None], taps, m)),
+        "shift_interp_c4": (
+            lambda: shift._interp_cuda(base, m, taps),
+            lambda: fir.interp_plain(base, m, taps), base.shape,
+            work_filter(b, n_b, n_b * m, branch),
+            library_interp(torch, base, m, taps)),
+        "shift_interp": (
+            lambda: shift._interp_cuda(xs, m, taps),
+            lambda: fir.interp_plain(xs, m, taps), xs.shape,
+            work_filter(1, xs.shape[0], xs.shape[0] * m, branch),
+            library_interp(torch, xs[None], m, taps)),
+        "shift_sc": (
+            lambda: shift._sc_cuda(x, l),
+            lambda: sync.sc_correlate_plain(x, l), x.shape,
+            work_sc(1, SHIFT_N, l, metric=False), None),
+    }
+    res = {}
+    for key, (run_k, run_p, shape, work, library) in cases.items():
+        close = sc_close if key == "shift_sc" else rel_close
+        res[key] = held(torch, key, run_k, run_p, close, shape, work,
+                        library)
+        res[key]["device_ms"] = device_ms(torch, run_k)
+    log_kernels("shift", res)
+    # the A/B at C4: the exact K7 kernel on the same input, in turns
+    for key, k7 in (("shift_decim_c4",
+                     lambda: fir._strided_cuda(radio, taps, m)),
+                    ("shift_interp_c4",
+                     lambda: fir._interp_cuda(base, m, taps))):
+        k11 = cases[key][0]
+        turns = [device_ms(torch, f) for f in (k7, k11, k11, k7)]
+        res[key].update({"k7_ms": cuda_ms(torch, k7),
+                         "k7_device_ms": [turns[0], turns[3]],
+                         "device_ms_turns": [turns[1], turns[2]]})
+        log(f"shift a/b: {key} in-kernel K7 / K11 / K11 / K7 " + " / ".join(
+            "none" if t is None else f"{t:.4f}" for t in turns)
+            + f" ms; events K7 {res[key]['k7_ms']:.3f}, K11 "
+            f"{res[key]['ms']:.3f} ms")
+    _, r9 = shift._sc_cuda(x, l)
+    e = x.real * x.real + x.imag * x.imag
+    r11 = 0.5 * sync._moving_sum(e, 2 * l)
+    energy = float(((r11 - r9).abs() / r9.abs().clamp_min(1e-30)).max())
+    check(r9.shape == (nd,) and energy <= R_TOL,
+          f"shift: R from re*re + im*im differs from K9's by {energy}")
+    log(f"shift: ok  every shift_* kernel within tolerance of its plain "
+        f"version; R with the energy as re*re + im*im within {energy:.3g} "
+        f"(relative) of K9's |r|^2 form; launches {launches}")
+    return {"kernels": res, "launches": launches,
+            "energy_form_max_rel": energy}
 
 
 def make_input_c5(torch, spec, device):
@@ -1495,8 +1693,9 @@ def phase_two_cards(torch, spec, stacks, pays) -> dict | None:
 
 def path_launches(paths) -> dict:
     """Launches per kernel of every counted main-path run: each path's RX
-    slice (C5: its two operating points; c5_sharded: its halo-kernel run)
-    and the TX input builds of C4, c4_bf16 and the 'pallas' paths."""
+    slice (C5: its two operating points; c5_sharded: its halo-kernel run;
+    shift: its counted run) and the TX input builds of C4, c4_bf16 and the
+    'pallas' paths."""
     out = {}
     for p, r in paths.items():
         out[p] = r["launches"] if "launches" in r else r["slice"]["launches"]
@@ -1520,9 +1719,11 @@ def kernel_entry(name, paths, by_path) -> dict:
     those of the first path's check (C3's for the kernels C3 runs, C5
     resident's for viterbi_windowed, c3_pallas's for cpfft and ifftcp,
     c2_pallas's for sccorr, c5_sharded's for halo, c4_bf16's for fir_bf16
-    and interp_bf16), as are bound_ms, bound_by and library_ms.
-    launches sums the counted main-path runs (every path's RX and the TX
-    input builds of C4, c4_bf16 and the 'pallas' paths), and
+    and interp_bf16, the shift phase's for shift_*: its first check, C4's
+    shape for the decimation and interpolation), as are bound_ms, bound_by
+    and library_ms. launches sums the counted main-path runs (every
+    path's RX, the TX input builds of C4, c4_bf16 and the 'pallas' paths,
+    and the shift phase's counted run), and
     launches_by_path splits them."""
     src, rep = KERNEL_INFO[name]
     held_on = {p + k[len(name):]: v for p, r in paths.items()
@@ -1564,12 +1765,13 @@ def main() -> int:
         c5, c5_sharded = run_c5(torch, config, device)
         c3_pallas = run_c3_pallas(torch, config, device)
         c2_pallas = run_c2_pallas(torch, config, device)
+        shift = run_shift(torch, device, c4.pop("fir_inputs"))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     paths = {"c3": c3, "c4": c4, "c5": c5, "c5_sharded": c5_sharded,
              "c3_pallas": c3_pallas, "c2_pallas": c2_pallas,
-             "c4_bf16": c4_bf16}
+             "c4_bf16": c4_bf16, "shift": shift}
     by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)
                         for k in KERNEL_INFO]}

@@ -6,7 +6,8 @@ each, fft.py two (the FFT and its CP-fused forms), viterbi.py two (whole
 sequence and windowed), fir.py four (the strided FIR / decimation and the
 polyphase interpolation, each in exact float32 and in the bf16 tier on the
 tensor cores), halo.py one (the time-sharded stream's halo
-exchange, one launch per device): the wrapper launches the kernel for a CUDA
+exchange, one launch per device); csrc/shift.cu holds the shifted-FMA
+tier of research/shift.py: the wrapper launches the kernel for a CUDA
 tensor and runs the plain version for a CPU tensor (policy.py, which also
 routes formulations by the spec as the reference does). build.py
 compiles csrc/ at first use.

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
-           "fir.cu", "fir_bf16.cu", "scfront.cu", "halo.cu")
+           "fir.cu", "fir_bf16.cu", "scfront.cu", "halo.cu", "shift.cu")
 HEADERS = ("ofdm_kernels.h",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -54,6 +54,12 @@ _SIGNATURES = {
     # the bf16 tier of the two above, with the same arguments
     "ofdm_fir_bf16_strided": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ofdm_fir_bf16_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the shifted-FMA tier: x, w, y, rows, n, nt, pad_left, stream
+    "ofdm_shift_fir": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, kern, y, rows, n_in, n_out, m, nd, pad_left, stream
+    "ofdm_shift_decim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, kern, y, rows, n, l, nd, d_max, stream
+    "ofdm_shift_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # r, p, m, rows, n, l, stream
     "ofdm_scfront": [_P, _P, _P, _I, _I, _I, _P],
     # r, p, rr, rows, n, l, stream

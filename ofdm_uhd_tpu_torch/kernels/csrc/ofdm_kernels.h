@@ -75,6 +75,25 @@ OFDM_API int ofdm_fir_bf16_interp(const float2* x, const float* g, float2* y,
                                   int rows, int n, int l, int nd, int d_max,
                                   void* stream);
 
+// The shifted-FMA tier (shift.cu), float32 planes, one fmaf per tap:
+// 'same' FIR, x [rows, n] -> y [rows, n], y[r, i] = sum_t w[t] *
+// x[r, i + t - pad_left] (w: the taps reversed), taps summed in ascending
+// order; M-fold decimation, x [rows, n_in] -> y [rows, n_out], y[r, i] =
+// sum_p sum_d kern[p, d] * x[r, (i + d)*m + p - pad_left] (kern [m, nd]:
+// kern[p, d] = w[d*m + p]), each phase summed over d, then the phases in
+// ascending order; L-fold interpolation, x [rows, n] -> y [rows, n * l],
+// y[r, i*l + q] = sum_e kern[q, e] * x[r, i + e - d_max] (kern [l, nd]:
+// the branch matrix, each branch reversed). Zeros outside each row.
+OFDM_API int ofdm_shift_fir(const float2* x, const float* w, float2* y,
+                            int rows, int n, int nt, int pad_left,
+                            void* stream);
+OFDM_API int ofdm_shift_decim(const float2* x, const float* kern, float2* y,
+                              int rows, int n_in, int n_out, int m, int nd,
+                              int pad_left, void* stream);
+OFDM_API int ofdm_shift_interp(const float2* x, const float* kern, float2* y,
+                               int rows, int n, int l, int nd, int d_max,
+                               void* stream);
+
 // Schmidl-Cox front end: r [rows, n] complex64 -> p [rows, nd] complex64,
 // m [rows, nd] f32, nd = n - 2l + 1, l a power of two.
 OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,

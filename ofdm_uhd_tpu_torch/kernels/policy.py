@@ -35,10 +35,13 @@ import contextlib
 import torch
 
 # "fir" counts the strided kernel: 'same' FIR and decimation launches;
-# "fir_bf16" and "interp_bf16" the bf16 tier's two kernels
+# "fir_bf16" and "interp_bf16" the bf16 tier's two kernels; "shift_*" the
+# shifted-FMA tier of research/shift.py, which no user path runs
+# ("shift_sc": its S&C correlator, served by the sccorr kernel)
 KERNELS = ("localize", "extract", "fft", "viterbi", "viterbi_windowed",
            "fir", "interp", "fir_bf16", "interp_bf16", "scfront", "cpfft",
-           "ifftcp", "sccorr", "halo")
+           "ifftcp", "sccorr", "halo", "shift_fir", "shift_decim",
+           "shift_interp", "shift_sc")
 
 # the reference's batch crossovers between its Viterbi algorithms
 _VITERBI_FUSED_MAX_BATCH = 96

@@ -82,17 +82,19 @@ def sc_rows(kernel: str, r: torch.Tensor, l: int
     return flat, nd
 
 
-def _sccorr_cuda(r: torch.Tensor, l: int
+def _sccorr_cuda(r: torch.Tensor, l: int, counter: str = "sccorr"
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    flat, nd = sc_rows("sccorr", r, l)
+    """K9's launch, counted under `counter` (research/shift.py's
+    sc_correlate_shift counts it as 'shift_sc')."""
+    flat, nd = sc_rows(counter, r, l)
     rows, n = flat.shape
     p = torch.empty((rows, nd), dtype=torch.complex64, device=r.device)
     rr = torch.empty((rows, nd), dtype=torch.float32, device=r.device)
     lib = build.library()
     err = lib.ofdm_sc_correlate(flat.data_ptr(), p.data_ptr(), rr.data_ptr(),
                                 rows, n, l, build.stream_ptr(r.device))
-    build.check(err, "sccorr")
-    policy.count_launch("sccorr")
+    build.check(err, counter)
+    policy.count_launch(counter)
     lead = r.shape[:-1]
     return p.reshape(lead + (nd,)), rr.reshape(lead + (nd,))
 

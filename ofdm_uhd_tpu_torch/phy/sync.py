@@ -58,7 +58,8 @@ def sc_front(spec: WaveformSpec, capture: torch.Tensor,
 
 def detect_frames(spec: WaveformSpec, capture: torch.Tensor, max_frames: int,
                   threshold: float = 0.5, rel: float = 0.9,
-                  backend: str | None = None):
+                  backend: str | None = None,
+                  threshold_mode: str = "fixed", cfar_k: float = 16.0):
     """capture [C, n] c64 -> (d [C, mf] i32, eps [C, mf] f32,
     valid [C, mf] bool, det_sat [C] bool).
 
@@ -67,13 +68,21 @@ def detect_frames(spec: WaveformSpec, capture: torch.Tensor, max_frames: int,
     where a 512-sample block held more rising edges than the extractor's
     capacity, so a frame MAY have been missed. `backend` picks the S&C
     formulation (`sc_front`), default the spec's kernel_backend.
+    threshold_mode 'fixed' detects at `threshold`; 'cfar' at each row's
+    noise-floor-adaptive threshold (`cfar_threshold`).
     """
     n = capture.shape[-1]
     p, m = sc_front(spec, capture, backend)
     nd = m.shape[-1]
     span = spec.sym_len
+    if threshold_mode == "cfar":
+        thr = cfar_threshold(m, threshold, cfar_k)
+    elif threshold_mode == "fixed":
+        thr = T.f32_scalar(threshold, m.device)
+    else:
+        raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
     max_cand = min(4 * max_frames + 16, nd)
-    cand, sat = _first_k_indices(_rising_edges(m, threshold), max_cand,
+    cand, sat = _first_k_indices(_rising_edges(m, thr), max_cand,
                                  sentinel=nd)                   # [C, mc]
     found_c = cand < nd
     ds_c, eps_c = localize(m, p, cand, span, spec.cp, rel=rel)
@@ -83,9 +92,30 @@ def detect_frames(spec: WaveformSpec, capture: torch.Tensor, max_frames: int,
     return ds, eps, valid, sat
 
 
-def _rising_edges(m: torch.Tensor, threshold: float) -> torch.Tensor:
-    """[C, nd] metric -> bool [C, nd]: where M crosses up to >= threshold."""
-    above = m >= T.f32_scalar(threshold, m.device)
+def cfar_threshold(m: torch.Tensor, threshold: float, cfar_k: float
+                   ) -> torch.Tensor:
+    """The reference's noise-floor-adaptive threshold of each row of the
+    metric [C, nd] -> [C, 1] float32: clip(cfar_k * median(M), 0.05,
+    threshold) (ofdm_uhd_tpu/phy/sync.py:93-94). jnp.median is the
+    midpoint quantile, (low + high) * 0.5 in float32 of the two middle
+    values of the sorted row (one value where nd is odd); torch.median
+    would return `low` alone. One sort of every row, indexed at positions
+    known from the shape, so the card is not waited on."""
+    nd = m.shape[-1]
+    s = torch.sort(m, dim=-1).values
+    low, high = s[:, (nd - 1) // 2], s[:, nd // 2]
+    med = (low + high) * T.f32_scalar(0.5, m.device)
+    thr = med * T.f32_scalar(cfar_k, m.device)
+    return thr.clamp(T.f32_scalar(0.05, m.device),
+                     T.f32_scalar(threshold, m.device))[:, None]
+
+
+def _rising_edges(m: torch.Tensor, threshold) -> torch.Tensor:
+    """[C, nd] metric -> bool [C, nd]: where M crosses up to >= threshold
+    (a float, or a float32 tensor [C, 1] or 0-d)."""
+    if not isinstance(threshold, torch.Tensor):
+        threshold = T.f32_scalar(threshold, m.device)
+    above = m >= threshold
     rise = above.clone()
     rise[:, 1:] &= ~above[:, :-1]
     return rise

@@ -16,7 +16,8 @@ products; the S&C front end (K6) or, under kernel_backend='pallas' when l
 % 128 != 0, the boxcar correlator (K9) and the metric; the CP-fused FFT
 (K5) under 'pallas', else the FFT (K3); the Viterbi algorithm from the
 spec and the decode batch C * max_frames (K4 whole or K4w windowed).
-Detection uses the fixed threshold. The input's device picks the tier: on
+Detection uses the fixed threshold or, with sync_threshold_mode='cfar',
+each capture's noise-floor-adaptive one. The input's device picks the tier: on
 CUDA the hand kernels run (with the decimation FIR, localize and extract),
 on the CPU their plain versions.
 """
@@ -41,19 +42,16 @@ class RxPipeline:
     """Receive chain for one waveform. Results are dicts of tensors on the
     input's device, as the reference's RxPipeline returns them. The
     reference's constructor arguments; sync_threshold_mode 'fixed' detects
-    at sync_threshold, 'cfar' (the noise-floor-adaptive threshold) raises
-    NotImplementedError."""
+    at sync_threshold, 'cfar' at clip(16 * median(M), 0.05,
+    sync_threshold) per capture (phy/sync.py cfar_threshold)."""
 
     def __init__(self, spec: WaveformSpec, shift: int = 0,
                  sync_threshold: float = 0.5, diag: bool = True,
                  sync_threshold_mode: str = "fixed"):
-        if sync_threshold_mode != "fixed":
-            raise NotImplementedError(
-                f"sync_threshold_mode={sync_threshold_mode!r} is not ported "
-                "(ROADMAP Queue 1, item 2)")
         self.spec = spec
         self.shift = shift
         self.sync_threshold = sync_threshold
+        self.sync_threshold_mode = sync_threshold_mode
         self.diag = diag
 
     def rx_aligned(self, frames: torch.Tensor) -> dict:
@@ -67,10 +65,11 @@ class RxPipeline:
         [max_frames, ...] (or [C, max_frames, ...]) slots + 'valid'."""
         if capture.dim() == 1:
             out = _rx_capture(self.spec, self.sync_threshold, self.diag,
-                              capture[None], max_frames)
+                              capture[None], max_frames,
+                              self.sync_threshold_mode)
             return {k: v[0] for k, v in out.items()}
         return _rx_capture(self.spec, self.sync_threshold, self.diag,
-                           capture, max_frames)
+                           capture, max_frames, self.sync_threshold_mode)
 
     def rx_capture_sc16(self, iq: torch.Tensor, max_frames: int) -> dict:
         """Capture RX from radio-native sc16 IQ: iq int16 [2, n] or
@@ -197,13 +196,15 @@ def _demod_frames_with_h(spec: WaveformSpec, frames: torch.Tensor,
 
 
 def _rx_capture(spec: WaveformSpec, threshold: float, diag: bool,
-                capture: torch.Tensor, max_frames: int) -> dict:
+                capture: torch.Tensor, max_frames: int,
+                threshold_mode: str = "fixed") -> dict:
     """capture [C, n] complex64 -> dict of [C, max_frames, ...] leaves
     (and det_sat [C] when diag)."""
     caps = capture.shape[0]
     capture, _ = PA.agc_normalize(_capture_to_baseband(spec, capture))
-    ds, eps_f, valid, det_sat = PS.detect_frames(spec, capture, max_frames,
-                                                 threshold=threshold)
+    ds, eps_f, valid, det_sat = PS.detect_frames(
+        spec, capture, max_frames, threshold=threshold,
+        threshold_mode=threshold_mode)
     frames = PS.extract_frames(spec, capture, ds)            # [C, mf, fl]
     # two full-frame ramps, as the reference applies them (a composed
     # ramp differs by ~1 ulp)

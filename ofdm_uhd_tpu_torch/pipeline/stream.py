@@ -12,7 +12,9 @@ Feed: the chunks go to the mesh's first device, where the step's
 decimation and AGC run and the carried state lives. The decimation is the
 reference's stream form (valid mode over a carried filter tail) in exact
 float32 whatever the spec's filter_precision: the reference's stream never
-reads it. Detection uses the fixed threshold. On a CUDA device each
+reads it. Detection uses the fixed threshold, or with threshold_mode='cfar'
+each shard's noise-floor-adaptive one over its own window [Cb + H], as the
+reference's shards take it. On a CUDA device each
 dispatch's chunks are staged in pinned host
 memory and uploaded on a side stream while the card computes the previous
 dispatch, and each dispatch is issued before the previous one's outputs
@@ -55,7 +57,8 @@ class StreamRx:
     The reference's constructor arguments: chunk_len defaults to T blocks
     of the one-shard chunk; pallas_halo=True moves the halos with the halo
     kernel (K10) on CUDA meshes; reshard=True balances the demod over the
-    shards (all_to_all). threshold_mode='cfar' raises NotImplementedError.
+    shards (all_to_all); threshold_mode='cfar' detects at each shard
+    window's clip(16 * median(M), 0.05, threshold).
     A spec with filter_precision='bf16' runs, in exact float32, as the
     reference's stream runs it.
     """

@@ -103,10 +103,11 @@ class StreamStep:
     """The stream step of one spec at one chunk length over the 'time'
     axis of `mesh` (row 0 of its 'frame' axis: the reference replicates
     the stream over that axis): C = chunk_len baseband samples a step,
-    radio chunks of C * L / M samples."""
+    radio chunks of C * L / M samples; threshold: a float, or (threshold,
+    mode) as make_stream_step takes it."""
 
     def __init__(self, spec: WaveformSpec, mesh: Mesh, chunk_len: int,
-                 max_frames: int | None, threshold: float, ema: float,
+                 max_frames: int | None, threshold, ema: float,
                  pallas_halo: bool, reshard: bool, track_mode: bool,
                  agc: bool, input_format: str):
         self.spec = spec
@@ -125,7 +126,9 @@ class StreamStep:
         # back-to-back frames: at most one start per frame_len, +1 boundary
         self.mf = (max_frames if max_frames is not None
                    else self.cb // spec.frame_len + 2)
-        self.threshold = threshold
+        self.threshold, self.threshold_mode = (
+            threshold if isinstance(threshold, tuple)
+            else (threshold, "fixed"))
         self.ema = ema
         self.halo = KH.halo_from_right if pallas_halo else KH.halo_plain
         self.reshard = reshard
@@ -184,8 +187,9 @@ class StreamStep:
             window, _ = PA.agc_normalize(window)
         ds, owned, frames, eps = [], [], [], []
         for ext in self.extend(window):
-            d, eps_f, valid, _ = PS.detect_frames(spec, ext, self.mf,
-                                                  threshold=self.threshold)
+            d, eps_f, valid, _ = PS.detect_frames(
+                spec, ext, self.mf, threshold=self.threshold,
+                threshold_mode=self.threshold_mode)
             fr = PS.extract_frames(spec, ext, d)
             # two CFO ramps, as pipeline/rx.py applies them
             fr = PS.cfo_correct(fr, eps_f, spec.n_sc)
@@ -403,15 +407,12 @@ def make_stream_step(spec: WaveformSpec, mesh: Mesh | None, chunk_len: int,
       multi(state, chunks [K, radio_chunk])  -> (state, outs [K, T*mf, ...])
     (sc16: chunk [2, radio_chunk], chunks [K, 2, radio_chunk] int16), the
     chunk and the state on the mesh's first device. threshold: a float, or
-    (threshold, mode) with mode 'fixed'."""
-    thr, mode = (threshold if isinstance(threshold, tuple)
-                 else (threshold, "fixed"))
-    if mode != "fixed":
-        raise NotImplementedError(f"threshold_mode={mode!r} is not ported "
-                                  "(ROADMAP Queue 1, item 2)")
+    (threshold, mode) with mode 'fixed' or 'cfar' (each shard's threshold
+    from the metric of its own window [Cb + H], as the reference's
+    detect_frames takes it per shard)."""
     if input_format not in ("fc32", "sc16"):
         raise ValueError(f"unknown input_format {input_format!r}")
     s = StreamStep(spec, mesh if mesh is not None else make_mesh(1, 1),
-                   chunk_len, max_frames_per_shard, thr, ema, pallas_halo,
-                   reshard, track_mode, agc, input_format)
+                   chunk_len, max_frames_per_shard, threshold, ema,
+                   pallas_halo, reshard, track_mode, agc, input_format)
     return s.step, s.multi, s.cb, s.h

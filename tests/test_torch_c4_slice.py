@@ -167,15 +167,20 @@ def test_c4_rx_aligned_exact(ref, port):
 
 def test_c4_sync_threshold_mode(ref, port):
     """The reference's sync_threshold_mode keyword: 'fixed' gives the
-    default's results; 'cfar' is not ported yet and says where it waits."""
+    default's results; 'cfar' on the C4 captures gives the reference's
+    'cfar' results (d, valid, crc_ok and payloads exactly)."""
     got = RxPipeline(port["spec"], diag=True,
                      sync_threshold_mode="fixed").rx_capture(
         torch.from_numpy(ref["caps"]), max_frames=MAX_FRAMES)
     assert set(got) == set(port["out"])
     for k, v in port["out"].items():
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        RxPipeline(port["spec"], sync_threshold_mode="cfar")
+    want = _np(RefRx(ref["spec"], diag=True, sync_threshold_mode="cfar")
+               .rx_capture(ref["caps"], max_frames=MAX_FRAMES))
+    got = RxPipeline(port["spec"], diag=True,
+                     sync_threshold_mode="cfar").rx_capture(
+        torch.from_numpy(ref["caps"]), max_frames=MAX_FRAMES)
+    _same_result({k: v.numpy() for k, v in got.items()}, want, ref["pays"])
 
 
 def test_c4_integer_cfo_exact(ref, port):

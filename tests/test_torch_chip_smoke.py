@@ -3,12 +3,15 @@
 the same inputs, to float32 rounding: cuDNN-style convolutions sum in
 another order than the plain versions; the bf16 tier's yardsticks to
 half a bf16 step, 2^-8 of max|y|, since they round their outputs to
-bf16), the bound it reports, the kernels its JSON line names, and its
-refusal to run without a card."""
+bf16), the bound it reports, the kernels its JSON line names, its
+refusal to run without a card, and a rehearsal of the shift phase and the
+CFAR run at tiny sizes, with the kernel wrappers patched to their plain
+versions and the card's events to host-clock stand-ins."""
 
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -18,7 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
-from ofdm_uhd_tpu_torch.kernels import fir, policy  # noqa: E402
+from ofdm_uhd_tpu_torch.kernels import fir, policy, sync  # noqa: E402
+from ofdm_uhd_tpu_torch.research import shift  # noqa: E402
 from ofdm_uhd_tpu_torch.phy.tables import resample_filter  # noqa: E402
 
 torch.set_num_threads(2)
@@ -96,6 +100,20 @@ def test_kernels_line_names_every_kernel():
         assert chip_smoke.held_kernel(name) == name
     assert chip_smoke.held_kernel("fir_stride1") == "fir"
     assert chip_smoke.C4_BF16_PATH[0] == "fir_bf16"
+    for name, fn in (("shift_fir", "fir_shift_pallas"),
+                     ("shift_decim", "polyphase_decim_shift_pallas"),
+                     ("shift_interp", "polyphase_interp_shift_pallas"),
+                     ("shift_sc", "sc_correlate_shift_pallas")):
+        src, rep = chip_smoke.KERNEL_INFO[name]
+        assert os.path.isfile(os.path.join(REPO, src))
+        path, line = rep.split(":")
+        with open(os.path.join(REPO, path)) as f:
+            text = f.read().splitlines()[int(line) - 1]
+        assert text.startswith(f"def {fn}(")
+    assert chip_smoke.held_kernel("shift_decim_c4") == "shift_decim"
+    assert chip_smoke.held_kernel("shift_sc") == "shift_sc"
+    assert set(chip_smoke.SHIFT_PATH) == {
+        k for k in policy.KERNELS if k.startswith("shift_")}
 
 
 def test_bound_takes_the_larger_time():
@@ -159,3 +177,103 @@ def test_check_stream_finds_shard_boundary_duplicates():
     with pytest.raises(chip_smoke.SmokeFailure):
         chip_smoke.check_stream("t", frames[:4] + [dup] + frames[4:], pays,
                                 spec, block + 1)
+
+
+class _HostEvent:
+    """torch.cuda.Event's stand-in on the host clock."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def _counted(name, fn):
+    def run(*args, **kw):
+        policy.count_launch(name)
+        return fn(*args, **kw)
+    return run
+
+
+@pytest.fixture
+def on_host(monkeypatch):
+    """chip_smoke's card calls on the CPU: events and synchronize on the
+    host, the spin kernel a short sleep, and the wrappers the shift phase
+    calls patched to their plain versions with a launch count."""
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda c: time.sleep(0.05))
+    for mod, name, count, fn in (
+            (shift, "_fir_cuda", "shift_fir",
+             lambda x, t: fir.decim_plain(x, 1, t)),
+            (shift, "_decim_cuda", "shift_decim", fir.decim_plain),
+            (shift, "_interp_cuda", "shift_interp", fir.interp_plain),
+            (shift, "_sc_cuda", "shift_sc", sync.sc_correlate_plain),
+            (fir, "_strided_cuda", "fir",
+             lambda x, t, s, valid=False: fir.decim_plain(x, s, t)),
+            (fir, "_interp_cuda", "interp", fir.interp_plain)):
+        monkeypatch.setattr(mod, name, _counted(count, fn))
+    policy.reset_launches()
+    yield
+    policy.reset_launches()
+
+
+def test_shift_phase_rehearsal(on_host, monkeypatch):
+    """run_shift at tiny sizes: every shift_* wrapper launched in its
+    counted run and no other kernel, every check against the plain
+    version passes, the C4 A/B times the exact K7 kernels in turns, and
+    the kernels line gets an entry for each shift_* kernel with launches
+    under the `shift` path."""
+    monkeypatch.setattr(chip_smoke, "SHIFT_N", 4096)
+    # CPU tensors routed to the (patched) wrappers
+    monkeypatch.setattr(policy, "use_kernel",
+                        lambda x: not policy._STATE.forced_plain)
+    radio, base = _x(11, 2, 8 * 1031), _x(12, 3, 300)
+    out = chip_smoke.run_shift(torch, torch.device("cpu"), (radio, base))
+    launches = out["launches"]
+    assert launches["shift_fir"] == 2 and launches["shift_sc"] == 1
+    assert launches["shift_decim"] == 2 and launches["shift_interp"] == 2
+    assert all(c == 0 for k, c in launches.items()
+               if k not in chip_smoke.SHIFT_PATH)
+    res = out["kernels"]
+    assert list(res) == ["shift_fir_193", "shift_fir_3", "shift_decim_c4",
+                         "shift_decim", "shift_interp_c4", "shift_interp",
+                         "shift_sc"]
+    assert res["shift_decim_c4"]["shape"] == [2, 8 * 1031]
+    assert len(res["shift_decim_c4"]["k7_device_ms"]) == 2
+    assert res["shift_sc"]["library_ms"] is None
+    assert out["energy_form_max_rel"] <= chip_smoke.R_TOL
+    by_path = chip_smoke.path_launches({"shift": out})
+    for name in chip_smoke.SHIFT_PATH:
+        entry = chip_smoke.kernel_entry(name, {"shift": out}, by_path)
+        assert entry["launches"] > 0 and entry["bound_by"] in (
+            "bytes", "operations")
+        assert entry["max_abs_err"] == 0.0
+    assert chip_smoke.kernel_entry(
+        "shift_decim", {"shift": out}, by_path)["paths"]["shift_c4"][
+            "shape"] == [2, 8 * 1031]
+
+
+def test_cfar_phase_rehearsal(on_host):
+    """phase_cfar on two small C3 captures: the CFAR run equals its
+    plain-forced run, decodes every sent frame as the fixed run does, and
+    gives a threshold per capture."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16
+    from ofdm_uhd_tpu_torch.core.spec import config
+    spec = config("c3")
+    built = [build_capture(spec, 3, 300, seed=s, device="cpu")
+             for s in range(2)]
+    iq = torch.from_numpy(to_sc16(np.stack([c for c, _ in built])))
+    pays = torch.from_numpy(np.stack([p for _, p in built]))
+    m = torch.rand((2, 1000), generator=torch.Generator().manual_seed(0))
+    out = chip_smoke.phase_cfar(torch, spec, "c3", iq, pays, 5, m)
+    assert out["frames_ok"] == {"fixed": 6, "cfar": 6}
+    assert out["slots_moved"] == 0 and len(out["thresholds"]) == 2
+    assert all(0.05 <= t <= 0.5 for t in out["thresholds"])

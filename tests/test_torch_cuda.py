@@ -14,6 +14,7 @@ from ofdm_uhd_tpu_torch.core.spec import config
 from ofdm_uhd_tpu_torch.kernels import (extract, fft, fir, localize, policy,
                                         scfront, sync, viterbi)
 from ofdm_uhd_tpu_torch.phy.tables import resample_filter
+from ofdm_uhd_tpu_torch.research import shift
 
 pytestmark = pytest.mark.cuda
 
@@ -648,3 +649,131 @@ def test_sharded_stream_across_cards_matches_cpu(dev, kw):
         assert np.array_equal(g.payload, p)
     for f in ("steps", "frames", "crc_ok", "track_wt"):
         assert int(getattr(rx.state, f)) == int(getattr(rx_c.state, f)), f
+
+
+# ---- the shifted-FMA tier (K11, csrc/shift.cu; research/shift.py) ----
+
+def _taps(kind, factor=8):
+    return resample_filter(factor, 1) if kind == "proto" else [0.25, 0.5,
+                                                               0.25]
+
+
+@pytest.mark.parametrize("kind", ["proto", "3tap"])
+@pytest.mark.parametrize("shape", [(5000,), (3, 4500), (2, 9000),
+                                   (3, 20011)])
+def test_shift_fir_kernel_close(dev, shape, kind):
+    """The 'same' FIR at 193 and 3 taps on rows that cut a 1280-output tile
+    and its halo, within 1e-5 of max|y|; rows never leak."""
+    taps = _taps(kind)
+    x = torch.randn(shape, dtype=torch.complex64, generator=_gen(shape[-1]),
+                    device=dev)
+    policy.reset_launches()
+    got = shift.fir_shift(x, taps)
+    assert policy.launches()["shift_fir"] == 1
+    assert policy.launches()["fir"] == 0
+    _within(got, fir.decim_plain(x, 1, taps))
+    if x.dim() == 2:
+        one = shift.fir_shift(x[1:2].contiguous(), taps)
+        assert torch.equal(one[0], got[1])
+
+
+@pytest.mark.parametrize("kind", ["proto", "3tap"])
+@pytest.mark.parametrize("m", [2, 8])
+@pytest.mark.parametrize("shape", [(9000,), (5, 16384), (3, 20011)])
+def test_shift_decim_kernel_close(dev, m, shape, kind):
+    taps = _taps(kind, m)
+    x = torch.randn(shape, dtype=torch.complex64,
+                    generator=_gen(m + shape[-1]), device=dev)
+    policy.reset_launches()
+    got = shift.polyphase_decim_shift(x, m, taps)
+    assert policy.launches()["shift_decim"] == 1
+    assert got.shape == shape[:-1] + (shape[-1] // m,)
+    _within(got, fir.decim_plain(x, m, taps))
+    if x.dim() == 2:
+        one = shift.polyphase_decim_shift(x[1:2].contiguous(), m, taps)
+        assert torch.equal(one[0], got[1])
+
+
+@pytest.mark.parametrize("kind", ["proto", "3tap"])
+@pytest.mark.parametrize("l", [2, 8])
+@pytest.mark.parametrize("shape", [(3000,), (6, 2100), (2, 4500)])
+def test_shift_interp_kernel_close(dev, l, shape, kind):
+    taps = _taps(kind, l)
+    x = torch.randn(shape, dtype=torch.complex64,
+                    generator=_gen(l + shape[-1]), device=dev)
+    policy.reset_launches()
+    got = shift.polyphase_interp_shift(x, l, taps)
+    assert policy.launches()["shift_interp"] == 1
+    assert got.shape == shape[:-1] + (shape[-1] * l,)
+    _within(got, fir.interp_plain(x, l, taps))
+
+
+@pytest.mark.parametrize("l,shape", [(32, (9000,)), (128, (20480,)),
+                                     (32, (3, 6000))])
+def test_shift_sc_kernel_close(dev, l, shape):
+    """sc_correlate_shift on K9's kernel, counted as shift_sc: P within
+    1e-5 of max|P|, R within 1e-5 relative."""
+    x = torch.randn(shape, dtype=torch.complex64, generator=_gen(l),
+                    device=dev)
+    policy.reset_launches()
+    p, rr = shift.sc_correlate_shift(x, l)
+    assert policy.launches()["shift_sc"] == 1
+    assert policy.launches()["sccorr"] == 0
+    p0, rr0 = sync.sc_correlate_plain(x, l)
+    _within(p, p0)
+    assert float(((rr - rr0).abs() / rr0.abs().clamp_min(1e-30)).max()) \
+        <= 1e-5
+
+
+def test_shift_kernels_at_c4_shapes(dev):
+    """C4's decimation input [8, 4,138,472] by 8 and its TX interpolation
+    [32, 16128] by 8, against the plain versions and the exact K7 kernels
+    on the same inputs."""
+    taps = resample_filter(8, 1)
+    x = torch.randn((8, 4_138_472), dtype=torch.complex64, generator=_gen(4),
+                    device=dev)
+    got = shift.polyphase_decim_shift(x, 8, taps)
+    _within(got, fir.decim_plain(x, 8, taps))
+    _within(got, fir.polyphase_decim(x, 8, taps))
+    b = torch.randn((32, 16128), dtype=torch.complex64, generator=_gen(5),
+                    device=dev)
+    got = shift.polyphase_interp_shift(b, 8, taps)
+    _within(got, fir.interp_plain(b, 8, taps))
+    _within(got, fir.polyphase_interp(b, 8, taps))
+
+
+def test_shift_rejects_bad_input(dev):
+    taps = [0.25, 0.5, 0.25]
+    c = torch.zeros((2, 1000), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        shift.fir_shift(torch.zeros((2, 100), device=dev), taps)
+    with pytest.raises(ValueError):
+        shift.polyphase_decim_shift(c[:, ::2], 2, taps)     # not contiguous
+    with pytest.raises(ValueError):
+        shift.polyphase_decim_shift(c, 0, taps)
+    with pytest.raises(ValueError):
+        shift.polyphase_interp_shift(c, 0, taps)
+    with pytest.raises(ValueError):
+        shift.sc_correlate_shift(c, 48)                      # not 2^k
+    with pytest.raises(RuntimeError):                        # shared memory
+        shift.polyphase_decim_shift(c, 64, np.ones(4096, np.float32))
+
+
+def test_cfar_on_card_matches_cpu(dev):
+    """The CFAR threshold on the card (one sort of every metric row) gives
+    the CPU run's thresholds to the bit and its slots."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16
+    from ofdm_uhd_tpu_torch.phy import sync as psync
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline
+    spec = config("c3")
+    iq = torch.from_numpy(to_sc16(np.stack(
+        [build_capture(spec, 3, 300, seed=s, device=dev)[0]
+         for s in range(2)])))
+    rx = RxPipeline(spec, sync_threshold_mode="cfar")
+    cpu = rx.rx_capture_sc16(iq, max_frames=5)
+    gpu = rx.rx_capture_sc16(iq.to(dev), max_frames=5)
+    for k in ("d", "valid", "crc_ok"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    m = torch.rand((3, 100_000), generator=_gen(6), device=dev) ** 3
+    assert torch.equal(psync.cfar_threshold(m, 0.5, 16.0).cpu(),
+                       psync.cfar_threshold(m.cpu(), 0.5, 16.0))

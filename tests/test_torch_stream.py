@@ -323,14 +323,25 @@ def test_stream_boundary_duplicate_matches_reference(early):
     assert got[3].crc_ok == (early == 8)
 
 
-def test_stream_options_of_later_slices_raise():
-    """The CFAR threshold is not ported; the mesh, reshard and the halo
-    kernel came with the shard/ slice (tests/test_torch_shard.py)."""
+def test_stream_options_of_later_slices_run():
+    """The reference's options run: the CFAR threshold constructs and
+    decodes a short stream as the reference does; the mesh, reshard and
+    the halo kernel came with the shard/ slice
+    (tests/test_torch_shard.py)."""
     spec = _port_spec(ref_config("c5"))
-    with pytest.raises(NotImplementedError):
-        StreamRx(spec, device="cpu", threshold_mode="cfar")
-    for kw in ({"reshard": True}, {"pallas_halo": True}):
+    for kw in ({"threshold_mode": "cfar"}, {"reshard": True},
+               {"pallas_halo": True}):
         assert StreamRx(spec, device="cpu", **kw).cb == 16128
+    rspec = ref_config("c5").with_(n_data_syms=7, kernel_backend="auto")
+    spec = _port_spec(rspec)
+    cap, pays = ref_build_capture(rspec, 3, GAP, seed=2,
+                                  timing_offset=OFFSET)
+    want = _run(_ref_rx(rspec, threshold_mode="cfar"), cap)
+    got = _run(StreamRx(spec, device="cpu", threshold_mode="cfar"), cap)
+    _same_frames(got, want)
+    assert len(got) == 3 and all(g.crc_ok for g in got)
+    for g, p in zip(got, pays):
+        np.testing.assert_array_equal(g.payload, p)
 
 
 
