@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's six paths through their user entry points, and the
-shifted-FMA filter tier that no path runs, in phases; each prints its
-findings on a line of its own:
+filter tiers and frame extractor that no path runs, in phases; each prints
+its findings on a line of its own:
 
   C3, the capture-mode RX chain `RxPipeline(config("c3")).rx_capture_sc16(
       iq, max_frames)` at the size the repository's bench.py judges (8
@@ -59,7 +59,22 @@ findings on a line of its own:
       the 8x interpolation over 2^17) and C4's decimation [8, 4,138,472]
       and TX interpolation [32, 16128] at full width, each kernel held
       against its plain version, at C4 beside the exact K7 kernel on the
-      same input (the A/B of the two exact filter designs).
+      same input (the A/B of the two exact filter designs);
+  tiers, the last three TPU kernels' counterparts, which no user path
+      runs either: the banded tier K8 (kernels/banded.py: fir_banded,
+      polyphase_decim_banded with ceil(n/m) outputs,
+      polyphase_interp_banded, sc_correlate_banded) and the interleaved
+      tier K13 (research/fir_ilv.py), both on csrc/banded.cu (3xTF32 on
+      the tensor cores), at scripts/tpu_session.py's FIR rows ([16, 8192],
+      193 taps, by 8) and at C4's width (the decimation input and TX
+      frames the shift phase takes), K8's S&C at l = 128 on the shift
+      phase's 2^20 signal and on C3's captures [8, 4,436,068], and the
+      bulk-copy deframer K12 (research/deframe.py, csrc/deframe.cu) on
+      C3's extraction input (8208 detected offsets) and on negative, odd,
+      in-range and past-n offsets; each held against its plain version,
+      with the exact K7 and K11 beside K8 and K13 at C4 in turns (the
+      four-way A/B of exact float32 filter designs), K9 beside K8's S&C and
+      K2 beside K12 (equal on offsets in [0, n]).
 
   1. device:  a CUDA card must be present; prints the card's name and
               power limit as nvidia-smi reports them;
@@ -67,8 +82,8 @@ findings on a line of its own:
               (one nvcc per source, sm_90a, started together) into
               build/ofdm_uhd_tpu_torch/;
   then for C3, C4, c4_bf16, C5 (and c5_sharded), c3_pallas and c2_pallas
-  in turn (and last the shift phase, whose counted run stands for its
-  slice):
+  in turn (and last the shift and tiers phases, whose counted runs stand
+  for their slices):
   3. input:   the captures, built by the port's TxPipeline on the card
               (C4's interpolation is the interp kernel, c4_bf16's the
               interp_bf16 kernel; the 'pallas' paths' IFFT + CP the
@@ -91,7 +106,8 @@ findings on a line of its own:
               whole-sequence kernel on the same LLRs;
   6. slice:   decodes every frame, which must match the sent payloads bit
               for bit, with the launch count of every kernel of the path
-              > 0 over that run, and no shift_* kernel; times the chain
+              > 0 over that run, and no shift_*, banded_*, ilv_* or deframe
+              kernel; times the chain
               with the kernels and with the plain versions forced,
               requires the plain run's frame
               starts (capture paths: `d`, `valid` and the valid slots'
@@ -132,10 +148,12 @@ R_TOL = 1e-5            # S&C R: relative, sample by sample
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # a kernel's bound is the larger of its bytes over HBM_BPS and its
 # operations over F32_OPS (float32 outside the tensor cores) or, for the
-# bf16 filter tier's products on the tensor cores, BF16_OPS
+# bf16 filter tier's products on the tensor cores, BF16_OPS, or, for the
+# banded tier's three TF32 products per multiply-add (3xTF32), TF32_OPS
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
 BF16_OPS = 989e12
+TF32_OPS = 495e12
 
 KERNEL_INFO = {
     "localize": ("ofdm_uhd_tpu_torch/kernels/csrc/localize.cu",
@@ -177,6 +195,24 @@ KERNEL_INFO = {
                      "ofdm_uhd_tpu/research/pallas_shift.py:405"),
     "shift_sc": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
                  "ofdm_uhd_tpu/research/pallas_shift.py:281"),
+    # the banded tier (K8) and the interleaved tier (K13) on one kernel
+    # source, and the bulk-copy deframer (K12), which no user path runs
+    "banded_fir": ("ofdm_uhd_tpu_torch/kernels/csrc/banded.cu",
+                   "ofdm_uhd_tpu/kernels/pallas_fir.py:133"),
+    "banded_decim": ("ofdm_uhd_tpu_torch/kernels/csrc/banded.cu",
+                     "ofdm_uhd_tpu/kernels/pallas_fir.py:174"),
+    "banded_interp": ("ofdm_uhd_tpu_torch/kernels/csrc/banded.cu",
+                      "ofdm_uhd_tpu/kernels/pallas_fir.py:150"),
+    "banded_sc": ("ofdm_uhd_tpu_torch/kernels/csrc/banded.cu",
+                  "ofdm_uhd_tpu/kernels/pallas_sync.py:40"),
+    "ilv_fir": ("ofdm_uhd_tpu_torch/kernels/csrc/banded.cu",
+                "ofdm_uhd_tpu/research/pallas_fir_ilv.py:63"),
+    "ilv_decim": ("ofdm_uhd_tpu_torch/kernels/csrc/banded.cu",
+                  "ofdm_uhd_tpu/research/pallas_fir_ilv.py:108"),
+    "ilv_interp": ("ofdm_uhd_tpu_torch/kernels/csrc/banded.cu",
+                   "ofdm_uhd_tpu/research/pallas_fir_ilv.py:155"),
+    "deframe": ("ofdm_uhd_tpu_torch/kernels/csrc/deframe.cu",
+                "ofdm_uhd_tpu/research/pallas_deframe.py:53"),
 }
 # the kernels each path's RX launches (C4's interp runs in its TX, and
 # the 'pallas' paths' ifftcp in theirs)
@@ -196,6 +232,13 @@ SHIFT_PATH = ("shift_fir", "shift_decim", "shift_interp", "shift_sc")
 SHIFT_N = 1 << 20
 SHIFT_M = 8
 SHIFT_SC_L = 128
+# the tiers phase's launches (K8, K13, K12); no slice may launch any of them
+TIERS_PATH = ("banded_fir", "banded_decim", "banded_interp", "banded_sc",
+              "ilv_fir", "ilv_decim", "ilv_interp", "deframe")
+OFF_PATH = SHIFT_PATH + TIERS_PATH
+# scripts/tpu_session.py:133-150's FIR rows: seed-0 complex64 [16, 8192]
+# through the 193-tap FIR, the 8x interpolation and the 8x decimation
+TIERS_SESSION = (16, 8192)
 
 
 class SmokeFailure(Exception):
@@ -286,6 +329,31 @@ def work_filter(rows, n_in, n_out, taps, peak=F32_OPS
     n_in] -> [rows, n_out]: each sample read once and each output written
     once (8 B), and 2 FMAs (4 flops) per output and tap it needs."""
     return 8.0 * rows * (n_in + n_out), 4.0 * taps * rows * n_out, peak
+
+
+def work_tf32(rows, n_in, n_out, taps) -> tuple[float, float, float]:
+    """(bytes, flops, peak) of a real-tap filter on the banded tier: each
+    sample read once and each output written once (8 B), and its useful
+    multiply-adds (2 per complex output and tap) as three TF32 products
+    each (3xTF32) at the TF32 peak."""
+    return 8.0 * rows * (n_in + n_out), 12.0 * taps * rows * n_out, TF32_OPS
+
+
+def work_sc_banded(rows, n, l) -> tuple[float, float, float]:
+    """(bytes, flops, peak) of the banded tier's S&C over [rows, n]
+    complex64: 8 B read a sample, 12 B written an output (P and R); per
+    output 4l multiply-adds with a band of ones (l for each of P's planes,
+    2l for R's), two TF32 products each (the ones have no low part)."""
+    nd = n - 2 * l + 1
+    return 8.0 * rows * n + 12.0 * rows * nd, 16.0 * l * rows * nd, TF32_OPS
+
+
+def work_extract(n, ds, frame_len) -> tuple[float, float]:
+    """(bytes, 0) of a frame extraction from rows of n samples at offsets
+    ds: the in-capture part of each frame read (none at a negative offset:
+    a zero frame), the offsets read, the frames written."""
+    inside = int(((n - ds.long()).clamp(0, frame_len) * (ds >= 0)).sum())
+    return 8.0 * inside + 4.0 * ds.numel() + 8.0 * ds.numel() * frame_len, 0.0
 
 
 def work_viterbi(rows, n, steps) -> tuple[float, float]:
@@ -669,7 +737,6 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
     def hold_extract():
         # bit-exact copy; reads the in-capture part of each frame
         fl, ds = spec.frame_len, ins["ds"]
-        inside = int((n - ds.long()).clamp(0, fl).sum())
 
         def close(k, p):
             return (bool(torch.equal(torch.view_as_real(k),
@@ -678,9 +745,7 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
         return held(torch, "extract",
                     lambda: extract._extract_cuda(cap, ds, fl),
                     lambda: extract.extract_plain(cap, ds, fl), close,
-                    (ds.numel(), fl),
-                    (8.0 * inside + 4.0 * ds.numel() + 8.0 * ds.numel() * fl,
-                     0.0))
+                    (ds.numel(), fl), work_extract(n, ds, fl))
 
     def hold_fft():
         # forward on the RX windows and inverse on their grid: within 1e-5
@@ -840,7 +905,7 @@ def phase_slice(torch, spec, label, x, x2, pays, max_frames, path,
     for k in path:
         check(launches[k] > 0, f"{label}: the main path never launched the "
               f"{k} kernel")
-    for k in absent + SHIFT_PATH:
+    for k in absent + OFF_PATH:
         check(launches[k] == 0, f"{label}: the main path launched the {k} "
               f"kernel {launches[k]} times")
     crc = out["crc_ok"][:, :n_frames]
@@ -922,12 +987,13 @@ def run_c3(torch, config, device) -> dict:
     ins, stages = phase_stages(torch, spec, "c3", iq, max_frames)
     kernels = phase_kernels(torch, spec, "c3", ins)
     m = ins["m"]
+    tier_inputs = (ins["cap"], ins["ds"])
     del ins
     sl = phase_slice(torch, spec, "c3", iq, iq ^ 1, pays, max_frames,
                      C3_PATH, sc16=True)
     cfar = phase_cfar(torch, spec, "c3", iq, pays, max_frames, m)
     return {"stages_ms": stages, "kernels": kernels, "slice": sl,
-            "cfar": cfar}
+            "cfar": cfar, "tier_inputs": tier_inputs}
 
 
 def phase_cfar(torch, spec, label, iq, pays, max_frames, m) -> dict:
@@ -1151,6 +1217,216 @@ def run_shift(torch, device, c4_inputs) -> dict:
         f"(relative) of K9's |r|^2 form; launches {launches}")
     return {"kernels": res, "launches": launches,
             "energy_form_max_rel": energy}
+
+
+def exact_close(k, p) -> tuple[bool, float]:
+    """Equal complex frames, component by component."""
+    same = (k.shape == p.shape and k.real.equal(p.real)
+            and k.imag.equal(p.imag))
+    return same, float((k - p).abs().max()) if k.numel() else 0.0
+
+
+def in_turns(torch, fns: dict, order: tuple) -> dict:
+    """In-kernel ms of each named run, taken in the given order (each name
+    twice, mirrored): {name: [first, second]}."""
+    out = {k: [] for k in fns}
+    for name in order + order[::-1]:
+        out[name].append(device_ms(torch, fns[name]))
+    return out
+
+
+def fmt_turns(turns: dict) -> str:
+    return ", ".join(f"{k} " + " / ".join(
+        "none" if t is None else f"{t:.4f}" for t in v)
+        for k, v in turns.items())
+
+
+def run_tiers(torch, device, c4_inputs, c3_inputs) -> dict:
+    """The last three TPU kernels' counterparts, which no user path runs:
+    the banded tier K8 (kernels/banded.py) and the interleaved tier K13
+    (research/fir_ilv.py) on csrc/banded.cu, and the bulk-copy deframer K12
+    (research/deframe.py). Inputs: scripts/tpu_session.py's FIR rows
+    (seed-0 complex64 TIERS_SESSION, the 193-tap FIR, 8x interpolation and
+    decimation); C4's decimation input [8, 4,138,472] and TX frames [32,
+    16128] (c4_inputs); K8's S&C at l = 128 on the shift phase's 2^20
+    signal and on C3's AGC'd captures [8, 4,436,068], the input K6 reads;
+    K12 on C3's extraction input (the captures and the 8208 detected
+    offsets, c3_inputs) and on offsets that are negative, odd, in range and
+    past n. One counted run of the eight functions (this phase's main path:
+    every tiers kernel launches, no other kernel does), then each kernel
+    held against its plain version with its bound, plain, library and
+    in-kernel times; at C4 the four exact float32 designs in turns (K7,
+    K11, K8, K13, and back), and K8's kernel alone on its planes; K8's S&C
+    beside K9, and K12 beside K2 (equal on offsets in [0, n])."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.kernels import banded, extract, fir, policy, sync
+    from ofdm_uhd_tpu_torch.phy import tables
+    from ofdm_uhd_tpu_torch.research import deframe, fir_ilv, shift
+    m, l = SHIFT_M, SHIFT_SC_L
+    taps = tables.resample_filter(m, 1)
+    nt, branch = len(taps), fir.branch_matrix(taps, m)[0].shape[1]
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy((rng.standard_normal(TIERS_SESSION) + 1j
+                           * rng.standard_normal(TIERS_SESSION)).astype(
+                               np.complex64)).to(device)
+    rng = np.random.default_rng(0)
+    x1 = torch.from_numpy((rng.normal(size=SHIFT_N) + 1j * rng.normal(
+        size=SHIFT_N)).astype(np.complex64)).to(device)
+    radio, base = c4_inputs
+    cap, ds = c3_inputs
+    fl = config("c3").frame_len
+    caps, n3 = cap.shape
+    mixed = torch.tensor([-5000, -4225, -4224, -1, 0, 1, 2, 3, 1001, 4031,
+                          n3 - fl, n3 - fl + 1, n3 - 7, n3 - 1, n3, n3 + 1,
+                          2**31 - 1], dtype=torch.int32).repeat(caps, 1).to(
+                              device)
+    torch.cuda.synchronize()
+    policy.reset_launches()
+    outs = [banded.fir_banded(xs, taps),
+            banded.polyphase_interp_banded(xs, m, taps),
+            banded.polyphase_decim_banded(xs, m, taps),
+            banded.polyphase_decim_banded(radio, m, taps),
+            banded.polyphase_interp_banded(base, m, taps),
+            *banded.sc_correlate_banded(x1, l),
+            *banded.sc_correlate_banded(cap, l),
+            fir_ilv.fir_ilv(xs, taps),
+            fir_ilv.polyphase_interp_ilv(xs, m, taps),
+            fir_ilv.polyphase_decim_ilv(xs, m, taps),
+            fir_ilv.polyphase_decim_ilv(radio, m, taps),
+            fir_ilv.polyphase_interp_ilv(base, m, taps),
+            deframe.extract_frames_dma(cap, ds, fl),
+            deframe.extract_frames_dma(cap, mixed, fl)]
+    torch.cuda.synchronize()
+    launches = policy.launches()
+    for k, c in launches.items():
+        check((c > 0) == (k in TIERS_PATH), f"tiers: the run launched the "
+              f"{k} kernel {c} times")
+    check(all(bool(torch.isfinite(torch.view_as_real(o) if o.is_complex()
+                                  else o).all()) for o in outs),
+          "tiers: an output is not finite")
+    del outs
+    r, n_r = radio.shape
+    b, n_b = base.shape
+    rs, ns = xs.shape
+    n_dec = -(-n_r // m)
+    cases = {   # key: (kernel, plain version, shape, work, library call)
+        "banded_fir": (
+            lambda: banded._fir_cuda(xs, taps),
+            lambda: fir.decim_plain(xs, 1, taps), xs.shape,
+            work_tf32(rs, ns, ns, nt), library_fir(torch, xs, taps, 1)),
+        "banded_decim_c4": (
+            lambda: banded._decim_cuda(radio, m, taps),
+            lambda: banded.decim_banded_plain(radio, m, taps), radio.shape,
+            work_tf32(r, n_r, n_dec, nt), library_fir(torch, radio, taps, m)),
+        "banded_decim": (
+            lambda: banded._decim_cuda(xs, m, taps),
+            lambda: banded.decim_banded_plain(xs, m, taps), xs.shape,
+            work_tf32(rs, ns, -(-ns // m), nt),
+            library_fir(torch, xs, taps, m)),
+        "banded_interp_c4": (
+            lambda: banded._interp_cuda(base, m, taps),
+            lambda: fir.interp_plain(base, m, taps), base.shape,
+            work_tf32(b, n_b, n_b * m, branch),
+            library_interp(torch, base, m, taps)),
+        "banded_interp": (
+            lambda: banded._interp_cuda(xs, m, taps),
+            lambda: fir.interp_plain(xs, m, taps), xs.shape,
+            work_tf32(rs, ns, ns * m, branch),
+            library_interp(torch, xs, m, taps)),
+        "banded_sc_c3": (
+            lambda: banded._sc_cuda(cap, l),
+            lambda: banded.sc_correlate_banded_plain(cap, l), cap.shape,
+            work_sc_banded(caps, n3, l), None),
+        "banded_sc": (
+            lambda: banded._sc_cuda(x1, l),
+            lambda: banded.sc_correlate_banded_plain(x1, l), x1.shape,
+            work_sc_banded(1, SHIFT_N, l), None),
+        "ilv_fir": (
+            lambda: fir_ilv._fir_cuda(xs, taps),
+            lambda: fir.decim_plain(xs, 1, taps), xs.shape,
+            work_tf32(rs, ns, ns, nt), library_fir(torch, xs, taps, 1)),
+        "ilv_decim_c4": (
+            lambda: fir_ilv._decim_cuda(radio, m, taps),
+            lambda: fir.decim_plain(radio, m, taps), radio.shape,
+            work_tf32(r, n_r, n_r // m, nt),
+            library_fir(torch, radio, taps, m)),
+        "ilv_decim": (
+            lambda: fir_ilv._decim_cuda(xs, m, taps),
+            lambda: fir.decim_plain(xs, m, taps), xs.shape,
+            work_tf32(rs, ns, ns // m, nt), library_fir(torch, xs, taps, m)),
+        "ilv_interp_c4": (
+            lambda: fir_ilv._interp_cuda(base, m, taps),
+            lambda: fir.interp_plain(base, m, taps), base.shape,
+            work_tf32(b, n_b, n_b * m, branch),
+            library_interp(torch, base, m, taps)),
+        "ilv_interp": (
+            lambda: fir_ilv._interp_cuda(xs, m, taps),
+            lambda: fir.interp_plain(xs, m, taps), xs.shape,
+            work_tf32(rs, ns, ns * m, branch),
+            library_interp(torch, xs, m, taps)),
+        "deframe_c3": (
+            lambda: deframe._deframe_cuda(cap, ds, fl),
+            lambda: deframe.deframe_plain(cap, ds, fl), (ds.numel(), fl),
+            work_extract(n3, ds, fl), None),
+        "deframe_offsets": (
+            lambda: deframe._deframe_cuda(cap, mixed, fl),
+            lambda: deframe.deframe_plain(cap, mixed, fl),
+            (mixed.numel(), fl), work_extract(n3, mixed, fl), None),
+    }
+    res = {}
+    for key, (run_k, run_p, shape, work, library) in cases.items():
+        close = (sc_close if key.startswith("banded_sc") else exact_close
+                 if key.startswith("deframe") else rel_close)
+        res[key] = held(torch, key, run_k, run_p, close, shape, work,
+                        library)
+        res[key]["device_ms"] = device_ms(torch, run_k)
+    log_kernels("tiers", res)
+    # K12 against K2: equal wherever K2's clamp does not apply (d >= 0)
+    check(int(ds.min()) >= 0, "tiers: detection gave a negative offset")
+    for offs in (ds, mixed):
+        k12 = deframe._deframe_cuda(cap, offs, fl)
+        k2 = extract._extract_cuda(cap, offs, fl)
+        inside = offs >= 0
+        check(exact_close(k12[inside], k2[inside])[0]
+              and not bool(k12[~inside].abs().any()),
+              "tiers: K12 differs from K2 on offsets in [0, n], or gave "
+              "samples at a negative offset")
+    # the A/B of the exact float32 filter designs at C4, in turns
+    planes = torch.cat([radio.real, radio.imag]).contiguous()   # K8's
+    ab = {
+        "decim_c4": in_turns(torch, {
+            "K7": lambda: fir._strided_cuda(radio, taps, m),
+            "K11": lambda: shift._decim_cuda(radio, m, taps),
+            "K8": lambda: banded._decim_cuda(radio, m, taps),
+            "K13": lambda: fir_ilv._decim_cuda(radio, m, taps),
+            "K8_planes": lambda: banded._strided_planes(planes, taps, m,
+                                                        "banded_decim")},
+            ("K7", "K11", "K8", "K13", "K8_planes")),
+        "interp_c4": in_turns(torch, {
+            "K7": lambda: fir._interp_cuda(base, m, taps),
+            "K11": lambda: shift._interp_cuda(base, m, taps),
+            "K8": lambda: banded._interp_cuda(base, m, taps),
+            "K13": lambda: fir_ilv._interp_cuda(base, m, taps)},
+            ("K7", "K11", "K8", "K13")),
+        "sc_c3": in_turns(torch, {
+            "K9": lambda: sync._sccorr_cuda(cap, l),
+            "K8": lambda: banded._sc_cuda(cap, l)}, ("K9", "K8")),
+        "sc_2e20": in_turns(torch, {
+            "K9": lambda: sync._sccorr_cuda(x1, l),
+            "K8": lambda: banded._sc_cuda(x1, l)}, ("K9", "K8")),
+        "extract_c3": in_turns(torch, {
+            "K2": lambda: extract._extract_cuda(cap, ds, fl),
+            "K12": lambda: deframe._deframe_cuda(cap, ds, fl)},
+            ("K2", "K12")),
+    }
+    del planes
+    for key, turns in ab.items():
+        log(f"tiers a/b: {key} in-kernel ms, in turns: {fmt_turns(turns)}")
+    log(f"tiers: ok  every banded_*, ilv_* kernel within tolerance of its "
+        f"plain version, deframe bit-exact and equal to K2 on offsets in "
+        f"[0, n]; launches {launches}")
+    return {"kernels": res, "launches": launches, "ab": ab}
 
 
 def make_input_c5(torch, spec, device):
@@ -1694,8 +1970,8 @@ def phase_two_cards(torch, spec, stacks, pays) -> dict | None:
 def path_launches(paths) -> dict:
     """Launches per kernel of every counted main-path run: each path's RX
     slice (C5: its two operating points; c5_sharded: its halo-kernel run;
-    shift: its counted run) and the TX input builds of C4, c4_bf16 and the
-    'pallas' paths."""
+    shift, tiers: their counted runs) and the TX input builds of C4,
+    c4_bf16 and the 'pallas' paths."""
     out = {}
     for p, r in paths.items():
         out[p] = r["launches"] if "launches" in r else r["slice"]["launches"]
@@ -1719,11 +1995,12 @@ def kernel_entry(name, paths, by_path) -> dict:
     those of the first path's check (C3's for the kernels C3 runs, C5
     resident's for viterbi_windowed, c3_pallas's for cpfft and ifftcp,
     c2_pallas's for sccorr, c5_sharded's for halo, c4_bf16's for fir_bf16
-    and interp_bf16, the shift phase's for shift_*: its first check, C4's
-    shape for the decimation and interpolation), as are bound_ms, bound_by
-    and library_ms. launches sums the counted main-path runs (every
-    path's RX, the TX input builds of C4, c4_bf16 and the 'pallas' paths,
-    and the shift phase's counted run), and
+    and interp_bf16, the shift and tiers phases' for their kernels: the
+    first check, C4's shape for the decimation and interpolation, C3's for
+    banded_sc and deframe), as are bound_ms, bound_by and library_ms.
+    launches sums the counted main-path runs (every path's RX, the TX input
+    builds of C4, c4_bf16 and the 'pallas' paths, and the shift and tiers
+    phases' counted runs), and
     launches_by_path splits them."""
     src, rep = KERNEL_INFO[name]
     held_on = {p + k[len(name):]: v for p, r in paths.items()
@@ -1765,13 +2042,16 @@ def main() -> int:
         c5, c5_sharded = run_c5(torch, config, device)
         c3_pallas = run_c3_pallas(torch, config, device)
         c2_pallas = run_c2_pallas(torch, config, device)
-        shift = run_shift(torch, device, c4.pop("fir_inputs"))
+        fir_inputs = c4.pop("fir_inputs")
+        shift = run_shift(torch, device, fir_inputs)
+        tiers = run_tiers(torch, device, fir_inputs, c3.pop("tier_inputs"))
+        del fir_inputs
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     paths = {"c3": c3, "c4": c4, "c5": c5, "c5_sharded": c5_sharded,
              "c3_pallas": c3_pallas, "c2_pallas": c2_pallas,
-             "c4_bf16": c4_bf16, "shift": shift}
+             "c4_bf16": c4_bf16, "shift": shift, "tiers": tiers}
     by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)
                         for k in KERNEL_INFO]}

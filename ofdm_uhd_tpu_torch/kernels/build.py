@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
-           "fir.cu", "fir_bf16.cu", "scfront.cu", "halo.cu", "shift.cu")
+           "fir.cu", "fir_bf16.cu", "scfront.cu", "halo.cu", "shift.cu",
+           "banded.cu", "deframe.cu")
 HEADERS = ("ofdm_kernels.h",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -60,6 +61,15 @@ _SIGNATURES = {
     "ofdm_shift_decim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, kern, y, rows, n, l, nd, d_max, stream
     "ofdm_shift_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the banded tier: x, w, y, rows, n_in, n_out, nt, stride, pad_left,
+    # interleaved, stream
+    "ofdm_banded_strided": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, g, y, rows, n, l, nd, d_max, interleaved, stream
+    "ofdm_banded_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # s, e, p, rr, rows, n, l, stream
+    "ofdm_banded_sc": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # capture, ds, out, caps, n, mf, frame_len, stream
+    "ofdm_deframe": [_P, _P, _P, _I, _I, _I, _I, _P],
     # r, p, m, rows, n, l, stream
     "ofdm_scfront": [_P, _P, _P, _I, _I, _I, _P],
     # r, p, rr, rows, n, l, stream

@@ -37,11 +37,15 @@ import torch
 # "fir" counts the strided kernel: 'same' FIR and decimation launches;
 # "fir_bf16" and "interp_bf16" the bf16 tier's two kernels; "shift_*" the
 # shifted-FMA tier of research/shift.py, which no user path runs
-# ("shift_sc": its S&C correlator, served by the sccorr kernel)
+# ("shift_sc": its S&C correlator, served by the sccorr kernel); nor runs
+# any path "banded_*" (kernels/banded.py, K8), "ilv_*" (research/fir_ilv.py,
+# K13, on the same kernel source) or "deframe" (research/deframe.py, K12)
 KERNELS = ("localize", "extract", "fft", "viterbi", "viterbi_windowed",
            "fir", "interp", "fir_bf16", "interp_bf16", "scfront", "cpfft",
            "ifftcp", "sccorr", "halo", "shift_fir", "shift_decim",
-           "shift_interp", "shift_sc")
+           "shift_interp", "shift_sc", "banded_fir", "banded_decim",
+           "banded_interp", "banded_sc", "ilv_fir", "ilv_decim",
+           "ilv_interp", "deframe")
 
 # the reference's batch crossovers between its Viterbi algorithms
 _VITERBI_FUSED_MAX_BATCH = 96

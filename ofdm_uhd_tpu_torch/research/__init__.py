@@ -1,8 +1,13 @@
-"""The counterpart of ofdm_uhd_tpu/research/: filter tiers the reference
-keeps as measured A/B baselines and never routes. No user path
+"""The counterpart of ofdm_uhd_tpu/research/: filter tiers and a frame
+extractor the reference keeps as measured A/B baselines or dead ends and
+never routes. No user path
 (RxPipeline, TxPipeline, StreamRx, policy.choose) imports from here.
 
   shift   the shifted-FMA filter tier (K11): 'same' FIR, phase-split
           decimation, branch-row interpolation (csrc/shift.cu) and its S&C
           correlator (the sccorr kernel, counted as shift_sc)
+  fir_ilv the FIR family on the interleaved (re, im) layout (K13): csrc/
+          banded.cu's interleaved entry, float32 on the tensor cores
+  deframe frame extraction by one bulk copy per frame (K12, csrc/
+          deframe.cu), with zeros at negative offsets
 """

@@ -1,0 +1,129 @@
+"""The FIR family on the interleaved (re, im) layout (K13): the
+counterpart of ofdm_uhd_tpu/research/pallas_fir_ilv.py and, through it, of
+K7b's general-tap banded row product (kernels/pallas_fir_mxu.py:239
+_banded_rows_call).
+
+The reference keeps this tier as a measured dead end (its TPU had no free
+bitcast of complex64 to interleaved float32) and routes no user path to
+it; neither does the port. Its functions are the exact float32 filters of
+kernels/fir.py:
+
+  fir_ilv(x, taps)                 'same' FIR, [..., n] -> [..., n]
+  polyphase_decim_ilv(x, m, taps)  [..., n] -> [..., n // m]
+  polyphase_interp_ilv(x, l, taps) [..., n] -> [..., n*l]
+
+with the reference's shape handling: a 1-D input is one row, an N-D one
+is flattened to rows and restored. The TPU's tiles (the reference's `blk`
+and `tr`) do not change the function and have no counterpart.
+`precision="highest"` is the reference's default
+(jax.lax.Precision.HIGHEST) and runs the float32 kernel; no other
+precision is ported (ROADMAP.md, Queue 2).
+
+A CUDA tensor launches csrc/banded.cu's interleaved entry (counted as
+ilv_fir, ilv_decim, ilv_interp): the kernel reads the complex64 rows in
+place as float2, where torch.view_as_real is the free bitcast the
+reference's TPU lacked, de-interleaves them in shared memory, runs the
+3xTF32 tensor-core core that K8 shares, and stores complex64. The
+reference's taps dilated by 2 (w2[0::2] = w) are its way of skipping the
+other component of an interleaved row; the kernel needs no zero taps. A
+CPU tensor, or any inside policy.plain_versions(), takes the port's exact
+float32 filters (kernels/fir.py decim_plain, interp_plain).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels import build, policy
+from ..kernels import fir as KF
+from ..phy import tables as T
+
+PRECISIONS = ("highest",)
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise NotImplementedError(
+            f"fir_ilv: precision {precision!r} is not ported; only "
+            f"'highest' (float32) is (ROADMAP.md, Queue 2: K13 at DEFAULT "
+            f"precision)")
+
+
+def _flatten(x: torch.Tensor) -> torch.Tensor:
+    """The reference's _flatten: rows [B, n] of a 1-D or N-D input."""
+    return x[None] if x.dim() == 1 else x.reshape(-1, x.shape[-1])
+
+
+def _unflatten(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return y[0] if x.dim() == 1 else y.reshape(x.shape[:-1] + (y.shape[-1],))
+
+
+def _strided_cuda(x: torch.Tensor, taps, stride: int, kernel: str
+                  ) -> torch.Tensor:
+    flat = KF._rows(_flatten(x), kernel)
+    key, w, pad_l = KF._corr_weights(taps)
+    rows, n = flat.shape
+    n_out = n // stride
+    y = torch.empty((rows, n_out), dtype=torch.complex64, device=x.device)
+    wt = T.on_device(KF._reversed_taps, (key,), None, x.device)
+    err = build.library().ofdm_banded_strided(
+        flat.data_ptr(), wt.data_ptr(), y.data_ptr(), rows, n, n_out, len(w),
+        stride, pad_l, 1, build.stream_ptr(x.device))
+    build.check(err, kernel)
+    policy.count_launch(kernel)
+    return _unflatten(y, x)
+
+
+def _fir_cuda(x: torch.Tensor, taps) -> torch.Tensor:
+    return _strided_cuda(x, taps, 1, "ilv_fir")
+
+
+def _decim_cuda(x: torch.Tensor, m: int, taps) -> torch.Tensor:
+    if m < 1:
+        raise ValueError(f"ilv_decim: need m >= 1, got {m}")
+    return _strided_cuda(x, taps, m, "ilv_decim")
+
+
+def _interp_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+    if l < 1:
+        raise ValueError(f"ilv_interp: need l >= 1, got {l}")
+    flat = KF._rows(_flatten(x), "ilv_interp")
+    key = KF._f64_key(taps)
+    g, _, d_max = KF._branch_matrix(key, l)
+    rows, n = flat.shape
+    y = torch.empty((rows, n * l), dtype=torch.complex64, device=x.device)
+    gt = T.on_device(KF._branch_matrix, (key, l), 0, x.device)
+    err = build.library().ofdm_banded_interp(
+        flat.data_ptr(), gt.data_ptr(), y.data_ptr(), rows, n, l, g.shape[1],
+        d_max, 1, build.stream_ptr(x.device))
+    build.check(err, "ilv_interp")
+    policy.count_launch("ilv_interp")
+    return _unflatten(y, x)
+
+
+def fir_ilv(x: torch.Tensor, taps, precision: str = "highest"
+            ) -> torch.Tensor:
+    """'Same'-aligned real-taps FIR of complex x [..., n] -> [..., n]."""
+    _check_precision(precision)
+    if policy.use_kernel(x):
+        return _fir_cuda(x, taps)
+    return _unflatten(KF.decim_plain(_flatten(x), 1, taps), x)
+
+
+def polyphase_decim_ilv(x: torch.Tensor, m: int, taps,
+                        precision: str = "highest") -> torch.Tensor:
+    """M-fold decimation [..., n] -> [..., n // m]."""
+    _check_precision(precision)
+    if policy.use_kernel(x):
+        return _decim_cuda(x, m, taps)
+    return _unflatten(KF.decim_plain(_flatten(x), m, taps), x)
+
+
+def polyphase_interp_ilv(x: torch.Tensor, l: int, taps,
+                         precision: str = "highest") -> torch.Tensor:
+    """L-fold interpolation [..., n] -> [..., n*l]; taps = the prototype
+    low-pass (gain L applied here)."""
+    _check_precision(precision)
+    if policy.use_kernel(x):
+        return _interp_cuda(x, l, taps)
+    return _unflatten(KF.interp_plain(_flatten(x), l, taps), x)

@@ -21,8 +21,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
-from ofdm_uhd_tpu_torch.kernels import fir, policy, sync  # noqa: E402
-from ofdm_uhd_tpu_torch.research import shift  # noqa: E402
+from ofdm_uhd_tpu_torch.kernels import (banded, extract, fir,  # noqa: E402
+                                        policy, sync)
+from ofdm_uhd_tpu_torch.research import deframe, fir_ilv, shift  # noqa: E402
 from ofdm_uhd_tpu_torch.phy.tables import resample_filter  # noqa: E402
 
 torch.set_num_threads(2)
@@ -114,6 +115,26 @@ def test_kernels_line_names_every_kernel():
     assert chip_smoke.held_kernel("shift_sc") == "shift_sc"
     assert set(chip_smoke.SHIFT_PATH) == {
         k for k in policy.KERNELS if k.startswith("shift_")}
+    for name, fn in (("banded_fir", "fir_pallas"),
+                     ("banded_decim", "polyphase_decim_pallas"),
+                     ("banded_interp", "polyphase_interp_pallas"),
+                     ("banded_sc", "sc_correlate_pallas"),
+                     ("ilv_fir", "fir_ilv_pallas"),
+                     ("ilv_decim", "polyphase_decim_ilv_pallas"),
+                     ("ilv_interp", "polyphase_interp_ilv_pallas"),
+                     ("deframe", "extract_frames_dma")):
+        src, rep = chip_smoke.KERNEL_INFO[name]
+        assert os.path.isfile(os.path.join(REPO, src))
+        path, line = rep.split(":")
+        with open(os.path.join(REPO, path)) as f:
+            text = f.read().splitlines()[int(line) - 1]
+        assert text.startswith(f"def {fn}(")
+        assert name in chip_smoke.TIERS_PATH
+    assert set(chip_smoke.TIERS_PATH) == {
+        k for k in policy.KERNELS
+        if k.startswith(("banded_", "ilv_")) or k == "deframe"}
+    assert chip_smoke.held_kernel("banded_sc_c3") == "banded_sc"
+    assert chip_smoke.held_kernel("deframe_offsets") == "deframe"
 
 
 def test_bound_takes_the_larger_time():
@@ -218,7 +239,25 @@ def on_host(monkeypatch):
             (shift, "_sc_cuda", "shift_sc", sync.sc_correlate_plain),
             (fir, "_strided_cuda", "fir",
              lambda x, t, s, valid=False: fir.decim_plain(x, s, t)),
-            (fir, "_interp_cuda", "interp", fir.interp_plain)):
+            (fir, "_interp_cuda", "interp", fir.interp_plain),
+            (sync, "_sccorr_cuda", "sccorr",
+             lambda r, l, counter="sccorr": sync.sc_correlate_plain(r, l)),
+            (extract, "_extract_cuda", "extract", extract.extract_plain),
+            (banded, "_fir_cuda", "banded_fir",
+             lambda x, t: fir.decim_plain(x, 1, t)),
+            (banded, "_decim_cuda", "banded_decim",
+             banded.decim_banded_plain),
+            (banded, "_interp_cuda", "banded_interp", fir.interp_plain),
+            (banded, "_sc_cuda", "banded_sc",
+             banded.sc_correlate_banded_plain),
+            (banded, "_strided_planes", "banded_decim",
+             lambda p, t, s, k: fir.decim_plain(p.to(torch.complex64), 1,
+                                                t)[..., ::s].real),
+            (fir_ilv, "_fir_cuda", "ilv_fir",
+             lambda x, t: fir.decim_plain(x, 1, t)),
+            (fir_ilv, "_decim_cuda", "ilv_decim", fir.decim_plain),
+            (fir_ilv, "_interp_cuda", "ilv_interp", fir.interp_plain),
+            (deframe, "_deframe_cuda", "deframe", deframe.deframe_plain)):
         monkeypatch.setattr(mod, name, _counted(count, fn))
     policy.reset_launches()
     yield
@@ -277,3 +316,67 @@ def test_cfar_phase_rehearsal(on_host):
     assert out["frames_ok"] == {"fixed": 6, "cfar": 6}
     assert out["slots_moved"] == 0 and len(out["thresholds"]) == 2
     assert all(0.05 <= t <= 0.5 for t in out["thresholds"])
+
+
+def test_tiers_phase_rehearsal(on_host, monkeypatch):
+    """run_tiers at tiny sizes: every tiers kernel launched in its counted
+    run and no other kernel, every check against the plain version passes
+    (deframe exactly, and equal to K2 on offsets >= 0), the C4 A/B times
+    K7, K11, K8 and K13 in turns, and the kernels line gets an entry for
+    each tiers kernel with launches under the `tiers` path."""
+    from ofdm_uhd_tpu_torch.core.spec import config
+    monkeypatch.setattr(chip_smoke, "SHIFT_N", 4096)
+    monkeypatch.setattr(chip_smoke, "TIERS_SESSION", (2, 1024))
+    monkeypatch.setattr(policy, "use_kernel",
+                        lambda x: not policy._STATE.forced_plain)
+    fl = config("c3").frame_len
+    radio, base = _x(11, 2, 8 * 1031), _x(12, 3, 300)
+    cap = _x(13, 2, 3 * fl)
+    ds = torch.tensor([[0, 17, 2 * fl + 1], [5, fl, 3 * fl]],
+                      dtype=torch.int32)
+    out = chip_smoke.run_tiers(torch, torch.device("cpu"), (radio, base),
+                               (cap, ds))
+    launches = out["launches"]
+    assert launches["banded_fir"] == 1 and launches["banded_sc"] == 2
+    assert launches["banded_decim"] == 2 and launches["banded_interp"] == 2
+    assert launches["ilv_fir"] == 1 and launches["ilv_decim"] == 2
+    assert launches["ilv_interp"] == 2 and launches["deframe"] == 2
+    assert all(c == 0 for k, c in launches.items()
+               if k not in chip_smoke.TIERS_PATH)
+    res = out["kernels"]
+    assert list(res) == [
+        "banded_fir", "banded_decim_c4", "banded_decim", "banded_interp_c4",
+        "banded_interp", "banded_sc_c3", "banded_sc", "ilv_fir",
+        "ilv_decim_c4", "ilv_decim", "ilv_interp_c4", "ilv_interp",
+        "deframe_c3", "deframe_offsets"]
+    assert res["banded_decim_c4"]["bound_by"] == "bytes"
+    assert res["deframe_offsets"]["shape"] == [2 * 17, fl]
+    assert set(out["ab"]["decim_c4"]) == {"K7", "K11", "K8", "K13",
+                                          "K8_planes"}
+    assert all(len(v) == 2 for v in out["ab"]["decim_c4"].values())
+    by_path = chip_smoke.path_launches({"tiers": out})
+    for name in chip_smoke.TIERS_PATH:
+        entry = chip_smoke.kernel_entry(name, {"tiers": out}, by_path)
+        assert entry["launches"] > 0 and entry["bound_by"] in (
+            "bytes", "operations")
+        assert entry["max_abs_err"] == 0.0
+    entry = chip_smoke.kernel_entry("banded_decim", {"tiers": out}, by_path)
+    assert entry["paths"]["tiers_c4"]["shape"] == [2, 8 * 1031]
+
+
+def test_tiers_bounds():
+    """The banded tier's bound at C4's decimation: 298 MB of complex64 in
+    and out (0.089 ms, bytes) against 12 x 193 flops an output at the TF32
+    peak (0.024 ms); K12 at C3 moves K2's bytes (0.158 ms)."""
+    n_in, n_out = 4_138_472, 517_309
+    ms, by = chip_smoke.bound(*chip_smoke.work_tf32(8, n_in, n_out, 193))
+    assert by == "bytes" and abs(ms - 0.089) < 1e-3
+    assert abs(12.0 * 193 * 8 * n_out / chip_smoke.TF32_OPS * 1e3
+               - 0.0194) < 1e-3
+    ds = torch.zeros((8, 1026), dtype=torch.int32)
+    ms, by = chip_smoke.bound(*chip_smoke.work_extract(4_436_068, ds, 4032))
+    assert by == "bytes" and abs(ms - 0.158) < 1e-3
+    ds[0, 0] = -1                         # a zero frame reads nothing
+    less, _ = chip_smoke.bound(*chip_smoke.work_extract(4_436_068, ds,
+                                                        4032))
+    assert less < ms

@@ -11,10 +11,10 @@ import pytest
 import torch
 
 from ofdm_uhd_tpu_torch.core.spec import config
-from ofdm_uhd_tpu_torch.kernels import (extract, fft, fir, localize, policy,
-                                        scfront, sync, viterbi)
+from ofdm_uhd_tpu_torch.kernels import (banded, extract, fft, fir, localize,
+                                        policy, scfront, sync, viterbi)
 from ofdm_uhd_tpu_torch.phy.tables import resample_filter
-from ofdm_uhd_tpu_torch.research import shift
+from ofdm_uhd_tpu_torch.research import deframe, fir_ilv, shift
 
 pytestmark = pytest.mark.cuda
 
@@ -777,3 +777,163 @@ def test_cfar_on_card_matches_cpu(dev):
     m = torch.rand((3, 100_000), generator=_gen(6), device=dev) ** 3
     assert torch.equal(psync.cfar_threshold(m, 0.5, 16.0).cpu(),
                        psync.cfar_threshold(m.cpu(), 0.5, 16.0))
+
+
+# ---- the banded tier (K8, kernels/banded.py) and the interleaved tier
+# (K13, research/fir_ilv.py) on csrc/banded.cu; the deframer (K12) ----
+
+@pytest.mark.parametrize("kind", ["proto", "3tap"])
+@pytest.mark.parametrize("shape", [(1003,), (3, 1000), (2, 9001),
+                                   (2, 2, 4096)])
+def test_banded_and_ilv_fir_kernels_close(dev, shape, kind):
+    """The 'same' FIR on K8's planes and on K13's interleaved rows, within
+    1e-5 of max|y| of the exact float32 plain version (3xTF32 on the tensor
+    cores); rows never leak."""
+    taps = _taps(kind)
+    x = torch.randn(shape, dtype=torch.complex64, generator=_gen(shape[-1]),
+                    device=dev)
+    want = fir.decim_plain(x, 1, taps)
+    policy.reset_launches()
+    got_b = banded.fir_banded(x, taps)
+    got_i = fir_ilv.fir_ilv(x, taps)
+    launched = policy.launches()
+    assert launched["banded_fir"] == 1 and launched["ilv_fir"] == 1
+    assert sum(launched.values()) == 2
+    _within(got_b, want)
+    _within(got_i, want)
+    if x.dim() == 2:
+        one = fir_ilv.fir_ilv(x[1:2].contiguous(), taps)
+        assert torch.equal(one[0], got_i[1])
+
+
+@pytest.mark.parametrize("kind", ["proto", "3tap"])
+@pytest.mark.parametrize("m", [2, 8])
+@pytest.mark.parametrize("shape", [(1003,), (5, 16384), (3, 20011)])
+def test_banded_and_ilv_decim_kernels_close(dev, m, shape, kind):
+    """K8 keeps ceil(n/m) outputs of the full-rate FIR, K13 n // m."""
+    taps = _taps(kind, m)
+    x = torch.randn(shape, dtype=torch.complex64,
+                    generator=_gen(m + shape[-1]), device=dev)
+    policy.reset_launches()
+    got_b = banded.polyphase_decim_banded(x, m, taps)
+    got_i = fir_ilv.polyphase_decim_ilv(x, m, taps)
+    assert policy.launches()["banded_decim"] == 1
+    assert policy.launches()["ilv_decim"] == 1
+    assert got_b.shape == shape[:-1] + (-(-shape[-1] // m),)
+    assert got_i.shape == shape[:-1] + (shape[-1] // m,)
+    _within(got_b, banded.decim_banded_plain(x, m, taps))
+    _within(got_i, fir.decim_plain(x, m, taps))
+
+
+@pytest.mark.parametrize("kind", ["proto", "3tap"])
+@pytest.mark.parametrize("l", [2, 3, 8, 12])
+@pytest.mark.parametrize("shape", [(3000,), (6, 2100), (2, 4500)])
+def test_banded_and_ilv_interp_kernels_close(dev, l, shape, kind):
+    taps = _taps(kind, l)
+    x = torch.randn(shape, dtype=torch.complex64,
+                    generator=_gen(l + shape[-1]), device=dev)
+    want = fir.interp_plain(x, l, taps)
+    policy.reset_launches()
+    got_b = banded.polyphase_interp_banded(x, l, taps)
+    got_i = fir_ilv.polyphase_interp_ilv(x, l, taps)
+    assert policy.launches()["banded_interp"] == 1
+    assert policy.launches()["ilv_interp"] == 1
+    assert got_b.shape == got_i.shape == shape[:-1] + (shape[-1] * l,)
+    _within(got_b, want)
+    _within(got_i, want)
+
+
+@pytest.mark.parametrize("l,shape", [(32, (9000,)), (128, (20480,)),
+                                     (48, (3, 6000)), (512, (2, 40000))])
+def test_banded_sc_kernel_close(dev, l, shape):
+    """K8's S&C window sums in one launch: P within 1e-5 of max|P|, R
+    within 1e-5 relative, against the direct window sums."""
+    x = torch.randn(shape, dtype=torch.complex64, generator=_gen(l),
+                    device=dev)
+    policy.reset_launches()
+    p, rr = banded.sc_correlate_banded(x, l)
+    assert policy.launches()["banded_sc"] == 1
+    assert sum(policy.launches().values()) == 1
+    p0, rr0 = banded.sc_correlate_banded_plain(x, l)
+    _within(p, p0)
+    assert float(((rr - rr0).abs() / rr0.abs().clamp_min(1e-30)).max()) \
+        <= 1e-5
+
+
+def test_banded_kernels_at_c4_shapes(dev):
+    """C4's decimation input [8, 4,138,472] by 8 and its TX interpolation
+    [32, 16128] by 8 on both entries, against the plain versions."""
+    taps = resample_filter(8, 1)
+    x = torch.randn((8, 4_138_472), dtype=torch.complex64, generator=_gen(4),
+                    device=dev)
+    want = fir.decim_plain(x, 8, taps)
+    _within(fir_ilv.polyphase_decim_ilv(x, 8, taps), want)
+    _within(banded.polyphase_decim_banded(x, 8, taps), want)
+    b = torch.randn((32, 16128), dtype=torch.complex64, generator=_gen(5),
+                    device=dev)
+    want = fir.interp_plain(b, 8, taps)
+    _within(fir_ilv.polyphase_interp_ilv(b, 8, taps), want)
+    _within(banded.polyphase_interp_banded(b, 8, taps), want)
+
+
+def test_banded_rejects_bad_input(dev):
+    taps = [0.25, 0.5, 0.25]
+    c = torch.zeros((2, 1000), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        fir_ilv.fir_ilv(torch.zeros((2, 100), device=dev), taps)
+    with pytest.raises(ValueError):
+        fir_ilv.polyphase_decim_ilv(c[:, ::2], 2, taps)     # not contiguous
+    with pytest.raises(ValueError):
+        banded.polyphase_decim_banded(c, 0, taps)
+    with pytest.raises(ValueError):
+        fir_ilv.polyphase_interp_ilv(c, 0, taps)
+    with pytest.raises(ValueError):
+        banded.sc_correlate_banded(c, 600)                   # 2l > n
+    with pytest.raises(NotImplementedError):
+        fir_ilv.fir_ilv(c, taps, precision="default")
+    with pytest.raises(RuntimeError):                        # shared memory
+        fir_ilv.polyphase_decim_ilv(c, 64, np.ones(4096, np.float32))
+
+
+@pytest.mark.parametrize("frame_len", [1, 2, 37, 4032, 4097, 9001])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_deframe_kernel_exact(dev, frame_len, offset):
+    """K12 bit-exact against its plain version: odd and even offsets, odd
+    frame lengths, frames that need two and three 32 KB chunks, a capture
+    whose rows start 8 bytes off a 16-byte boundary (`offset`: a view one
+    sample into its buffer), negative offsets (zeros) and offsets past n;
+    equal to K2 on offsets in [0, n]."""
+    n = 20011
+    buf = torch.randn((3, n + offset), dtype=torch.complex64,
+                      generator=_gen(frame_len), device=dev)
+    cap = buf.reshape(-1)[offset: offset + 3 * n].reshape(3, n)
+    g = torch.Generator().manual_seed(frame_len)
+    ds = torch.randint(-frame_len - 300, n + 50, (3, 40), generator=g,
+                       dtype=torch.int32)
+    ds[:, :6] = torch.tensor([0, 1, n - frame_len, n - 1, n, -1])
+    ds = ds.to(dev)
+    policy.reset_launches()
+    got = deframe.extract_frames_dma(cap, ds, frame_len)
+    assert policy.launches()["deframe"] == 1
+    assert sum(policy.launches().values()) == 1
+    want = deframe.deframe_plain(cap, ds, frame_len)
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+    inside = ds >= 0
+    k2 = extract.extract_frames(cap, ds, frame_len)
+    assert torch.equal(got[inside], k2[inside])
+    assert not got[~inside].abs().any()
+    one = deframe.extract_frames_dma(cap[1].contiguous(), ds[1], frame_len)
+    assert torch.equal(one, got[1])
+
+
+def test_deframe_at_c3_shapes(dev):
+    """C3's extraction: 8 captures x 1026 slots of 4032 samples."""
+    spec = config("c3")
+    n = 4_436_068
+    cap = torch.randn((8, n), dtype=torch.complex64, generator=_gen(8),
+                      device=dev)
+    ds = torch.randint(-10, n, (8, 1026), generator=_gen(9), device=dev,
+                       dtype=torch.int32)
+    got = deframe.extract_frames_dma(cap, ds, spec.frame_len)
+    want = deframe.deframe_plain(cap, ds, spec.frame_len)
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))

@@ -24,7 +24,8 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("kernels.viterbi", "kernels.halo", "shard.mesh",
               "shard.frame_parallel", "shard.stage_pipeline",
-              "shard.time_parallel", "research.shift"):
+              "shard.time_parallel", "research.shift", "kernels.banded",
+              "research.fir_ilv", "research.deframe"):
         assert "ofdm_uhd_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
