@@ -80,7 +80,8 @@ its findings on a line of its own:
               power limit as nvidia-smi reports them;
   2. build:   builds the hand kernels from ofdm_uhd_tpu_torch/kernels/csrc
               (one nvcc per source, sm_90a, started together) into
-              build/ofdm_uhd_tpu_torch/;
+              build/ofdm_uhd_tpu_torch/, and prints each kernel's
+              registers and spilled bytes (ptxas -v);
   then for C3, C4, c4_bf16, C5 (and c5_sharded), c3_pallas and c2_pallas
   in turn (and last the shift and tiers phases, whose counted runs stand
   for their slices):
@@ -101,9 +102,12 @@ its findings on a line of its own:
               where one PyTorch call computes the same function, that
               call's time (library_ms: torch.fft.fft, conv1d,
               conv_transpose1d, on bf16 planes and weights for the bf16
-              tier; the port never calls them); C5 also holds
-              the windowed Viterbi at both geometries and times the
-              whole-sequence kernel on the same LLRs;
+              tier; the port never calls them); the FFT kernels (K3
+              both ways, K5 RX and TX) also in-kernel, in turns with
+              torch.fft's call (ortho; for K5 TX torch.fft.ifft without
+              the prefix), and torch.fft's unscaled call beside them; C5
+              also holds the windowed Viterbi at both geometries and
+              times the whole-sequence kernel on the same LLRs;
   6. slice:   decodes every frame, which must match the sent payloads bit
               for bit, with the launch count of every kernel of the path
               > 0 over that run, and no shift_*, banded_*, ilv_* or deframe
@@ -123,6 +127,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -387,10 +392,47 @@ def phase_build() -> dict:
     build.library(verbose=True)
     secs = time.perf_counter() - t0
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "error" in line:
             print(line, file=sys.stderr)
+    regs = kernel_registers(build.build_log())
+    for name, (n, spill) in regs.items():
+        log(f"build: {name} {n} registers, {spill} bytes spilled")
     log(f"phase build: ok  {secs:.1f} s into {build.build_dir()}")
-    return {"build_s": secs}
+    return {"build_s": secs, "registers": regs}
+
+
+def kernel_registers(ptxas_log: str) -> dict:
+    """{kernel: [registers a thread, bytes spilled (stores + loads)]} from
+    `nvcc -Xptxas -v` output, each entry function by its short name
+    (`fft_cp_kernel<8>` for a template over one int)."""
+    out, name, spill = {}, None, 0
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = short_name(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = [int(m.group(1)), spill]
+            name = None
+    return out
+
+
+def short_name(mangled: str) -> str:
+    """The last identifier of an Itanium-mangled function name, with its
+    int template argument if it has one."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    ident, i = mangled, 0
+    while i < len(s) and s[i].isdigit():
+        j = i
+        while s[j].isdigit():
+            j += 1
+        ident, i = s[j:j + int(s[i:j])], j + int(s[i:j])
+    m = re.match(r"ILi(\d+)E", s[i:])
+    return f"{ident}<{m.group(1)}>" if m else ident
 
 
 def make_input_c3(torch, spec, device):
@@ -653,7 +695,11 @@ def log_kernels(label, res) -> None:
             + (f"  contiguous {v['ms_contiguous']:.3f} ms"
                if "ms_contiguous" in v else "")
             + (f"  in-kernel {v['device_ms']:.4f} ms"
-               if v.get("device_ms") is not None else ""))
+               if v.get("device_ms") is not None else "")
+            + (f"  library in-kernel {v['library_device_ms']:.4f} ms"
+               if v.get("library_device_ms") is not None else "")
+            + (f"  unscaled {v['library_unscaled_ms']:.4f} ms"
+               if v.get("library_unscaled_ms") is not None else ""))
 
 
 def library_fir(torch, x, taps, stride, dtype=None):
@@ -749,18 +795,25 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
 
     def hold_fft():
         # forward on the RX windows and inverse on their grid: within 1e-5
-        # of max|X| against torch.fft (norm="ortho"); ms of the forward
+        # of max|X| against torch.fft (norm="ortho")
         grid, syms, st = ins["grid"], ins["syms"], ins["start"]
         w = syms[..., st:st + spec.n_sc].contiguous()
-        r = w.numel() // spec.n_sc
-        inv = held(torch, "ifft", lambda: fft._fft_cuda(grid, True),
-                   lambda: fft.fft_plain(grid, inverse=True), rel_close,
-                   grid.shape, work_fft(r, spec.n_sc, spec.n_sc, spec.n_sc))
-        res = held(torch, "fft", lambda: fft._fft_cuda(w, False),
-                   lambda: fft.fft_plain(w), rel_close, w.shape,
-                   work_fft(r, spec.n_sc, spec.n_sc, spec.n_sc),
-                   lambda: torch.fft.fft(w, norm="ortho"))
-        res["max_abs_err"] = max(res["max_abs_err"], inv["max_abs_err"])
+        return {"fft": hold_fft_on(w, False),
+                "fft_inverse": hold_fft_on(grid, True)}
+
+    def hold_fft_on(x, inverse):
+        # K3 on x [..., n_sc], in-kernel in turns with torch.fft's call
+        lib = torch.fft.ifft if inverse else torch.fft.fft
+        nsc = spec.n_sc
+        res = held(torch, "ifft" if inverse else "fft",
+                   lambda: fft._fft_cuda(x, inverse),
+                   lambda: fft.fft_plain(x, inverse), rel_close, x.shape,
+                   work_fft(x.numel() // nsc, nsc, nsc, nsc),
+                   lambda: lib(x, norm="ortho"))
+        fft_in_turns(torch, res, lambda: fft._fft_cuda(x, inverse),
+                     lambda: lib(x, norm="ortho"),
+                     lambda: lib(x, norm="forward" if inverse
+                                 else "backward"))
         return res
 
     def hold_cpfft():
@@ -768,20 +821,28 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
         # bound reads only the n-sample windows (the CP it strips is whole
         # 32 B sectors, never fetched). ms_contiguous: the same launch on
         # the windows copied out (row stride n), which parts the strided
-        # read's cost from the kernel's
+        # read's cost from the kernel's; bit for bit the fft kernel's
+        # output on those windows, since both run the one body
         syms, st, nsc = ins["syms"], ins["start"], spec.n_sc
         r = syms.numel() // spec.sym_len
+        view = syms[..., st:st + nsc]
         res = held(torch, "cpfft",
                    lambda: fft._fft_cp_cuda("cpfft", syms, nsc, st, 0, False),
                    lambda: fft.cp_strip_fft_plain(syms, st, nsc), rel_close,
                    syms.shape, work_fft(r, nsc, nsc, nsc),
-                   lambda: torch.fft.fft(syms[..., st:st + nsc],
-                                         norm="ortho"))
-        w = syms[..., st:st + nsc].contiguous()
+                   lambda: torch.fft.fft(view, norm="ortho"))
+        fft_in_turns(torch, res,
+                     lambda: fft._fft_cp_cuda("cpfft", syms, nsc, st, 0,
+                                              False),
+                     lambda: torch.fft.fft(view, norm="ortho"),
+                     lambda: torch.fft.fft(view, norm="backward"))
+        w = view.contiguous()
         y_c = fft._fft_cp_cuda("cpfft", w, nsc, 0, 0, False)
         check(torch.equal(y_c, fft._fft_cp_cuda("cpfft", syms, nsc, st, 0,
                                                 False)),
               "cpfft: the contiguous windows transform otherwise")
+        check(torch.equal(y_c, fft._fft_cuda(w, False)),
+              "cpfft: the fft kernel transforms the windows otherwise")
         res["ms_contiguous"] = cuda_ms(
             torch, lambda: fft._fft_cp_cuda("cpfft", w, nsc, 0, 0, False))
         return res
@@ -801,7 +862,10 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
              "localize": hold_localize, "extract": hold_extract,
              "fft": hold_fft, "cpfft": hold_cpfft, "viterbi": hold_viterbi,
              "viterbi_windowed": hold_viterbi_windowed}
-    res = {k: holds[k]() for k in names}
+    res = {}
+    for k in names:
+        got = holds[k]()
+        res.update(got if k == "fft" else {k: got})
     log_kernels(label, res)
     return res
 
@@ -824,17 +888,40 @@ def hold_windowed(torch, llr, geometry) -> dict:
 
 def phase_kernel_ifftcp(torch, spec, label, grid) -> dict:
     """K5 TX on the grid of one capture's frames [F, n_syms, n_sc], as the
-    TX built it: within 1e-5 of max|x| against ifft + cat."""
+    TX built it: within 1e-5 of max|x| against ifft + cat. No one PyTorch
+    call computes the prefixed rows; torch.fft.ifft of the grid (no
+    prefix) is timed in turns beside it, as information."""
     from ofdm_uhd_tpu_torch.kernels import fft
     n, cp = spec.n_sc, spec.cp
     r = grid.numel() // n
-    res = {"ifftcp": held(torch, "ifftcp",
-                          lambda: fft._fft_cp_cuda("ifftcp", grid, n, 0, cp,
-                                                   True),
+
+    def run_k():
+        return fft._fft_cp_cuda("ifftcp", grid, n, 0, cp, True)
+    res = {"ifftcp": held(torch, "ifftcp", run_k,
                           lambda: fft.ifft_cp_plain(grid, cp), rel_close,
                           grid.shape, work_fft(r, n, n, n + cp))}
+    fft_in_turns(torch, res["ifftcp"], run_k,
+                 lambda: torch.fft.ifft(grid, norm="ortho"),
+                 lambda: torch.fft.ifft(grid, norm="forward"))
     log_kernels(label + " tx", res)
     return res
+
+
+def fft_in_turns(torch, res, run_k, ortho, unscaled) -> None:
+    """Add to an FFT kernel's check its in-kernel ms and torch.fft's, taken
+    in turns (kernel, library, library, kernel): device_ms and
+    library_device_ms, the means of their two turns (each list in
+    *_turns), and library_unscaled_ms, torch.fft's call without a scale
+    (norm="backward" forward, norm="forward" inverse: cuFFT's transform
+    and no scaling pass), as information."""
+    turns = in_turns(torch, {"kernel": run_k, "library": ortho},
+                     ("kernel", "library"))
+    for key, name in (("device_ms", "kernel"),
+                      ("library_device_ms", "library")):
+        got = [t for t in turns[name] if t is not None]
+        res[key] = statistics.mean(got) if got else None
+        res[key + "_turns"] = turns[name]
+    res["library_unscaled_ms"] = device_ms(torch, unscaled)
 
 
 def phase_kernels_fir(torch, spec, label, ins, base) -> dict:

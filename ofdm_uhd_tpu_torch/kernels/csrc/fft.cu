@@ -1,32 +1,74 @@
 // Batched orthonormal FFT / IFFT along rows, complex64, for power-of-two
-// lengths up to 2048 (the chain uses N = 256 on RX and TX; the other
-// waveforms use 64 and 1024), and its two CP-fused forms.
+// lengths 2..2048 (the chain uses N = 256 on RX and TX at C3 and C5, 1024
+// at C4, 64 at C2), and its two CP-fused forms.
 //
 // Replaces:
-//   ofdm_fft (K3): ofdm_uhd_tpu/kernels/pallas_fft.py:fft_pallas
-//     (_build_fft, _direct_kernel);
-//   ofdm_fft_cp (K5): pallas_fft.py:cp_strip_fft_pallas and ifft_cp_pallas
-//     (_build_fused). The TPU kernel folds the CP strip into zero rows of a
-//     dense [sym_len, n] DFT matrix, and the CP insertion into n + cp
-//     columns, so that its MXU reads the raw symbol rows and writes the
-//     prefixed rows in one pass.
+//   ofdm_fft (K3): ofdm_uhd_tpu/kernels/pallas_fft.py:185 fft_pallas
+//     (_build_fft :82, _direct_kernel :75);
+//   ofdm_fft_cp (K5): pallas_fft.py:191 cp_strip_fft_pallas and :204
+//     ifft_cp_pallas (_build_fused :108). The TPU kernel folds the CP
+//     strip into zero rows of a dense [sym_len, n] DFT matrix, and the CP
+//     insertion into n + cp columns, so that its MXU reads the raw symbol
+//     rows and writes the prefixed rows in one pass.
 // The TPU's dense DFT is O(N^2) work that this card's f32 units should not
-// do, so both are a radix-2 FFT; K5 keeps what the TPU form saved, the
-// extra passes over device memory: the strip is an offset and a row stride
-// on the load (no contiguous copy of the windows), and the CP is a second
-// store of the row's last cp samples (no concatenation pass).
+// do, so both are an FFT here; K5 keeps what the TPU form saved, the extra
+// passes over device memory: the strip is an offset and a row stride on
+// the load (no contiguous copy of the windows), and the CP is a second
+// store of the row's last cp outputs from the same registers (no
+// concatenation pass). K3 is the case of contiguous rows and no CP, so
+// K5 on contiguous windows gives K3's bits.
 //
-// Bound on this card: memory. At N = 256 a row is 2 KB in and 2 KB out
-// against 8 * 256 * 5 = 10 flops per byte, under the card's f32 ridge, so
-// the kernels should run near the bandwidth of one read and one write.
-// Design: a block holds 2048 / N rows (16 KB) in shared memory. Threads
-// load the rows coalesced and store each sample at its bit-reversed
-// position, run the log2(N) decimation-in-time radix-2 stages in shared
-// memory (one barrier per stage; each thread owns N * rows / 2 / 256
-// butterflies per stage), and store coalesced with the 1/sqrt(N) scale.
-// Twiddles w_k = exp(-2 pi i k / N) for k < N/2 come from float64 cast to
-// float32 (computed by the wrapper) and are conjugated for the inverse.
-// K3 and K5 are one kernel: K3 is its case of contiguous rows and no CP.
+// Bound on this card: memory. A row reads and writes 8 B a sample against
+// 5 N log2 N flops, ~5 flops a byte at N = 256, far under the f32 ridge
+// (67 TFLOP/s / 3.35 TB/s = 20): at C3 ([114912, 256]) 16 B a sample is
+// 0.1405 ms at 3.35 TB/s. The previous body (a radix-2 FFT in shared
+// memory: a bit-reversed scatter on the load, log2 N stages of one
+// butterfly a thread between barriers, the twiddle table copied into
+// every block) ran K3 at C3 in 0.454 ms and K5 RX at c3_pallas in 0.479
+// (torch.fft.fft 0.338 and 0.359; NVIDIA H100 80GB HBM3, 700 W): ~150 B
+// of shared-memory traffic a sample held it at 31% of its bound.
+//
+// Design: a self-sorting Stockham FFT with the data in registers. An
+// N-point transform (N >= 32) is shared by T = N / 16 threads, thread t
+// holding the 16 samples t + T m (m < 16) in registers; a block of 256
+// threads holds 4096 / N transforms. The plan is a compile-time constant
+// per log2 N: radix-16 passes, then one pass of the remaining radix
+// (32 = 16x2, 64 = 16x4, 128 = 16x8, 256 = 16x16, 512 = 16x16x2,
+// 1024 = 16x16x4, 2048 = 16x16x8; N <= 16 is one pass a thread). Each
+// pass is E / R radix-R DFTs a thread, written out in registers (16 as
+// 4x4, 8 as 4x2; the +-i rotations swaps and sign flips, the (1 +- i) /
+// sqrt 2 ones an add and a scale), after its inputs are multiplied by
+// the pass's twiddles. Between two passes the transform goes once
+// through shared memory: every pass reads sample t + T m of thread t,
+// so the first pass loads straight from device memory (all 16 loads
+// issued before the first use, neighbouring threads on neighbouring
+// addresses) and the last stores in natural order, coalesced, with the
+// 1/sqrt N scale folded in; there is no bit reversal. The exchange pads
+// one float2 every 16 (index i at i + i / 16), which keeps both the
+// strided writes (stride 16 in the first pass) and the reads free of bank
+// conflicts for every plan. N = 256 is 2 passes, 1 exchange and 1
+// barrier; N = 1024 3 passes, 2 exchanges and 3 barriers. Twiddles: the
+// wrapper's table (kernels/fft.py twiddle_table) holds, for each pass
+// after the first, exp(-2 pi i q r / (NS R)) at [(r - 1) NS + q] (NS the
+// points already transformed, q < NS, 0 < r < R), from float64 cast to
+// complex64, read through __ldg (coalesced, L1-resident). The inverse
+// conjugates its input and output; no __sincosf.
+//
+// Why this plan: 16 samples a thread is the widest radix whose DFT stays
+// in registers with 2 blocks an SM or more (ptxas: 78 registers at
+// N = 256, so 3 blocks; 116-126 at 512-2048, so 2; no spills), and with
+// 16 a thread one padding serves every plan. Measured by chip_smoke.py
+// (NVIDIA H100 80GB HBM3, 700 W), in-kernel: K3 at C3 0.160 ms (88% of
+// its bound; the previous body 0.429 in the same run), K5 RX at
+// c3_pallas 0.163, both at the time of cuFFT's own transform
+// (torch.fft.fft with norm="backward", 0.160 and 0.165) and half that of
+// torch.fft.fft(norm="ortho"), 0.323 and 0.327, which scales in a second
+// pass. At C4 (N = 1024, [3808, 1024]) 0.025 ms, 74% of the bound, where
+// cuFFT's transform takes 0.024: the same share as N = 256 at the same
+// bytes (c5_sharded, 0.023), so what is left there is the run's size
+// (ramp and tail over ~3.6 waves of blocks), not the plan. N <= 32, which
+// no path runs, is not tuned: there a warp spans 16 or more transforms,
+// so each load instruction uses part of every sector it touches.
 #include <cmath>
 
 #include "ofdm_kernels.h"
@@ -34,98 +76,229 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlockSamples = 2048;   // samples (all rows) per block
+constexpr int kMaxLog2N = 11;
 
-// Twiddles for one transform direction into shared memory.
-__device__ __forceinline__ void load_twiddles(float2* tw,
-                                              const float2* twiddles,
-                                              int half_n, int inverse) {
-    for (int k = threadIdx.x; k < half_n; k += kThreads) {
-        float2 w = twiddles[k];
-        if (inverse) w.y = -w.y;
-        tw[k] = w;
+constexpr float kR2 = 0.70710678118654752f;    // 1 / sqrt(2)
+constexpr float kC16 = 0.92387953251128674f;   // cos(pi / 8)
+constexpr float kS16 = 0.38268343236508978f;   // sin(pi / 8)
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+    return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+    return make_float2(a.x - b.x, a.y - b.y);
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+    return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// v * exp(-2 pi i e / r) for r dividing 16; e and r are constants once the
+// loops around the call are unrolled, so the switch folds away.
+__device__ __forceinline__ float2 rotate(float2 v, int e, int r) {
+    const int k = (e * (16 / r)) & 15;         // sixteenths of a turn
+    switch (k) {
+    case 0: return v;
+    case 4: return make_float2(v.y, -v.x);                        // -i
+    case 8: return make_float2(-v.x, -v.y);                       // -1
+    case 12: return make_float2(-v.y, v.x);                       // +i
+    case 2: return make_float2(kR2 * (v.x + v.y), kR2 * (v.y - v.x));
+    case 6: return make_float2(kR2 * (v.y - v.x), -kR2 * (v.x + v.y));
+    case 10: return make_float2(-kR2 * (v.x + v.y), kR2 * (v.x - v.y));
+    case 14: return make_float2(kR2 * (v.x - v.y), kR2 * (v.x + v.y));
+    default: break;
+    }
+    // odd sixteenths: cos and sin of 2 pi k / 16 from cos and sin of pi/8
+    float c, s;
+    switch (k) {
+    case 1: c = kC16; s = kS16; break;
+    case 3: c = kS16; s = kC16; break;
+    case 5: c = -kS16; s = kC16; break;
+    case 7: c = -kC16; s = kS16; break;
+    case 9: c = -kC16; s = -kS16; break;
+    case 11: c = -kS16; s = -kC16; break;
+    case 13: c = kS16; s = -kC16; break;
+    default: c = kC16; s = -kS16; break;       // 15
+    }
+    return make_float2(v.x * c + v.y * s, v.y * c - v.x * s);
+}
+
+// In-place DFT of a[0..R), natural order in and out, in registers.
+template <int R>
+struct Dft;
+
+template <>
+struct Dft<2> {
+    static __device__ __forceinline__ void run(float2 (&a)[2]) {
+        const float2 d = csub(a[0], a[1]);
+        a[0] = cadd(a[0], a[1]);
+        a[1] = d;
+    }
+};
+
+template <>
+struct Dft<4> {
+    static __device__ __forceinline__ void run(float2 (&a)[4]) {
+        const float2 s0 = cadd(a[0], a[2]), d0 = csub(a[0], a[2]);
+        const float2 s1 = cadd(a[1], a[3]), d1 = csub(a[1], a[3]);
+        const float2 d1i = make_float2(d1.y, -d1.x);          // -i d1
+        a[0] = cadd(s0, s1);
+        a[2] = csub(s0, s1);
+        a[1] = cadd(d0, d1i);
+        a[3] = csub(d0, d1i);
+    }
+};
+
+// R = 4 * R2 (8, 16): n = R2 n1 + n2, k = k1 + 4 k2; DFT-4 over n1, the
+// rotations exp(-2 pi i n2 k1 / R), DFT-R2 over n2.
+template <int R>
+struct Dft {
+    static __device__ __forceinline__ void run(float2 (&a)[R]) {
+        constexpr int R2 = R / 4;
+        float2 b[R2][4];
+#pragma unroll
+        for (int n2 = 0; n2 < R2; ++n2) {
+            float2 c[4];
+#pragma unroll
+            for (int n1 = 0; n1 < 4; ++n1) c[n1] = a[R2 * n1 + n2];
+            Dft<4>::run(c);
+#pragma unroll
+            for (int k1 = 0; k1 < 4; ++k1) b[n2][k1] = rotate(c[k1], n2 * k1, R);
+        }
+#pragma unroll
+        for (int k1 = 0; k1 < 4; ++k1) {
+            float2 d[R2];
+#pragma unroll
+            for (int n2 = 0; n2 < R2; ++n2) d[n2] = b[n2][k1];
+            Dft<R2>::run(d);
+#pragma unroll
+            for (int k2 = 0; k2 < R2; ++k2) a[k1 + 4 * k2] = d[k2];
+        }
+    }
+};
+
+// The plan for N = 2^L: E samples a thread, T threads a transform, passes
+// of radix 16 and then the remaining radix.
+template <int L>
+struct Plan {
+    static constexpr int N = 1 << L;
+    static constexpr int E = N < 16 ? N : 16;
+    static constexpr int T = N / E;
+    static constexpr int kPasses = (L + 3) / 4;
+    static constexpr int kPerBlock = kThreads / T;     // transforms a block
+    static constexpr int kStride = N + N / 16;         // padded, in shared
+    __host__ __device__ static constexpr int radix(int p) {
+        return p + 1 < kPasses ? 16 : N >> (4 * (kPasses - 1));
+    }
+    __host__ __device__ static constexpr int ns(int p) { return 1 << (4 * p); }
+    // the pass's twiddles in the table: 15 NS for each earlier radix-16
+    // pass after the first
+    __host__ __device__ static constexpr int tw_offset(int p) {
+        return p <= 1 ? 0 : tw_offset(p - 1) + 15 * ns(p - 1);
+    }
+};
+
+// Pass p: thread t's butterflies j = t + b T (b < E / R) take v[b + r E/R],
+// r < R, times exp(-2 pi i (j % NS) r / (NS R)), into a DFT-R.
+template <int L, int P>
+__device__ __forceinline__ void fft_pass(float2 (&v)[Plan<L>::E], int t,
+                                         const float2* __restrict__ tw) {
+    using Pl = Plan<L>;
+    constexpr int E = Pl::E, T = Pl::T, R = Pl::radix(P), NS = Pl::ns(P);
+#pragma unroll
+    for (int b = 0; b < E / R; ++b) {
+        float2 a[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) a[r] = v[b + r * (E / R)];
+        if constexpr (NS > 1) {
+            const float2* w = tw + Pl::tw_offset(P) + (t + b * T) % NS;
+#pragma unroll
+            for (int r = 1; r < R; ++r) a[r] = cmul(a[r], __ldg(w + (r - 1) * NS));
+        }
+        Dft<R>::run(a);
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[b + r * (E / R)] = a[r];
     }
 }
 
-// Rows [r0, r0 + nrows) of n = 2^log2n samples, row r starting at
-// x[r * in_stride + in_off], into buf in bit-reversed order.
-__device__ __forceinline__ void load_bitrev(float2* buf,
-                                            const float2* __restrict__ x,
-                                            int r0, int nrows, int log2n,
-                                            int in_stride, int in_off) {
-    const int n = 1 << log2n;
-    const int total = nrows << log2n;
-    for (int i = threadIdx.x; i < total; i += kThreads) {
-        const int row = i >> log2n;
-        const int k = i & (n - 1);
-        const int rev = static_cast<int>(__brev(static_cast<unsigned>(k)) >>
-                                         (32 - log2n));
-        buf[(row << log2n) + rev] =
-            x[static_cast<size_t>(r0 + row) * in_stride + in_off + k];
+// After pass p: output r of butterfly j goes to (j / NS) NS R + j % NS +
+// r NS of the transform (Stockham's self-sorting order); thread t then
+// reads back samples t + T m. s is the transform's padded shared row.
+template <int L, int P>
+__device__ __forceinline__ void exchange(float2 (&v)[Plan<L>::E], int t,
+                                         float2* s) {
+    using Pl = Plan<L>;
+    constexpr int E = Pl::E, T = Pl::T, R = Pl::radix(P), NS = Pl::ns(P);
+#pragma unroll
+    for (int b = 0; b < E / R; ++b) {
+        const int j = t + b * T;
+        const int d = (j / NS) * NS * R + j % NS;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int i = d + r * NS;
+            s[i + (i >> 4)] = v[b + r * (E / R)];
+        }
     }
-}
-
-// The log2(n) radix-2 stages over `total` samples (whole rows) of buf,
-// bit-reversed order in, natural order out. Starts and ends with a barrier.
-__device__ __forceinline__ void radix2_stages(float2* buf, const float2* tw,
-                                              int total, int log2n) {
-    const int n = 1 << log2n;
-    const int half_n = n >> 1;
-    const int butterflies = total >> 1;
     __syncthreads();
-    for (int s = 1; s <= log2n; ++s) {
-        const int half = 1 << (s - 1);
-        const int tw_step = n >> s;               // N / len
-        for (int b = threadIdx.x; b < butterflies; b += kThreads) {
-            const int row = b >> (log2n - 1);
-            const int j = b & (half_n - 1);
-            const int k = j & (half - 1);
-            const int i0 = (row << log2n) + ((j >> (s - 1)) << s) + k;
-            const int i1 = i0 + half;
-            const float2 w = tw[k * tw_step];
-            const float2 a = buf[i0];
-            const float2 v = buf[i1];
-            const float2 t = make_float2(w.x * v.x - w.y * v.y,
-                                         w.x * v.y + w.y * v.x);
-            buf[i0] = make_float2(a.x + t.x, a.y + t.y);
-            buf[i1] = make_float2(a.x - t.x, a.y - t.y);
-        }
-        __syncthreads();
+#pragma unroll
+    for (int m = 0; m < E; ++m) {
+        const int i = t + T * m;
+        v[m] = s[i + (i >> 4)];
     }
 }
 
-// Row r's input is x[r * in_stride + in_off, + n); its output row is
-// y[r * (n + cp), + n + cp): the transform's last cp samples, then all n.
-// K3 is the case in_stride = n, in_off = 0, cp = 0.
-__global__ void __launch_bounds__(kThreads)
-fft_cp_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-              const float2* __restrict__ twiddles, int rows, int log2n,
-              int inverse, float scale, int in_stride, int in_off, int cp) {
-    __shared__ float2 buf[kBlockSamples];
-    __shared__ float2 tw[kBlockSamples / 2];
-    const int n = 1 << log2n;
-    const int rows_per_block = kBlockSamples >> log2n;
-    const int r0 = blockIdx.x * rows_per_block;
-    const int nrows = min(rows_per_block, rows - r0);
-
-    load_twiddles(tw, twiddles, n >> 1, inverse);
-    load_bitrev(buf, x, r0, nrows, log2n, in_stride, in_off);
-    radix2_stages(buf, tw, nrows << log2n, log2n);
-    const int out_len = n + cp;
-    const size_t base = static_cast<size_t>(r0) * out_len;
-    if (cp == 0) {                    // K3, K5 RX: no row arithmetic
-        for (int i = threadIdx.x; i < nrows << log2n; i += kThreads) {
-            const float2 v = buf[i];
-            y[base + i] = make_float2(v.x * scale, v.y * scale);
-        }
-        return;
+template <int L, int P>
+__device__ __forceinline__ void fft_passes(float2 (&v)[Plan<L>::E], int t,
+                                           float2* s,
+                                           const float2* __restrict__ tw) {
+    fft_pass<L, P>(v, t, tw);
+    if constexpr (P + 1 < Plan<L>::kPasses) {
+        if constexpr (P > 0) __syncthreads();    // the last reads are done
+        exchange<L, P>(v, t, s);
+        fft_passes<L, P + 1>(v, t, s, tw);
     }
-    for (int i = threadIdx.x; i < nrows * out_len; i += kThreads) {
-        const int row = i / out_len;
-        const int j = i - row * out_len;
-        const int src = j < cp ? j + n - cp : j - cp;
-        const float2 v = buf[(row << log2n) + src];
-        y[base + i] = make_float2(v.x * scale, v.y * scale);
+}
+
+// Row r's input is x[r * in_stride + in_off, + N); its output row is
+// y[r * (N + cp), + N + cp): the transform's last cp samples, then all N.
+// K3 is the case in_stride = N, in_off = 0, cp = 0.
+template <int L>
+__global__ void __launch_bounds__(kThreads, 2)
+fft_cp_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+              const float2* __restrict__ tw, int rows, int inverse,
+              float scale, int in_stride, int in_off, int cp) {
+    using Pl = Plan<L>;
+    constexpr int N = Pl::N, E = Pl::E, T = Pl::T;
+    __shared__ float2 smem[Pl::kPasses > 1 ? Pl::kPerBlock * Pl::kStride : 1];
+    const int t = threadIdx.x % T;
+    const int tr = threadIdx.x / T;
+    const int row = blockIdx.x * Pl::kPerBlock + tr;
+    const bool live = row < rows;    // the last block's spare transforms
+                                     // still meet every barrier
+    const float conj = inverse ? -1.0f : 1.0f;
+    float2 v[E];
+    if (live) {
+        const float2* src =
+            x + static_cast<size_t>(row) * in_stride + in_off + t;
+#pragma unroll
+        for (int m = 0; m < E; ++m) v[m] = src[m * T];
+    } else {
+#pragma unroll
+        for (int m = 0; m < E; ++m) v[m] = make_float2(0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int m = 0; m < E; ++m) v[m].y *= conj;
+    fft_passes<L, 0>(v, t, smem + tr * Pl::kStride, tw);
+    if (!live) return;
+    float2* dst = y + static_cast<size_t>(row) * (N + cp) + cp;
+    const float im = conj * scale;
+#pragma unroll
+    for (int m = 0; m < E; ++m) {
+        const int k = t + T * m;
+        const float2 o = make_float2(v[m].x * scale, v[m].y * im);
+        dst[k] = o;
+        if (k >= N - cp) dst[k - N] = o;          // the TX prefix
     }
 }
 
@@ -134,9 +307,34 @@ float ortho_scale(int log2n) {
         1.0 / std::sqrt(static_cast<double>(1 << log2n)));
 }
 
-int blocks_for(int rows, int log2n) {
-    const int rows_per_block = kBlockSamples >> log2n;
-    return (rows + rows_per_block - 1) / rows_per_block;
+template <int L>
+int launch(const float2* x, float2* y, const float2* tw, int rows,
+           int inverse, int in_stride, int in_off, int cp,
+           cudaStream_t stream) {
+    constexpr int per = Plan<L>::kPerBlock;
+    fft_cp_kernel<L><<<(rows + per - 1) / per, kThreads, 0, stream>>>(
+        x, y, tw, rows, inverse, ortho_scale(L), in_stride, in_off, cp);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int launch_any(const float2* x, float2* y, const float2* tw, int rows,
+               int log2n, int inverse, int in_stride, int in_off, int cp,
+               void* stream) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (log2n) {
+    case 1: return launch<1>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 2: return launch<2>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 3: return launch<3>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 4: return launch<4>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 5: return launch<5>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 6: return launch<6>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 7: return launch<7>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 8: return launch<8>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 9: return launch<9>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 10: return launch<10>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 11: return launch<11>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 }  // namespace
@@ -144,26 +342,19 @@ int blocks_for(int rows, int log2n) {
 OFDM_API int ofdm_fft(const float2* x, float2* y, const float2* twiddles,
                       int rows, int log2n, int inverse, void* stream) {
     if (rows <= 0) return 0;
-    if (log2n < 1 || (1 << log2n) > kBlockSamples)
+    if (log2n < 1 || log2n > kMaxLog2N)
         return static_cast<int>(cudaErrorInvalidValue);
-    fft_cp_kernel<<<blocks_for(rows, log2n), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        x, y, twiddles, rows, log2n, inverse, ortho_scale(log2n), 1 << log2n,
-        0, 0);
-    return static_cast<int>(cudaGetLastError());
+    return launch_any(x, y, twiddles, rows, log2n, inverse, 1 << log2n, 0, 0,
+                      stream);
 }
 
 OFDM_API int ofdm_fft_cp(const float2* x, float2* y, const float2* twiddles,
                          int rows, int log2n, int inverse, int in_stride,
                          int in_off, int cp, void* stream) {
     if (rows <= 0) return 0;
-    if (log2n < 1 || (1 << log2n) > kBlockSamples || cp < 0
-            || cp > (1 << log2n) || in_off < 0
-            || in_stride < in_off + (1 << log2n))
+    if (log2n < 1 || log2n > kMaxLog2N || cp < 0 || cp > (1 << log2n)
+            || in_off < 0 || in_stride < in_off + (1 << log2n))
         return static_cast<int>(cudaErrorInvalidValue);
-    fft_cp_kernel<<<blocks_for(rows, log2n), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-        x, y, twiddles, rows, log2n, inverse, ortho_scale(log2n), in_stride,
-        in_off, cp);
-    return static_cast<int>(cudaGetLastError());
+    return launch_any(x, y, twiddles, rows, log2n, inverse, in_stride, in_off,
+                      cp, stream);
 }

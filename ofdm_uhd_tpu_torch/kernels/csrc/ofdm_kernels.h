@@ -25,8 +25,9 @@ OFDM_API int ofdm_viterbi_windowed(const float* llr, uint8_t* bits,
                                    int batch, int n, int windows, int l,
                                    int ov, int e, void* stream);
 
-// Orthonormal radix-2 FFT/IFFT along rows: x, y [rows, 2^log2n] complex64
-// (float2), twiddles [2^log2n / 2] = exp(-2 pi i k / 2^log2n).
+// Orthonormal FFT/IFFT along rows (a Stockham FFT in registers, log2n in
+// 1..11): x, y [rows, 2^log2n] complex64 (float2), twiddles: the plan's
+// table (kernels/fft.py twiddle_table; empty for log2n <= 4).
 OFDM_API int ofdm_fft(const float2* x, float2* y, const float2* twiddles,
                       int rows, int log2n, int inverse, void* stream);
 

@@ -9,12 +9,15 @@ plain versions.
       [..., n] -> the IFFT with its last cp samples prepended, [..., n+cp].
 The K5 forms take power-of-two n up to 512, where the reference routes
 them (ofdm_uhd_tpu/phy/frame.py:60-65,101-106). CUDA source: csrc/fft.cu,
-one shared-memory radix-2 FFT kernel for all three (K3 is its case of
-contiguous rows and no CP); K5 reads the strip in place (a row stride
-and an offset) and writes the CP with the row, so neither a contiguous
-copy of the windows nor a concatenation pass remains. The plain versions
-are torch.fft with norm='ortho' (and torch.cat); the kernels never call
-cuFFT.
+one kernel for all three (K3 is its case of contiguous rows and no CP): a
+self-sorting Stockham FFT with each transform's samples in registers,
+radix-16 passes and one pass of the remaining radix (`plan`), one
+shared-memory exchange between two passes and no bit reversal; K5 reads
+the strip in place (a row stride and an offset) and writes the CP from the
+same registers, so neither a contiguous copy of the windows nor a
+concatenation pass remains. The wrapper hands the kernel its twiddle table
+(`twiddle_table`). The plain versions are torch.fft with norm='ortho' (and
+torch.cat); the kernels never call cuFFT.
 """
 
 from __future__ import annotations
@@ -35,12 +38,32 @@ def fft_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     return f(x, norm="ortho").to(torch.complex64)
 
 
+def plan(n: int) -> list[int]:
+    """The kernel's passes for an n-point transform: radix 16 while more
+    than one pass remains, then the remaining radix (256: [16, 16]; 1024:
+    [16, 16, 4]; n <= 16: [n])."""
+    passes = (n.bit_length() + 2) // 4
+    return [16] * (passes - 1) + [n >> (4 * (passes - 1))]
+
+
+def twiddle_table(n: int) -> np.ndarray:
+    """The twiddles of every pass after the first, in the order the kernel
+    reads them: for the pass of radix R after NS points are transformed,
+    exp(-2 pi i q r / (NS R)) at [(r - 1) NS + q], 0 < r < R, q < NS, from
+    float64 cast to complex64 (empty for a one-pass plan)."""
+    parts, ns = [], 1
+    for p, radix in enumerate(plan(n)):
+        if p > 0:
+            k = (np.arange(1, radix)[:, None] * np.arange(ns)
+                 * (n // (ns * radix)))
+            parts.append(np.exp(-2j * np.pi * k / n).ravel())
+        ns *= radix
+    return np.concatenate(parts or [np.zeros(0)]).astype(np.complex64)
+
+
 @functools.lru_cache(maxsize=16)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """exp(-2 pi i k / n), k < n/2, in float64 then cast to complex64."""
-    k = np.arange(n // 2)
-    w = np.exp(-2j * np.pi * k / n).astype(np.complex64)
-    return torch.from_numpy(w).to(device)
+    return torch.from_numpy(twiddle_table(n)).to(device)
 
 
 def _fft_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:

@@ -21,8 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
-from ofdm_uhd_tpu_torch.kernels import (banded, extract, fir,  # noqa: E402
-                                        policy, sync)
+from ofdm_uhd_tpu_torch.kernels import (banded, extract, fft,  # noqa: E402
+                                        fir, policy, sync)
 from ofdm_uhd_tpu_torch.research import deframe, fir_ilv, shift  # noqa: E402
 from ofdm_uhd_tpu_torch.phy.tables import resample_filter  # noqa: E402
 
@@ -380,3 +380,59 @@ def test_tiers_bounds():
     less, _ = chip_smoke.bound(*chip_smoke.work_extract(4_436_068, ds,
                                                         4032))
     assert less < ms
+
+
+def test_fft_holds_rehearsal(on_host, monkeypatch):
+    """The FFT checks of a C3-shaped path at a tiny size, the wrappers
+    patched to their plain versions: K3 forward and inverse and K5 RX held
+    against their plain versions, K5 on contiguous windows equal to K3,
+    K5 TX against ifft + cat, each with its in-kernel time taken in turns
+    with torch.fft's (ortho) and torch.fft's unscaled call beside it; the
+    inverse check counts under the fft kernel."""
+    from ofdm_uhd_tpu_torch.core.spec import config
+    spec = config("c3")
+
+    def fft_cp(kernel, x, n, start, cp, inverse):
+        policy.count_launch(kernel)
+        if inverse:
+            return fft.ifft_cp_plain(x, cp)
+        return fft.cp_strip_fft_plain(x, start, n)
+    monkeypatch.setattr(fft, "_fft_cuda", _counted("fft", fft.fft_plain))
+    monkeypatch.setattr(fft, "_fft_cp_cuda", fft_cp)
+    syms = _x(21, 2, 3, spec.sym_len)
+    ins = {"cap": _x(22, 2, 600), "llr": None, "syms": syms,
+           "start": spec.cp - 4, "grid": _x(23, 2, 3, spec.n_sc)}
+    res = chip_smoke.phase_kernels(torch, spec, "c3", ins, ("fft", "cpfft"))
+    res.update(chip_smoke.phase_kernel_ifftcp(torch, spec, "c3", ins["grid"]))
+    assert list(res) == ["fft", "fft_inverse", "cpfft", "ifftcp"]
+    for v in res.values():
+        assert v["max_abs_err"] <= 1e-5 and v["bound_by"] == "bytes"
+        # None where the host took longer to enqueue than the spin lasted
+        assert len(v["device_ms_turns"]) == 2
+        assert len(v["library_device_ms_turns"]) == 2
+        assert {"device_ms", "library_device_ms",
+                "library_unscaled_ms"} <= set(v)
+    assert res["fft"]["shape"] == [2, 3, spec.n_sc]
+    assert res["ifftcp"]["library_ms"] is None
+    assert res["fft_inverse"]["library_ms"] is not None
+    assert chip_smoke.held_kernel("fft_inverse") == "fft"
+
+
+def test_kernel_registers_reads_ptxas_output():
+    """phase_build's table of registers and spills from `-Xptxas -v`: each
+    entry function by its short name, a template's int argument kept."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__e59356"
+        "06_6_fft_cu_ofdm_fft13fft_cp_kernelILi10EEEvPK6float2PS1_S3_iifiii'"
+        " for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN38_GLOBAL__N__e5935606_"
+        "6_fft_cu_ofdm_fft13fft_cp_kernelILi10EEEvPK6float2PS1_S3_iifiii",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 122 registers, used 1 barriers, 34816 bytes "
+        "smem",
+        "ptxas info    : Compiling entry function '_Z14viterbi_kernelPKfPjPh"
+        "ii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers"])
+    assert chip_smoke.kernel_registers(log) == {
+        "fft_cp_kernel<10>": [122, 12], "viterbi_kernel": [40, 0]}

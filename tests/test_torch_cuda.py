@@ -96,10 +96,19 @@ def test_viterbi_decode_algorithms_on_card(dev):
     assert torch.equal(viterbi.viterbi_fused(short), want)
 
 
-@pytest.mark.parametrize("n", [64, 256, 1024, 2048])
+# every power of two each FFT kernel takes (K3 up to 2048, K5 up to 512)
+FFT_NS = [1 << k for k in range(1, 12)]
+CP_NS = [n for n in FFT_NS if n <= fft.MAX_CP_N]
+
+
+@pytest.mark.parametrize("rows", [1, 77, 1001])
+@pytest.mark.parametrize("n", FFT_NS)
 @pytest.mark.parametrize("inverse", [False, True])
-def test_fft_kernel_close(dev, n, inverse):
-    x = torch.randn((77, n), dtype=torch.complex64, generator=_gen(n),
+def test_fft_kernel_close(dev, n, inverse, rows):
+    """K3 at every n, both directions, within 1e-5 of max|y|: one row, 77
+    rows, and 1001 rows (several blocks, the last one partial, for every
+    plan's transforms per block)."""
+    x = torch.randn((rows, n), dtype=torch.complex64, generator=_gen(n),
                     device=dev)
     f = fft.ifft if inverse else fft.fft
     got = f(x)
@@ -107,23 +116,31 @@ def test_fft_kernel_close(dev, n, inverse):
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
-@pytest.mark.parametrize("shift", [0, 4])
-@pytest.mark.parametrize("n,cp", [(64, 16), (256, 32), (512, 64)])
-def test_cp_strip_fft_kernel_close(dev, n, cp, shift):
-    """K5 RX on odd row counts, in place on the symbol rows, and on a
-    non-contiguous batch view (every other frame)."""
-    x = torch.randn((13, 7, n + cp), dtype=torch.complex64,
-                    generator=_gen(n + shift), device=dev)
-    start = cp - shift
-    for rows in (x, x[::2], x[:, 1:6]):
+@pytest.mark.parametrize("odd", [0, 1])
+@pytest.mark.parametrize("n", CP_NS)
+def test_cp_strip_fft_kernel_close(dev, n, odd):
+    """K5 RX at every n, from an even and an odd start, on odd row counts:
+    on contiguous symbol rows, in place on rows whose stride exceeds
+    in_len, and on non-contiguous batch views (every other frame, a slice
+    of each frame's symbols)."""
+    cp = max(n // 8, 2)
+    in_len = n + cp
+    x = torch.randn((13, 7, in_len + 5), dtype=torch.complex64,
+                    generator=_gen(n + odd), device=dev)
+    start = cp - odd
+    for rows in (x[..., :in_len].contiguous(), x[..., :in_len],
+                 x[::2, :, :in_len], x[:, 1:6, :in_len]):
         policy.reset_launches()
         got = fft.cp_strip_fft(rows, start, n)
         assert policy.launches()["cpfft"] == 1
         _within(got, fft.cp_strip_fft_plain(rows, start, n))
 
 
-@pytest.mark.parametrize("n,cp", [(64, 16), (256, 32), (512, 64)])
-def test_ifft_cp_kernel_close(dev, n, cp):
+@pytest.mark.parametrize("cp_of", ["0", "1", "n/4", "n"])
+@pytest.mark.parametrize("n", CP_NS)
+def test_ifft_cp_kernel_close(dev, n, cp_of):
+    """K5 TX at every n with no prefix, one sample, a quarter and all n."""
+    cp = {"0": 0, "1": 1, "n/4": n // 4, "n": n}[cp_of]
     g = torch.randn((11, 3, n), dtype=torch.complex64, generator=_gen(n),
                     device=dev)
     for rows in (g, g[:, ::2]):
@@ -132,6 +149,19 @@ def test_ifft_cp_kernel_close(dev, n, cp):
         assert policy.launches()["ifftcp"] == 1
         _within(got, fft.ifft_cp_plain(rows, cp))
         assert torch.equal(got[..., :cp], got[..., n:])
+
+
+@pytest.mark.parametrize("n", CP_NS)
+def test_cp_strip_fft_equals_fft_bit_for_bit(dev, n):
+    """K3 and K5 RX run one body: K5 on contiguous windows, and in place
+    on the symbol rows, gives K3's output on those windows exactly."""
+    cp = max(n // 8, 2)
+    syms = torch.randn((9, 5, n + cp), dtype=torch.complex64,
+                       generator=_gen(3 * n), device=dev)
+    w = syms[..., cp - 1:cp - 1 + n].contiguous()
+    want = fft.fft(w)
+    assert torch.equal(fft.cp_strip_fft(w, 0, n), want)
+    assert torch.equal(fft.cp_strip_fft(syms, cp - 1, n), want)
 
 
 @pytest.mark.parametrize("l", [32, 128])
