@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's six paths through their user entry points, and the
-filter tiers and frame extractor that no path runs, in phases; each prints
-its findings on a line of its own:
+Drives the port's paths through their user entry points, and the filter
+tiers and frame extractor that no path runs, in phases; each prints its
+findings on a line of its own:
 
   C3, the capture-mode RX chain `RxPipeline(config("c3")).rx_capture_sc16(
       iq, max_frames)` at the size the repository's bench.py judges (8
@@ -75,6 +75,18 @@ its findings on a line of its own:
       with the exact K7 and K11 beside K8 and K13 at C4 in turns (the
       four-way A/B of exact float32 filter designs), K9 beside K8's S&C and
       K2 beside K12 (equal on offsets in [0, n]).
+  big_nsc, RxPipeline.rx_capture_sc16 at n_sc = 4096, 16384 and 32768
+      (QPSK, CP n/8, 2 data symbols, 4 captures x 4 frames built by the
+      port's TX on the card): K3 in one launch at 4096 and by its
+      four-step route above (two K3 launches, three of the
+      transpose-twiddle kernel), the S&C tile kernel at l = 2048 and its
+      levels route at 8192 and 16384 (leaves, log2 l levels, epilogue),
+      each route kernel against its plain step; then K3 alone at N =
+      4096 .. 65536 beside torch.fft.fft.
+  Wherever the windowed Viterbi kernel (K4w, one thread a window) is
+  held, its previous body (one warp a window, which no path runs) is held
+  beside it and both are timed in turns, with their ACS rates; the warp
+  body has one counted run of its own on c3_pallas's LLRs (k4w_ab).
 
   1. device:  a CUDA card must be present; prints the card's name and
               power limit as nvidia-smi reports them;
@@ -171,6 +183,21 @@ KERNEL_INFO = {
                 "ofdm_uhd_tpu/kernels/pallas_viterbi.py:324"),
     "viterbi_windowed": ("ofdm_uhd_tpu_torch/kernels/csrc/viterbi.cu",
                          "ofdm_uhd_tpu/kernels/pallas_viterbi.py:285"),
+    # K4w's previous body (one warp a window), the A/B baseline no path
+    # runs; held and timed in turns beside K4w wherever K4w is held
+    "viterbi_windowed_warp": ("ofdm_uhd_tpu_torch/kernels/csrc/viterbi.cu",
+                              "ofdm_uhd_tpu/kernels/pallas_viterbi.py:285"),
+    # K3's four-step route above 4096 points (big_nsc): its transposes
+    "fft_transpose": ("ofdm_uhd_tpu_torch/kernels/csrc/fft.cu",
+                      "ofdm_uhd_tpu/kernels/pallas_fft.py:185"),
+    # the S&C levels route above l = 4096 (big_nsc): K6's (and K9's) sums
+    # through device memory
+    "sc_leaves": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
+                  "ofdm_uhd_tpu/kernels/pallas_scfront.py:103"),
+    "sc_level": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
+                 "ofdm_uhd_tpu/kernels/pallas_scfront.py:103"),
+    "sc_out": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
+               "ofdm_uhd_tpu/kernels/pallas_scfront.py:103"),
     "fir": ("ofdm_uhd_tpu_torch/kernels/csrc/fir.cu",
             "ofdm_uhd_tpu/kernels/pallas_fir_mxu.py:154"),
     "interp": ("ofdm_uhd_tpu_torch/kernels/csrc/fir.cu",
@@ -240,10 +267,23 @@ SHIFT_SC_L = 128
 # the tiers phase's launches (K8, K13, K12); no slice may launch any of them
 TIERS_PATH = ("banded_fir", "banded_decim", "banded_interp", "banded_sc",
               "ilv_fir", "ilv_decim", "ilv_interp", "deframe")
-OFF_PATH = SHIFT_PATH + TIERS_PATH
+# K4w's warp body, the A/B baseline: no slice may launch it either
+OFF_PATH = SHIFT_PATH + TIERS_PATH + ("viterbi_windowed_warp",)
 # scripts/tpu_session.py:133-150's FIR rows: seed-0 complex64 [16, 8192]
 # through the 193-tap FIR, the 8x interpolation and the 8x decimation
 TIERS_SESSION = (16, 8192)
+
+
+# big_nsc: RxPipeline at FFT sizes above the chain's own, QPSK, CP n/8, 2
+# data symbols (LTE / NR carriers run 2048-4096 points, DVB-T2's 16K and
+# 32K modes 16384 and 32768): K3 in one launch at 4096, the four-step
+# route and the S&C levels route above; BIG_CAPS captures of BIG_FRAMES
+# frames each (gap 300, build_capture's default channel, seeds 0..)
+BIG_NSC = (4096, 16384, 32768)
+BIG_CAPS, BIG_FRAMES = 4, 4
+# K3 alone at N = 4096 .. 65536, seed-0 rows of BIG_FFT_SAMPLES in all
+BIG_FFT_NS = tuple(1 << k for k in range(12, 17))
+BIG_FFT_SAMPLES = 1 << 23
 
 
 class SmokeFailure(Exception):
@@ -558,7 +598,7 @@ def phase_stages(torch, spec, label, x, max_frames, path=C3_PATH,
         ins["dec"] = dec
     caps, n = cap.shape
     nd = n - spec.n_sc + 1
-    sc_step = "scfront" if "scfront" in path else "sccorr+metric"
+    sc_step = "sccorr+metric" if "sccorr" in path else "scfront"
     p, m = step(sc_step, lambda: sync.sc_front(spec, cap))
 
     def candidates():
@@ -855,8 +895,9 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
                     work_viterbi(b, n2 // 2, b * n2 // 2))
 
     def hold_viterbi_windowed():
-        # K4w at the fused decoder's 256/64 windows: bit-exact
-        return hold_windowed(torch, llr, viterbi.FUSED_WINDOW)
+        # K4w at the fused decoder's 256/64 windows: bit-exact, and the
+        # warp baseline beside it
+        return hold_windowed(torch, llr, viterbi.FUSED_WINDOW, label)
 
     holds = {"scfront": hold_scfront, "sccorr": hold_sccorr,
              "localize": hold_localize, "extract": hold_extract,
@@ -865,14 +906,18 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
     res = {}
     for k in names:
         got = holds[k]()
-        res.update(got if k == "fft" else {k: got})
+        res.update(got if k in ("fft", "viterbi_windowed") else {k: got})
     log_kernels(label, res)
     return res
 
 
-def hold_windowed(torch, llr, geometry) -> dict:
+def hold_windowed(torch, llr, geometry, label) -> dict:
     """K4w at `geometry` (window, overlap) against its plain version on
-    llr [B, 2n], bit-exact."""
+    llr [B, 2n], bit-exact, and the warp baseline (its previous body) on
+    the same LLRs, also bit-exact; both in-kernel in turns (K4w, warp,
+    warp, K4w), with each one's ACS rate (state-steps a second: 64 states
+    x windows x e steps over the in-kernel time). Returns
+    {"viterbi_windowed": ..., "viterbi_windowed_warp": ...}."""
     from ofdm_uhd_tpu_torch.kernels import viterbi
 
     def close(k, p):
@@ -880,10 +925,35 @@ def hold_windowed(torch, llr, geometry) -> dict:
         return bad == 0, float(bad)
     b, n = llr.shape[0], llr.shape[1] // 2
     _, e, starts = viterbi.window_geometry(n, *geometry)
-    return held(torch, f"viterbi_windowed {geometry}",
-                lambda: viterbi._viterbi_windowed_cuda(llr, *geometry),
-                lambda: viterbi.viterbi_windowed_plain(llr, *geometry),
-                close, llr.shape, work_viterbi(b, n, b * len(starts) * e))
+
+    def run_k():
+        return viterbi._viterbi_windowed_cuda(llr, *geometry)
+
+    def run_w():
+        return viterbi._viterbi_windowed_warp_cuda(llr, *geometry)
+    res = held(torch, f"viterbi_windowed {geometry}", run_k,
+               lambda: viterbi.viterbi_windowed_plain(llr, *geometry),
+               close, llr.shape, work_viterbi(b, n, b * len(starts) * e))
+    ok, bad = close(run_w(), run_k())
+    check(ok, f"viterbi_windowed_warp {geometry}: {bad} bits differ from "
+          "K4w's")
+    warp = {**res, "max_abs_err": bad, "ms": cuda_ms(torch, run_w)}
+    turns = in_turns(torch, {"kernel": run_k, "warp": run_w},
+                     ("kernel", "warp"))
+    state_steps = 64.0 * b * len(starts) * e
+    for r, name in ((res, "kernel"), (warp, "warp")):
+        got = [t for t in turns[name] if t is not None]
+        r["device_ms"] = statistics.mean(got) if got else None
+        r["device_ms_turns"] = turns[name]
+        r["acs_per_s"] = (state_steps / (r["device_ms"] * 1e-3)
+                          if r["device_ms"] else None)
+    log(f"{label} K4w {geometry} on {list(llr.shape)} ({b * len(starts)} "
+        f"windows of {e} steps), in-kernel in turns: {fmt_turns(turns)} "
+        "ms; ACS rate " + ", ".join(
+            f"{k} {r['acs_per_s']:.3e}" if r["acs_per_s"] else f"{k} none"
+            for k, r in (("K4w", res), ("warp", warp)))
+        + " state-steps/s")
+    return {"viterbi_windowed": res, "viterbi_windowed_warp": warp}
 
 
 def phase_kernel_ifftcp(torch, spec, label, grid) -> dict:
@@ -1161,7 +1231,9 @@ def run_c4_bf16(torch, config, device, c4) -> dict:
 def run_pallas(torch, config, device, name, label, n_caps, n_frames, path,
                **channel) -> dict:
     """A kernel_backend='pallas' path: the spec's TX builds the captures
-    (K5 TX), and rx_capture_sc16 decodes them through `path`'s kernels."""
+    (K5 TX), and rx_capture_sc16 decodes them through `path`'s kernels.
+    Where the path runs K4w, its LLRs stay in the result ("llr") for the
+    warp body's counted run (run_k4w_ab)."""
     spec = config(name).with_(kernel_backend="pallas")
     iq, pays, tx_launches, grid = make_input_pallas(
         torch, spec, label, n_caps, n_frames, device, **channel)
@@ -1169,11 +1241,33 @@ def run_pallas(torch, config, device, name, label, n_caps, n_frames, path,
     ins, stages = phase_stages(torch, spec, label, iq, max_frames, path)
     kernels = {**phase_kernels(torch, spec, label, ins, path),
                **phase_kernel_ifftcp(torch, spec, label, grid)}
+    llr = ins["llr"] if "viterbi_windowed" in path else None
     del ins, grid
     sl = phase_slice(torch, spec, label, iq, iq ^ 1, pays, max_frames, path,
                      sc16=True)
-    return {"stages_ms": stages, "kernels": kernels, "slice": sl,
-            "tx_launches": tx_launches}
+    out = {"stages_ms": stages, "kernels": kernels, "slice": sl,
+           "tx_launches": tx_launches}
+    if llr is not None:
+        out["llr"] = llr
+    return out
+
+
+def run_k4w_ab(torch, llr) -> dict:
+    """One counted run of K4w's warp body, the A/B baseline no path runs
+    (held and timed in turns beside K4w wherever K4w is held), on
+    c3_pallas's LLRs at 256/64: it alone launches."""
+    from ofdm_uhd_tpu_torch.kernels import policy, viterbi
+    torch.cuda.synchronize()
+    policy.reset_launches()
+    viterbi._viterbi_windowed_warp_cuda(llr, *viterbi.FUSED_WINDOW)
+    torch.cuda.synchronize()
+    launches = policy.launches()
+    check(launches["viterbi_windowed_warp"] == 1
+          and sum(launches.values()) == 1,
+          f"k4w_ab: the counted run launched {launches}")
+    log(f"k4w_ab: ok  one counted launch of the warp body on "
+        f"{list(llr.shape)}")
+    return {"kernels": {}, "launches": launches}
 
 
 def run_c3_pallas(torch, config, device) -> dict:
@@ -1720,12 +1814,14 @@ def phase_kernels_c5(torch, spec, llr_res, llr_host) -> dict:
     res = {}
     for key, llr, geometry in (("512", llr_res, viterbi.XLA_WINDOW),
                                ("256", llr_host, viterbi.FUSED_WINDOW)):
-        res[f"viterbi_windowed_{key}"] = hold_windowed(torch, llr, geometry)
+        for k, v in hold_windowed(torch, llr, geometry, "c5").items():
+            res[f"{k}_{key}"] = v
         res[f"viterbi_windowed_{key}"]["k4_ms"] = cuda_ms(
             torch, lambda: viterbi._viterbi_cuda(llr))
     log_kernels("c5", res)
     for k, v in res.items():
-        log(f"c5 kernels: {k} K4 on the same LLRs {v['k4_ms']:.3f} ms")
+        if "k4_ms" in v:
+            log(f"c5 kernels: {k} K4 on the same LLRs {v['k4_ms']:.3f} ms")
     return res
 
 
@@ -1841,8 +1937,8 @@ def run_c5_sharded(torch, spec, device, stacks, pays, one_shard, samples,
     geometry = (viterbi.XLA_WINDOW if policy.viterbi_impl(
         0, step.mf, spec.kernel_backend, spec.viterbi_mode) == "windowed"
         else viterbi.FUSED_WINDOW)
-    vit = {f"viterbi_windowed_{geometry[0]}": hold_windowed(
-        torch, ins["llr"], geometry)}
+    vit = {f"{k}_{geometry[0]}": v for k, v in hold_windowed(
+        torch, ins["llr"], geometry, "c5_sharded").items()}
     log_kernels("c5_sharded", vit)
     kernels.update(vit)
     del ins
@@ -2054,11 +2150,205 @@ def phase_two_cards(torch, spec, stacks, pays) -> dict | None:
             "launches": launches, "kernels": peer}
 
 
+def big_path(spec) -> tuple:
+    """The kernels a big_nsc spec's RX launches: the S&C tile kernel or
+    the levels route (l = n_sc / 2), K1, K2, K3 (with the transposes of
+    its four-step route above ONE_LAUNCH_N) and the spec's Viterbi."""
+    from ofdm_uhd_tpu_torch.kernels import fft, policy, sync
+    sc = (("scfront",) if sync.route(spec.n_sc // 2)[0][0] == "tile"
+          else ("sc_leaves", "sc_level", "sc_out"))
+    ff = ("fft",) if len(fft.route(spec.n_sc)) == 1 else ("fft",
+                                                           "fft_transpose")
+    vit = ("viterbi" if policy.viterbi_impl(
+        0, None, spec.kernel_backend, spec.viterbi_mode) == "scan"
+        else "viterbi_windowed")
+    return sc + ("localize", "extract") + ff + (vit,)
+
+
+def make_input_big(torch, spec, label, device):
+    """BIG_CAPS captures (seeds 0..) of BIG_FRAMES frames from the port's
+    TxPipeline on the card (K3's inverse, by its four-step route above
+    ONE_LAUNCH_N): sc16 planes [2, C, n], the sent payloads, the TX's
+    launch counts."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16
+    from ofdm_uhd_tpu_torch.kernels import fft, policy
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    policy.reset_launches()
+    built = [build_capture(spec, BIG_FRAMES, GAP, seed=s, device=device)
+             for s in range(BIG_CAPS)]
+    torch.cuda.synchronize()
+    launches = policy.launches()
+    four_step = len(fft.route(spec.n_sc)) > 1
+    check(launches["fft"] > 0 and (launches["fft_transpose"] > 0)
+          == four_step, f"{label} input: the TX launched {launches}")
+    caps = np.stack([c for c, _ in built])
+    pays = torch.from_numpy(np.stack([p for _, p in built])).to(device)
+    iq = torch.from_numpy(to_sc16(caps)).to(device)
+    log(f"{label} input: {BIG_CAPS} captures x {caps.shape[1]} samples, "
+        f"{BIG_FRAMES} frames each, sc16, built in "
+        f"{time.perf_counter() - t0:.1f} s; TX launches {launches}")
+    return iq, pays, launches
+
+
+def planes_close(valid_p, valid_e):
+    """Plane sets [3, B, n] of the levels route, over their valid parts
+    (P's planes [:valid_p], the energy [:valid_e]): within REL_TOL of
+    each plane's max."""
+    def close(k, p):
+        errs = [rel_close(k[i, :, :v], p[i, :, :v])
+                for i, v in ((0, valid_p), (1, valid_p), (2, valid_e))]
+        return all(ok for ok, _ in errs), max(e for _, e in errs)
+    return close
+
+
+def hold_sc_levels(torch, label, cap, l) -> dict:
+    """The S&C levels route's kernels on the main path's AGC'd captures
+    [C, n] at lag l: the leaves, the first doubling level (w = 1) and the
+    epilogue (on the planes after all log2 l levels), each against its
+    plain step; then the whole route against sc_frontend_plain (under
+    sc_out_route)."""
+    from ofdm_uhd_tpu_torch.kernels import scfront, sync
+    rows, n = cap.shape
+    nd = n - 2 * l + 1
+    res = {"sc_leaves": held(
+        torch, "sc_leaves", lambda: sync._leaves_cuda(cap, l),
+        lambda: sync.leaves_plain(cap, l), planes_close(n - l, n),
+        cap.shape, (8.0 * rows * n + 4.0 * rows * (3 * n - 2 * l),
+                    rows * (6.0 * (n - l) + 4.0 * n)))}
+    a = sync._leaves_cuda(cap, l)
+    lp, le = n - l - 1, n - 1
+    res["sc_level"] = held(
+        torch, "sc_level", lambda: sync._level_cuda(a, 1, lp, le),
+        lambda: sync.level_plain(a, 1, lp, le), planes_close(lp, le),
+        a.shape, (8.0 * rows * (2 * lp + le), rows * (2.0 * lp + le)))
+    for step in sync.levels_plan(l):
+        if step[0] == "level":
+            lp, le = n - l - (2 * step[1] - 1), n - (2 * step[1] - 1)
+            a = sync._level_cuda(a, step[1], lp, le)
+    res["sc_out"] = held(
+        torch, "sc_out", lambda: sync._out_cuda(a, l, nd, True),
+        lambda: sync.out_plain(a, l, nd, True), scfront_close, (rows, nd),
+        (16.0 * rows * nd + 12.0 * rows * nd, 10.0 * rows * nd))
+    res["sc_out_route"] = held(
+        torch, "scfront levels route",
+        lambda: sync.sc_kernels("scfront", cap, l, True),
+        lambda: scfront.sc_frontend_plain(cap, l), scfront_close,
+        cap.shape, work_sc(rows, n, l, metric=True))
+    log_kernels(label, res)
+    return res
+
+
+def hold_transposes(torch, label, x) -> dict:
+    """The four-step route's three transposes on the inputs the route
+    gives them from the main path's FFT windows x [..., n]: bit-exact
+    where there is no twiddle, within 1e-6 of max|y| with it; library: the
+    one transposing copy (no twiddle)."""
+    from ofdm_uhd_tpu_torch.kernels import fft
+    n = x.shape[-1]
+    y = x.reshape(-1, n).contiguous()
+    res = {}
+    for step in fft.route(n):
+        if step[0] == "fft":
+            y = fft._fft_launch(y.reshape(-1, step[1]), False).reshape(-1, n)
+            continue
+        _, r, c, twiddle = step
+        tw = fft._four_step_twiddles(n, y.device) if twiddle else None
+        xin = y
+
+        def close(k, p, exact=tw is None):
+            err = float((k - p).abs().max())
+            if exact:
+                return bool(torch.equal(k, p)), err
+            return err <= 1e-6 * float(p.abs().max()), err
+        key = f"fft_transpose_{r}x{c}" + ("_twiddle" if twiddle else "")
+        res[key] = held(
+            torch, key, lambda: fft._transpose_cuda(xin, r, c, tw, False),
+            lambda: fft.transpose_plain(xin, r, c, tw, False), close,
+            xin.shape, (16.0 * xin.numel() + (8.0 * n if twiddle else 0),
+                        6.0 * xin.numel() if twiddle else 0.0),
+            None if twiddle else (lambda: xin.view(-1, r, c).transpose(
+                1, 2).contiguous()))
+        res[key]["device_ms"] = device_ms(
+            torch, lambda: fft._transpose_cuda(xin, r, c, tw, False))
+        y = fft._transpose_cuda(xin, r, c, tw, False)
+    log_kernels(label, res)
+    return res
+
+
+def hold_fft_sizes(torch, device) -> dict:
+    """K3 at N = BIG_FFT_NS on seed-0 rows of BIG_FFT_SAMPLES samples in
+    all: within REL_TOL of max|y| of fft_plain, in-kernel in turns with
+    torch.fft.fft (ortho), its unscaled call beside."""
+    from ofdm_uhd_tpu_torch.kernels import fft
+    g = torch.Generator(device=device).manual_seed(0)
+    res = {}
+    for n in BIG_FFT_NS:
+        x = torch.randn((BIG_FFT_SAMPLES // n, n), dtype=torch.complex64,
+                        generator=g, device=device)
+        res[f"fft_n{n}"] = held(
+            torch, f"fft {n}", lambda: fft._fft_cuda(x, False),
+            lambda: fft.fft_plain(x), rel_close, x.shape,
+            work_fft(x.shape[0], n, n, n),
+            lambda: torch.fft.fft(x, norm="ortho"))
+        fft_in_turns(torch, res[f"fft_n{n}"], lambda: fft._fft_cuda(x, False),
+                     lambda: torch.fft.fft(x, norm="ortho"),
+                     lambda: torch.fft.fft(x, norm="backward"))
+        del x
+    log_kernels("big_nsc fft", res)
+    return res
+
+
+def run_big_nsc(torch, device) -> dict:
+    """RxPipeline.rx_capture_sc16 at n_sc = BIG_NSC (QPSK, CP n/8, 2 data
+    symbols): the TX builds the captures on the card, the stages and
+    kernels on the whole batch (the levels route's kernels and the
+    four-step route's transposes each against its plain step), then the
+    slice: every frame bit-exact, equal to the plain-forced run, every
+    kernel of big_path launched and none of the other route's. Last, K3
+    alone at N = 4096 .. 65536."""
+    from ofdm_uhd_tpu_torch.core.spec import WaveformSpec
+    from ofdm_uhd_tpu_torch.kernels import policy
+    routes = {"scfront", "sc_leaves", "sc_level", "sc_out", "fft_transpose"}
+    out = {"kernels": {}, "slices": {}, "stages_ms": {},
+           "launches": dict.fromkeys(policy.KERNELS, 0),
+           "tx_launches": dict.fromkeys(policy.KERNELS, 0)}
+    for n in BIG_NSC:
+        spec = WaveformSpec(n_sc=n, cp=n // 8, modulation="qpsk",
+                            n_data_syms=2)
+        label = f"big_nsc {n}"
+        path = big_path(spec)
+        iq, pays, tx = make_input_big(torch, spec, label, device)
+        max_frames = BIG_FRAMES + 2
+        ins, out["stages_ms"][n] = phase_stages(torch, spec, label, iq,
+                                                max_frames, path)
+        kernels = phase_kernels(torch, spec, label, ins, tuple(
+            k for k in path if k in ("scfront", "localize", "extract", "fft",
+                                     "viterbi", "viterbi_windowed")))
+        if "sc_leaves" in path:
+            kernels.update(hold_sc_levels(torch, label, ins["cap"], n // 2))
+        if "fft_transpose" in path:
+            syms, st = ins["syms"], ins["start"]
+            kernels.update(hold_transposes(torch, label,
+                                           syms[..., st:st + n]))
+        del ins
+        sl = phase_slice(torch, spec, label, iq, iq ^ 1, pays, max_frames,
+                         path, sc16=True, absent=tuple(routes - set(path)))
+        out["slices"][n] = sl
+        out["kernels"].update({f"{k}_{n}": v for k, v in kernels.items()})
+        for k in policy.KERNELS:
+            out["launches"][k] += sl["launches"][k]
+            out["tx_launches"][k] += tx[k]
+    out["kernels"].update(hold_fft_sizes(torch, device))
+    return out
+
+
 def path_launches(paths) -> dict:
     """Launches per kernel of every counted main-path run: each path's RX
     slice (C5: its two operating points; c5_sharded: its halo-kernel run;
-    shift, tiers: their counted runs) and the TX input builds of C4,
-    c4_bf16 and the 'pallas' paths."""
+    shift, tiers, k4w_ab: their counted runs) and the TX input builds of
+    C4, c4_bf16, the 'pallas' paths and big_nsc."""
     out = {}
     for p, r in paths.items():
         out[p] = r["launches"] if "launches" in r else r["slice"]["launches"]
@@ -2128,17 +2418,20 @@ def main() -> int:
         c4_bf16 = run_c4_bf16(torch, config, device, c4)
         c5, c5_sharded = run_c5(torch, config, device)
         c3_pallas = run_c3_pallas(torch, config, device)
+        k4w_ab = run_k4w_ab(torch, c3_pallas.pop("llr"))
         c2_pallas = run_c2_pallas(torch, config, device)
         fir_inputs = c4.pop("fir_inputs")
         shift = run_shift(torch, device, fir_inputs)
         tiers = run_tiers(torch, device, fir_inputs, c3.pop("tier_inputs"))
         del fir_inputs
+        big_nsc = run_big_nsc(torch, device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     paths = {"c3": c3, "c4": c4, "c5": c5, "c5_sharded": c5_sharded,
              "c3_pallas": c3_pallas, "c2_pallas": c2_pallas,
-             "c4_bf16": c4_bf16, "shift": shift, "tiers": tiers}
+             "c4_bf16": c4_bf16, "shift": shift, "tiers": tiers,
+             "big_nsc": big_nsc, "k4w_ab": k4w_ab}
     by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)
                         for k in KERNEL_INFO]}

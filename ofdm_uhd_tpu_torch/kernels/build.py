@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
            "fir.cu", "fir_bf16.cu", "scfront.cu", "halo.cu", "shift.cu",
            "banded.cu", "deframe.cu")
-HEADERS = ("ofdm_kernels.h",)
+HEADERS = ("ofdm_kernels.h", "viterbi_window.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -37,10 +37,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # llr, dec, bits, batch, n, stream
     "ofdm_viterbi": [_P, _P, _P, _I, _I, _P],
+    # llr, dec, bits, batch, n, windows, l, ov, e, stream
+    "ofdm_viterbi_windowed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # llr, bits, batch, n, windows, l, ov, e, stream
-    "ofdm_viterbi_windowed": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ofdm_viterbi_windowed_warp": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, y, twiddles, rows, log2n, inverse, stream
     "ofdm_fft": [_P, _P, _P, _I, _I, _I, _P],
+    # x, y, twiddles (or null), rows, r, c, conj_tw, stream
+    "ofdm_fft_transpose": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, y, twiddles, rows, log2n, inverse, in_stride, in_off, cp, stream
     "ofdm_fft_cp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # m, p, cand, d, eps, caps, nd, mf, span, cp_half, rel, stream
@@ -74,6 +78,12 @@ _SIGNATURES = {
     "ofdm_scfront": [_P, _P, _P, _I, _I, _I, _P],
     # r, p, rr, rows, n, l, stream
     "ofdm_sc_correlate": [_P, _P, _P, _I, _I, _I, _P],
+    # r, set, rows, n, l, stream
+    "ofdm_sc_leaves": [_P, _P, _I, _I, _I, _P],
+    # a, b, rows, n, w, len_p, len_e, stream
+    "ofdm_sc_level": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # set, p, q, rows, n, l, metric, stream
+    "ofdm_sc_out": [_P, _P, _P, _I, _I, _I, _I, _P],
     # src pointers, dst pointers (host arrays), pairs, h, stream
     "ofdm_halo_from_right": [_P, _P, _I, _I, _P],
     # device, peer

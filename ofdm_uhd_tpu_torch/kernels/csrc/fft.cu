@@ -1,6 +1,7 @@
 // Batched orthonormal FFT / IFFT along rows, complex64, for power-of-two
-// lengths 2..2048 (the chain uses N = 256 on RX and TX at C3 and C5, 1024
-// at C4, 64 at C2), and its two CP-fused forms.
+// lengths 2..4096 in one launch (the chain uses N = 256 on RX and TX at C3
+// and C5, 1024 at C4, 64 at C2), its two CP-fused forms, and the
+// transpose-twiddle kernel of the four-step route for N >= 8192.
 //
 // Replaces:
 //   ofdm_fft (K3): ofdm_uhd_tpu/kernels/pallas_fft.py:185 fft_pallas
@@ -34,7 +35,8 @@
 // threads holds 4096 / N transforms. The plan is a compile-time constant
 // per log2 N: radix-16 passes, then one pass of the remaining radix
 // (32 = 16x2, 64 = 16x4, 128 = 16x8, 256 = 16x16, 512 = 16x16x2,
-// 1024 = 16x16x4, 2048 = 16x16x8; N <= 16 is one pass a thread). Each
+// 1024 = 16x16x4, 2048 = 16x16x8, 4096 = 16x16x16, one transform a
+// block; N <= 16 is one pass a thread). Each
 // pass is E / R radix-R DFTs a thread, written out in registers (16 as
 // 4x4, 8 as 4x2; the +-i rotations swaps and sign flips, the (1 +- i) /
 // sqrt 2 ones an add and a scale), after its inputs are multiplied by
@@ -56,7 +58,7 @@
 //
 // Why this plan: 16 samples a thread is the widest radix whose DFT stays
 // in registers with 2 blocks an SM or more (ptxas: 78 registers at
-// N = 256, so 3 blocks; 116-126 at 512-2048, so 2; no spills), and with
+// N = 256, so 3 blocks; 116-128 at 512-4096, so 2; no spills), and with
 // 16 a thread one padding serves every plan. Measured by chip_smoke.py
 // (NVIDIA H100 80GB HBM3, 700 W), in-kernel: K3 at C3 0.160 ms (88% of
 // its bound; the previous body 0.429 in the same run), K5 RX at
@@ -69,6 +71,16 @@
 // (ramp and tail over ~3.6 waves of blocks), not the plan. N <= 32, which
 // no path runs, is not tuned: there a warp spans 16 or more transforms,
 // so each load instruction uses part of every sector it touches.
+//
+// Above 4096 points (kernels/fft.py route) a transform is N = N1 N2 in
+// five launches: a transpose of each row's [N1, N2] view, K3 on rows of
+// N1, a transpose with the twiddles W_N^(n2 k1), K3 on rows of N2, and a
+// transpose into the natural order. ofdm_fft_transpose serves all three:
+// a block moves one 32 x 32 tile through shared memory, so both its reads
+// and its writes are whole 256-byte rows of a warp; the twiddle table
+// (kernels/fft.py four_step_twiddle_table, from float64) is read in the
+// input's layout, coalesced. Each launch moves the whole row once, so the
+// route moves ~5x the bytes of one launch.
 #include <cmath>
 
 #include "ofdm_kernels.h"
@@ -76,7 +88,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxLog2N = 11;
+constexpr int kMaxLog2N = 12;
 
 constexpr float kR2 = 0.70710678118654752f;    // 1 / sqrt(2)
 constexpr float kC16 = 0.92387953251128674f;   // cos(pi / 8)
@@ -302,6 +314,50 @@ fft_cp_kernel(const float2* __restrict__ x, float2* __restrict__ y,
     }
 }
 
+
+// The four-step route's transpose (csrc comment at ofdm_fft_transpose):
+// each block moves one 32 x 32 tile of a row's [r, c] view through shared
+// memory (padded to 33 columns, so that the column reads are free of bank
+// conflicts), reading and writing 256 B a warp-row, coalesced;
+// y[b, j, i] = x[b, i, j] * tw[i * c + j] (conjugated for the inverse),
+// or x[b, i, j] where tw is null.
+constexpr int kTile = 32;
+constexpr int kTileRows = 8;           // 256 threads, 4 samples each
+
+__global__ void __launch_bounds__(kTile * kTileRows)
+transpose_twiddle_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                         const float2* __restrict__ tw, int r, int c,
+                         int conj_tw, long long tiles_r, long long tiles_c) {
+    __shared__ float2 tile[kTile][kTile + 1];
+    const long long per_row = tiles_r * tiles_c;
+    const long long b = blockIdx.x / per_row;
+    const long long k = blockIdx.x - b * per_row;
+    const int i0 = static_cast<int>(k / tiles_c) * kTile;
+    const int j0 = static_cast<int>(k % tiles_c) * kTile;
+    const size_t base = static_cast<size_t>(b) * r * c;
+    const float sign = conj_tw ? -1.0f : 1.0f;
+#pragma unroll
+    for (int q = 0; q < kTile; q += kTileRows) {
+        const int i = i0 + threadIdx.y + q;
+        const int j = j0 + threadIdx.x;
+        float2 v = x[base + static_cast<size_t>(i) * c + j];
+        if (tw != nullptr) {
+            float2 w = __ldg(tw + static_cast<size_t>(i) * c + j);
+            w.y *= sign;
+            v = cmul(v, w);
+        }
+        tile[threadIdx.y + q][threadIdx.x] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kTile; q += kTileRows) {
+        const int j = j0 + threadIdx.y + q;
+        const int i = i0 + threadIdx.x;
+        y[base + static_cast<size_t>(j) * r + i] =
+            tile[threadIdx.x][threadIdx.y + q];
+    }
+}
+
 float ortho_scale(int log2n) {
     return static_cast<float>(
         1.0 / std::sqrt(static_cast<double>(1 << log2n)));
@@ -333,6 +389,7 @@ int launch_any(const float2* x, float2* y, const float2* tw, int rows,
     case 9: return launch<9>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
     case 10: return launch<10>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
     case 11: return launch<11>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 12: return launch<12>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -357,4 +414,20 @@ OFDM_API int ofdm_fft_cp(const float2* x, float2* y, const float2* twiddles,
         return static_cast<int>(cudaErrorInvalidValue);
     return launch_any(x, y, twiddles, rows, log2n, inverse, in_stride, in_off,
                       cp, stream);
+}
+
+OFDM_API int ofdm_fft_transpose(const float2* x, float2* y,
+                                const float2* twiddles, int rows, int r,
+                                int c, int conj_tw, void* stream) {
+    if (rows <= 0) return 0;
+    if (r <= 0 || c <= 0 || r % kTile || c % kTile)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long tiles_r = r / kTile, tiles_c = c / kTile;
+    const long long blocks = rows * tiles_r * tiles_c;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    transpose_twiddle_kernel<<<static_cast<unsigned>(blocks),
+                               dim3(kTile, kTileRows), 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        x, y, twiddles, r, c, conj_tw, tiles_r, tiles_c);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -15,21 +15,37 @@
 OFDM_API int ofdm_viterbi(const float* llr, uint32_t* dec, uint8_t* bits,
                           int batch, int n, void* stream);
 
-// Rate-1/2 K=7 Viterbi in sliding windows: llr [batch, 2n] f32 -> bits
-// [batch, n] u8. Window wi of a row decodes steps [start, start + e),
-// start = clip(wi*l - ov, 0, n - e), wi < windows = ceil(n / l), and
-// writes its owned bits [wi*l, wi*l + l) ∩ [0, n); windows = 1, l = e = n
-// is the whole sequence. Decisions stay in shared memory (4 * e * 8 bytes
-// a block, at most 227 KB).
-OFDM_API int ofdm_viterbi_windowed(const float* llr, uint8_t* bits,
-                                   int batch, int n, int windows, int l,
-                                   int ov, int e, void* stream);
+// Rate-1/2 K=7 Viterbi in sliding windows, one thread a window: llr
+// [batch, 2n] f32 -> bits [batch, n] u8. Window wi of a row decodes steps
+// [start, start + e), start = clip(wi*l - ov, 0, n - e), wi < windows =
+// ceil(n / l), and writes its owned bits [wi*l, wi*l + l) ∩ [0, n);
+// windows = 1, l = e = n is the whole sequence. dec: scratch of e x batch
+// x windows x 2 u32 (step t's words of window g at [t, g]).
+OFDM_API int ofdm_viterbi_windowed(const float* llr, uint32_t* dec,
+                                   uint8_t* bits, int batch, int n,
+                                   int windows, int l, int ov, int e,
+                                   void* stream);
+
+// The same decode by the previous body, one warp a window (decisions in
+// shared memory, 4 * e * 8 bytes a block, at most 227 KB): the A/B
+// baseline, which no path launches.
+OFDM_API int ofdm_viterbi_windowed_warp(const float* llr, uint8_t* bits,
+                                        int batch, int n, int windows, int l,
+                                        int ov, int e, void* stream);
 
 // Orthonormal FFT/IFFT along rows (a Stockham FFT in registers, log2n in
-// 1..11): x, y [rows, 2^log2n] complex64 (float2), twiddles: the plan's
+// 1..12): x, y [rows, 2^log2n] complex64 (float2), twiddles: the plan's
 // table (kernels/fft.py twiddle_table; empty for log2n <= 4).
 OFDM_API int ofdm_fft(const float2* x, float2* y, const float2* twiddles,
                       int rows, int log2n, int inverse, void* stream);
+
+// The four-step route's transpose: x [rows, r, c] -> y [rows, c, r]
+// complex64, y[b, j, i] = x[b, i, j] * twiddles[i * c + j] (conjugated
+// where conj_tw), or x[b, i, j] where twiddles is null; r, c multiples
+// of 32.
+OFDM_API int ofdm_fft_transpose(const float2* x, float2* y,
+                                const float2* twiddles, int rows, int r,
+                                int c, int conj_tw, void* stream);
 
 // The same transform with the CP fused in: row r reads x[r * in_stride +
 // in_off, + n) and writes y[r * (n + cp), + n + cp), the transform's last
@@ -123,7 +139,7 @@ OFDM_API int ofdm_deframe(const float2* capture, const int* ds, float2* out,
                           void* stream);
 
 // Schmidl-Cox front end: r [rows, n] complex64 -> p [rows, nd] complex64,
-// m [rows, nd] f32, nd = n - 2l + 1, l a power of two.
+// m [rows, nd] f32, nd = n - 2l + 1, l a power of two up to 4096.
 OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
                           int n, int l, void* stream);
 
@@ -131,6 +147,19 @@ OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
 // complex64, rr [rows, nd] f32 (R, no metric), as ofdm_scfront sums them.
 OFDM_API int ofdm_sc_correlate(const float2* r, float2* p, float* rr,
                                int rows, int n, int l, void* stream);
+
+// The S&C levels route (l above the tile's 4096): set [3, rows, n] f32.
+// Leaves: set[0], set[1] = re, im of conj(r[i]) r[i + l] (i < n - l),
+// set[2] = |r[i]|^2. Level: b = a's three planes doubled at width w,
+// b[.][j] = a[.][j] + a[.][j + w] for j < len_p (planes 0, 1) and j <
+// len_e (plane 2). Out: p [rows, nd] complex64 from planes 0, 1, and
+// q [rows, nd] = M (metric) or R from R = 0.5 (a[2][i] + a[2][i + l]).
+OFDM_API int ofdm_sc_leaves(const float2* r, float* set, int rows, int n,
+                            int l, void* stream);
+OFDM_API int ofdm_sc_level(const float* a, float* b, int rows, int n, int w,
+                           int len_p, int len_e, void* stream);
+OFDM_API int ofdm_sc_out(const float* set, float2* p, float* q, int rows,
+                         int n, int l, int metric, void* stream);
 
 // Halo exchange: for each of `pairs` (source, destination) pointer pairs
 // (host arrays of device pointers; a source may lie on a peer card whose

@@ -35,12 +35,46 @@
 // mostly from L2. l must be a power of two (the wrapper checks). At C2
 // (l = 32, 32 captures of ~182k samples) a call moves ~117 MB, so it is
 // short enough that its launch shows.
+//
+// The tile needs 4(kTile + l) + 2(kTile + 2l) floats of shared memory,
+// 155 KB at l = 4096 and 287 KB at l = 8192, past the 227 KB a block may
+// have, so the tile route takes l <= 4096 (kernels/sync.py TILE_MAX_L).
+// Above it (n_sc >= 16384: DVB-T2's 16K and 32K modes) the same sums run
+// through device memory in 2 + log2 l launches (the levels route,
+// kernels/sync.py route): ofdm_sc_leaves writes the lag product's two
+// planes and the energy, ofdm_sc_level doubles all three planes once
+// (S_2w[i] = S_w[i] + S_w[i + w], w = 1 .. l/2, into the other of two
+// plane sets, since a block would otherwise overwrite S_w[i + w] before
+// another block reads it), and ofdm_sc_out takes the energy's last level,
+// R = 0.5 (S_l[i] + S_l[i + l]), and writes P and M or R with the tile
+// kernel's epilogue. Same adds in the same order, so both routes give the
+// same bits. Each level reads and writes ~3 planes, so at l = 8192 the
+// route moves ~15x the tile kernel's bytes.
 #include "ofdm_kernels.h"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 1024;           // outputs per block
+constexpr int kMaxTileL = 4096;       // the tile's shared memory <= 227 KB
+
+// The epilogue shared by both routes: P, and M or R, from the window sums.
+template <bool kMetric>
+__device__ __forceinline__ void write_out(float2* p_out, float* q_out,
+                                          size_t at, float pr, float pi,
+                                          float esum) {
+    const float rsum = __fmul_rn(0.5f, esum);
+    p_out[at] = make_float2(pr, pi);
+    if constexpr (kMetric) {
+        const float eps = 1e-12f;
+        const float mag = hypotf(pr, pi);
+        const float den = fmaxf(rsum, eps);
+        const float m = __fdiv_rn(__fmul_rn(mag, mag), __fmul_rn(den, den));
+        q_out[at] = rsum > eps ? m : 0.0f;
+    } else {
+        q_out[at] = rsum;
+    }
+}
 
 // kMetric: the second output q is M (ofdm_scfront), else R.
 template <bool kMetric>
@@ -99,20 +133,70 @@ scfront_kernel(const float2* __restrict__ r, float2* __restrict__ p_out,
     for (int j = threadIdx.x; j < kTile; j += kThreads) {
         const int i = i0 + j;
         if (i >= nd) break;
-        const float pr = pa_re[j], pi = pa_im[j];
-        const float rsum = __fmul_rn(0.5f, ea[j]);
-        p_out[base + i] = make_float2(pr, pi);
-        if constexpr (kMetric) {
-            const float eps = 1e-12f;
-            const float mag = hypotf(pr, pi);
-            const float den = fmaxf(rsum, eps);
-            const float m = __fdiv_rn(__fmul_rn(mag, mag),
-                                      __fmul_rn(den, den));
-            q_out[base + i] = rsum > eps ? m : 0.0f;
-        } else {
-            q_out[base + i] = rsum;
+        write_out<kMetric>(p_out, q_out, base + i, pa_re[j], pa_im[j], ea[j]);
+    }
+}
+
+// The levels route's planes: set [3, rows, n] floats, plane 0 / 1 the lag
+// product's re / im (valid over n - l, then shorter by each level's w),
+// plane 2 the energy (valid over n).
+constexpr int kLevelThreads = 256;
+
+__global__ void __launch_bounds__(kLevelThreads)
+sc_leaves_kernel(const float2* __restrict__ r, float* __restrict__ set,
+                 int rows, int n, int l) {
+    const size_t plane = static_cast<size_t>(rows) * n;
+    const size_t total = plane;
+    for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+         k < total; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const int s = static_cast<int>(k % n);
+        const float2 a = r[k];
+        const float mag = hypotf(a.x, a.y);
+        set[2 * plane + k] = __fmul_rn(mag, mag);
+        if (s < n - l) {
+            const float2 b = r[k + l];
+            set[k] = __fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
+            set[plane + k] = __fsub_rn(__fmul_rn(a.x, b.y),
+                                       __fmul_rn(a.y, b.x));
         }
     }
+}
+
+__global__ void __launch_bounds__(kLevelThreads)
+sc_level_kernel(const float* __restrict__ a, float* __restrict__ b, int rows,
+                int n, int w, int len_p, int len_e) {
+    const size_t plane = static_cast<size_t>(rows) * n;
+    for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+         k < plane; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const int j = static_cast<int>(k % n);
+        if (j < len_e)
+            b[2 * plane + k] = __fadd_rn(a[2 * plane + k], a[2 * plane + k + w]);
+        if (j < len_p) {
+            b[k] = __fadd_rn(a[k], a[k + w]);
+            b[plane + k] = __fadd_rn(a[plane + k], a[plane + k + w]);
+        }
+    }
+}
+
+template <bool kMetric>
+__global__ void __launch_bounds__(kLevelThreads)
+sc_out_kernel(const float* __restrict__ a, float2* __restrict__ p_out,
+              float* __restrict__ q_out, int rows, int n, int l, int nd) {
+    const size_t plane = static_cast<size_t>(rows) * n;
+    const size_t total = static_cast<size_t>(rows) * nd;
+    for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+         k < total; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const size_t row = k / nd;
+        const size_t at = row * n + (k - row * nd);
+        write_out<kMetric>(p_out, q_out, k, a[at], a[plane + at],
+                           __fadd_rn(a[2 * plane + at],
+                                     a[2 * plane + at + l]));
+    }
+}
+
+unsigned grid_for(size_t total) {
+    const size_t blocks = (total + kLevelThreads - 1) / kLevelThreads;
+    return static_cast<unsigned>(blocks < (1u << 20) ? blocks : (1u << 20));
 }
 
 template <bool kMetric>
@@ -120,6 +204,7 @@ int launch(const float2* r, float2* p, float* q, int rows, int n, int l,
            void* stream) {
     const int nd = n - 2 * l + 1;
     if (rows <= 0 || nd <= 0) return 0;
+    if (l > kMaxTileL) return static_cast<int>(cudaErrorInvalidValue);
     const int tiles = (nd + kTile - 1) / kTile;
     const size_t smem = sizeof(float)
         * (4 * static_cast<size_t>(kTile + l - 1)
@@ -147,4 +232,40 @@ OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
 OFDM_API int ofdm_sc_correlate(const float2* r, float2* p, float* rr,
                                int rows, int n, int l, void* stream) {
     return launch<false>(r, p, rr, rows, n, l, stream);
+}
+
+OFDM_API int ofdm_sc_leaves(const float2* r, float* set, int rows, int n,
+                            int l, void* stream) {
+    if (rows <= 0 || n <= 0) return 0;
+    if (l < 1 || l >= n) return static_cast<int>(cudaErrorInvalidValue);
+    sc_leaves_kernel<<<grid_for(static_cast<size_t>(rows) * n),
+                       kLevelThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        r, set, rows, n, l);
+    return static_cast<int>(cudaGetLastError());
+}
+
+OFDM_API int ofdm_sc_level(const float* a, float* b, int rows, int n, int w,
+                           int len_p, int len_e, void* stream) {
+    if (rows <= 0 || n <= 0) return 0;
+    if (w < 1 || len_p < 0 || len_e < 0 || len_p + w > n || len_e + w > n)
+        return static_cast<int>(cudaErrorInvalidValue);
+    sc_level_kernel<<<grid_for(static_cast<size_t>(rows) * n), kLevelThreads,
+                      0, static_cast<cudaStream_t>(stream)>>>(
+        a, b, rows, n, w, len_p, len_e);
+    return static_cast<int>(cudaGetLastError());
+}
+
+OFDM_API int ofdm_sc_out(const float* set, float2* p, float* q, int rows,
+                         int n, int l, int metric, void* stream) {
+    const int nd = n - 2 * l + 1;
+    if (rows <= 0 || nd <= 0) return 0;
+    const unsigned grid = grid_for(static_cast<size_t>(rows) * nd);
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (metric)
+        sc_out_kernel<true><<<grid, kLevelThreads, 0, s>>>(set, p, q, rows, n,
+                                                           l, nd);
+    else
+        sc_out_kernel<false><<<grid, kLevelThreads, 0, s>>>(set, p, q, rows,
+                                                            n, l, nd);
+    return static_cast<int>(cudaGetLastError());
 }

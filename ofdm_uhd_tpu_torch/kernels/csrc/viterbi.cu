@@ -1,6 +1,10 @@
 // Soft-input Viterbi decoders, rate 1/2, K=7 (polys 0o133 / 0o171):
 //   ofdm_viterbi           (K4)  whole sequence, pinned to state 0 at both ends;
-//   ofdm_viterbi_windowed  (K4w) sliding windows with overlap.
+//   ofdm_viterbi_windowed  (K4w) sliding windows with overlap, one thread a
+//                          window (viterbi_window.cuh);
+//   ofdm_viterbi_windowed_warp  K4w's previous body, one warp a window,
+//                          kept only as the A/B baseline chip_smoke.py
+//                          times in turns with K4w; no path launches it.
 //
 // Replaces: ofdm_uhd_tpu/kernels/pallas_viterbi.py:viterbi_pallas (K4:
 // _run_windows with one window, first = tail = 1) and
@@ -10,26 +14,54 @@
 // windowed decoders.
 //
 // Bound on this card: the 64-state add-compare-select is a chain of
-// dependent steps, so a decode is latency-bound, not bandwidth-bound.
-// Design: ONE WARP PER SEQUENCE (K4) or PER WINDOW (K4w). Lane l holds the
-// path metrics of states l and l+32 in registers; both states share the
-// predecessors 2l and 2l+1, which four warp shuffles bring in (`Acs`). No
-// shared memory and no block barrier sit in the step loop, and a block's
-// four warps decode four independent rows, so the SM's schedulers hide
-// one warp's step latency behind the others.
+// dependent steps, so a decode is latency- or issue-bound, not
+// bandwidth-bound.
+//
+// K4 and the warp baseline: ONE WARP PER SEQUENCE (K4) or PER WINDOW.
+// Lane l holds the path metrics of states l and l+32 in registers; both
+// states share the predecessors 2l and 2l+1, which four warp shuffles
+// bring in (`Acs`). No shared memory and no block barrier sit in the step
+// loop, and a block's four warps decode four independent rows.
 //   * LLRs: each lane loads one (a, b) pair per 32-step chunk, coalesced;
 //     step j takes them by shuffle from lane j (`forward`).
 //   * Decisions: __ballot_sync packs the 64 choices of a step into two
 //     words (states 0-31, 32-63); lane j keeps step j's pair and the warp
 //     stores the chunk's 32 pairs in one coalesced 256-byte write. K4
 //     writes them to device memory (8 bytes a step: a whole C3 trellis
-//     does not fit on chip); K4w keeps its window's e x 8 bytes in shared
-//     memory (3 KB at 256/64, 5.6 KB at 512/96) and writes nothing to
-//     device memory but its owned bits.
+//     does not fit on chip); the warp baseline keeps its window's e x 8
+//     bytes in shared memory.
 //   * Traceback reads a chunk of 32 pairs per load the same way and walks
 //     it by shuffles; every lane tracks the same state (`traceback`).
-// Why windows: at the stream's 34 slots of 4608 steps, K4 runs 34 warps
-// through 4608 dependent steps each, while K4w runs 34 x 18 warps of 384.
+// A step costs each warp 6 shuffles, 2 ballots and ~20 other
+// instructions; Hopper issues one warp-wide shuffle an SM a clock against
+// four FP32 instructions, so at c3_pallas (221,616 windows of 384 steps)
+// the shuffles alone take ~2.6 ms of the warp baseline's 5.05 (NVIDIA
+// H100 80GB HBM3, 700 W): it is bound by shuffles and issue.
+//
+// K4w: ONE THREAD PER WINDOW, no exchange between lanes. A thread holds
+// its window's 64 path metrics as two unrolled register arrays (old and
+// new, swapped by unrolling two steps) and runs the 32 butterflies of a
+// step on them: 4 adds for the branch metrics, then per state an add and
+// a subtract (the candidates), a max (the survivor), a subtract whose
+// sign is the choice and a funnel shift that packs it into the step's
+// decision word, ~330 instructions a step and no shuffle, ballot or
+// barrier (viterbi_window.cuh). Decisions go to a device scratch laid out
+// [e, windows]: the 32 windows of a warp store one step's words as one
+// coalesced 256-byte write, and the traceback reads them back the same
+// way; steps before the owned range are neither stored nor read (the
+// traceback stops at the owned range's start). LLRs: neighbouring windows
+// lie l x 8 bytes apart, so a thread reads two steps as one 16-byte load
+// where its window is 16-byte aligned (else two 8-byte loads), one
+// iteration ahead of their use. Windows are independent, so a block is
+// one warp (32 windows), which spreads a small decode (the stream's 612
+// windows) over as many SMs as it has warps.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W) at c3_pallas
+// (221,616 windows of 384 steps): ~1.6 ms in-kernel against the warp
+// body's 4.67, ~3.4e12 state-steps/s, about 55% of the issue rate the
+// instruction count allows; the issue model predicted 0.9-1.3 ms. What
+// holds it is not measured (no profiler counters on that machine). On
+// the stream's 612 windows (20 warps on 132 SMs) one warp a window wins:
+// ~0.12 ms against 0.032.
 // Numerics: the ACS of phy/bits.py exactly (no 0.5 factor; bm0 = sa0*la +
 // sb0*lb; c0 = pm_even + bm0; c1 = pm_odd - bm0; strict c1 > c0, so a tie
 // keeps predecessor 0), with __fadd_rn / __fsub_rn / __fmul_rn so no
@@ -39,6 +71,7 @@
 // adds -1e30 to every nonzero state's final metric; each traces back from
 // the first state that reaches the maximum (argmax's tie-break).
 #include "ofdm_kernels.h"
+#include "viterbi_window.cuh"
 
 namespace {
 
@@ -190,10 +223,11 @@ viterbi_k7_kernel(const float* __restrict__ llr, uint2* __restrict__ dec,
     traceback(dseq, n, 0, lane, [&](int t, uint8_t b) { bseq[t] = b; });
 }
 
-// One warp per window: window wi of row b covers steps [start, start + e),
-// start = clip(wi*l - ov, 0, n - e), and owns [wi*l, wi*l + l) ∩ [0, n).
+// The warp baseline: one warp per window; window wi of row b covers steps
+// [start, start + e), start = clip(wi*l - ov, 0, n - e), and owns [wi*l,
+// wi*l + l) ∩ [0, n).
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-viterbi_k7_windowed_kernel(const float* __restrict__ llr,
+viterbi_k7_windowed_warp_kernel(const float* __restrict__ llr,
                            uint8_t* __restrict__ bits, int batch, int n,
                            int windows, int l, int ov, int e) {
     extern __shared__ uint2 dec_smem[];
@@ -229,6 +263,56 @@ viterbi_k7_windowed_kernel(const float* __restrict__ llr,
     });
 }
 
+
+// K4w: one thread per window (viterbi_window.cuh decode_window); window
+// gw = b * windows + wi keeps step t's decision words at dec[t * total +
+// gw], total = batch * windows.
+constexpr int kWindowThreads = 32;
+// 16 one-warp blocks an SM caps a thread at 128 registers (ptxas: 64 bytes
+// of spills; 231 registers uncapped). In chip calls on the NVIDIA H100
+// 80GB HBM3 (700 W), at c3_pallas's shape: 1.585 ms in-kernel capped,
+// 1.802 uncapped, 1.62-1.69 at 12 blocks or 64- and 128-thread blocks
+// with 168 registers; the stream's 612 windows lose ~10% capped (0.130
+// against 0.118 ms).
+constexpr int kWindowMinBlocks = 16;
+
+__global__ void __launch_bounds__(kWindowThreads, kWindowMinBlocks)
+viterbi_k7_window_kernel(const float* __restrict__ llr, uint2* __restrict__ dec,
+                         uint8_t* __restrict__ bits, int batch, int n,
+                         int windows, int l, int ov, int e) {
+    const long long total = static_cast<long long>(batch) * windows;
+    const long long gw =
+        static_cast<long long>(blockIdx.x) * kWindowThreads + threadIdx.x;
+    if (gw >= total) return;
+    const int b = static_cast<int>(gw / windows);
+    const int wi = static_cast<int>(gw % windows);
+    const vit::Window w(wi, n, l, ov, e);
+    const float2* ab = reinterpret_cast<const float2*>(llr) +
+                       static_cast<size_t>(b) * n + w.start;
+    const bool wide = (reinterpret_cast<uintptr_t>(ab) & 15u) == 0;
+    uint2* d = dec + gw;
+    const size_t stride = static_cast<size_t>(total);
+    uint8_t* brow = bits + static_cast<size_t>(b) * n + w.start;
+    vit::decode_window(
+        w, e,
+        [&](int t, float& la0, float& lb0, float& la1, float& lb1) {
+            if (wide) {
+                const float4 v = __ldg(reinterpret_cast<const float4*>(ab + t));
+                la0 = v.x; lb0 = v.y; la1 = v.z; lb1 = v.w;
+            } else {
+                const float2 v0 = __ldg(ab + t), v1 = __ldg(ab + t + 1);
+                la0 = v0.x; lb0 = v0.y; la1 = v1.x; lb1 = v1.y;
+            }
+        },
+        [&](int t, float& la, float& lb) {
+            const float2 v = __ldg(ab + t);
+            la = v.x; lb = v.y;
+        },
+        [&](int t, const uint2& v) { d[t * stride] = v; },
+        [&](int t) { return d[t * stride]; },
+        [&](int t, uint8_t bit) { brow[t] = bit; });
+}
+
 }  // namespace
 
 OFDM_API int ofdm_viterbi(const float* llr, uint32_t* dec, uint8_t* bits,
@@ -241,7 +325,25 @@ OFDM_API int ofdm_viterbi(const float* llr, uint32_t* dec, uint8_t* bits,
     return static_cast<int>(cudaGetLastError());
 }
 
-OFDM_API int ofdm_viterbi_windowed(const float* llr, uint8_t* bits,
+OFDM_API int ofdm_viterbi_windowed(const float* llr, uint32_t* dec,
+                                   uint8_t* bits, int batch, int n,
+                                   int windows, int l, int ov, int e,
+                                   void* stream) {
+    if (batch <= 0 || n <= 0) return 0;
+    if (windows <= 0 || l <= 0 || ov < 0 || e <= 0 || e > n ||
+        static_cast<long long>(windows - 1) * l >= n)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long total = static_cast<long long>(batch) * windows;
+    const long long blocks = (total + kWindowThreads - 1) / kWindowThreads;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    viterbi_k7_window_kernel<<<static_cast<unsigned>(blocks), kWindowThreads,
+                               0, static_cast<cudaStream_t>(stream)>>>(
+        llr, reinterpret_cast<uint2*>(dec), bits, batch, n, windows, l, ov,
+        e);
+    return static_cast<int>(cudaGetLastError());
+}
+
+OFDM_API int ofdm_viterbi_windowed_warp(const float* llr, uint8_t* bits,
                                    int batch, int n, int windows, int l,
                                    int ov, int e, void* stream) {
     if (batch <= 0 || n <= 0) return 0;
@@ -253,7 +355,7 @@ OFDM_API int ofdm_viterbi_windowed(const float* llr, uint8_t* bits,
     if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
     if (smem > kDefaultSmem) {
         const cudaError_t err = cudaFuncSetAttribute(
-            viterbi_k7_windowed_kernel,
+            viterbi_k7_windowed_warp_kernel,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
@@ -261,7 +363,7 @@ OFDM_API int ofdm_viterbi_windowed(const float* llr, uint8_t* bits,
     const long long rows = static_cast<long long>(batch) * windows;
     const int blocks =
         static_cast<int>((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    viterbi_k7_windowed_kernel<<<blocks, kWarpsPerBlock * 32, smem,
+    viterbi_k7_windowed_warp_kernel<<<blocks, kWarpsPerBlock * 32, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
         llr, bits, batch, n, windows, l, ov, e);
     return static_cast<int>(cudaGetLastError());

@@ -2,7 +2,9 @@
 plain versions.
 
   fft / ifft (K3): replace ofdm_uhd_tpu/kernels/pallas_fft.py:fft_pallas;
-      complex64 [..., N] -> [..., N], power-of-two N up to 2048.
+      complex64 [..., N] -> [..., N], power-of-two N from 2 to 2^24: one
+      launch up to 4096 (ONE_LAUNCH_N), the four-step route above
+      (`route`).
   cp_strip_fft (K5, RX): replaces pallas_fft.py:cp_strip_fft_pallas;
       symbol rows [..., in_len] -> the FFT of [..., start:start+n].
   ifft_cp (K5, TX): replaces pallas_fft.py:ifft_cp_pallas; grid rows
@@ -18,6 +20,16 @@ same registers, so neither a contiguous copy of the windows nor a
 concatenation pass remains. The wrapper hands the kernel its twiddle table
 (`twiddle_table`). The plain versions are torch.fft with norm='ortho' (and
 torch.cat); the kernels never call cuFFT.
+
+Above 4096 points a transform takes five launches (`route`): with N = N1
+N2, N1 = 2^ceil(k/2) and N2 = 2^floor(k/2) (both <= 4096 up to 2^24), each
+row viewed [N1, N2] is transposed to [N2, N1], transformed in rows of N1
+by K3, multiplied by W_N^(n2 k1) and transposed back (one launch of the
+transpose-twiddle kernel, `ofdm_fft_transpose`), transformed in rows of
+N2, and transposed to the natural output order. The two ortho scales
+multiply to 1/sqrt N; the inverse takes K3's inverse and the conjugate
+twiddles. `four_step_plain` runs the same route through the plain
+versions of its steps.
 """
 
 from __future__ import annotations
@@ -29,8 +41,9 @@ import torch
 
 from . import build, policy
 
-MAX_N = 2048
-MAX_CP_N = 512     # the K5 forms: n <= 512, as the reference routes them
+ONE_LAUNCH_N = 4096  # K3's one-launch plans (csrc/fft.cu kMaxLog2N = 12)
+MAX_N = 1 << 24     # the four-step route: N1, N2 <= ONE_LAUNCH_N
+MAX_CP_N = 512      # the K5 forms: n <= 512, as the reference routes them
 
 
 def fft_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -66,24 +79,106 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(twiddle_table(n)).to(device)
 
 
-def _fft_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
-    n = x.shape[-1]
-    if x.dtype != torch.complex64:
-        raise ValueError(f"fft: need complex64, got {x.dtype}")
+def route(n: int) -> list[tuple]:
+    """The launches of an n-point transform: [("fft", n)] up to
+    ONE_LAUNCH_N; above, the four-step route over n = n1 * n2 (n1 =
+    2^ceil(k/2), n2 = 2^floor(k/2)): ("transpose", r, c, twiddle) moves
+    each row's [r, c] view to [c, r] (times W_n^(i j) where twiddle),
+    ("fft", m) transforms rows of m."""
     if n < 2 or n > MAX_N or n & (n - 1):
         raise ValueError(f"fft: N must be a power of two in [2, {MAX_N}], "
                          f"got {n}")
+    if n <= ONE_LAUNCH_N:
+        return [("fft", n)]
+    k = n.bit_length() - 1
+    n1, n2 = 1 << ((k + 1) // 2), 1 << (k // 2)
+    return [("transpose", n1, n2, False), ("fft", n1),
+            ("transpose", n2, n1, True), ("fft", n2),
+            ("transpose", n1, n2, False)]
+
+
+def four_step_twiddle_table(n: int) -> np.ndarray:
+    """W_n^(i j) = exp(-2 pi i i j / n) at [i * n1 + j], i < n2, j < n1
+    (the route's middle transpose reads it as its input is laid out), from
+    float64 cast to complex64."""
+    _, n2, n1, _ = route(n)[2]
+    k = np.arange(n2)[:, None] * np.arange(n1)
+    return np.exp(-2j * np.pi * k / n).ravel().astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=8)
+def _four_step_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(four_step_twiddle_table(n)).to(device)
+
+
+def transpose_plain(x: torch.Tensor, r: int, c: int,
+                    tw: torch.Tensor | None, inverse: bool) -> torch.Tensor:
+    """Rows [B, r * c] viewed [B, r, c] -> [B, c * r], y[b, j, i] =
+    x[b, i, j] * tw[i * c + j] (conjugated for the inverse; none where tw
+    is None)."""
+    y = x.reshape(-1, r, c)
+    if tw is not None:
+        y = y * (tw.conj() if inverse else tw).reshape(r, c)
+    return y.transpose(1, 2).reshape(-1, r * c)
+
+
+def _transpose_cuda(x: torch.Tensor, r: int, c: int,
+                    tw: torch.Tensor | None, inverse: bool) -> torch.Tensor:
+    """One launch of the transpose-twiddle kernel on contiguous rows."""
+    build.check_inputs("fft_transpose", x)
+    y = torch.empty_like(x)
+    lib = build.library()
+    err = lib.ofdm_fft_transpose(x.data_ptr(), y.data_ptr(),
+                                 None if tw is None else tw.data_ptr(),
+                                 x.numel() // (r * c), r, c, int(inverse),
+                                 build.stream_ptr(x.device))
+    build.check(err, "fft_transpose")
+    policy.count_launch("fft_transpose")
+    return y
+
+
+def _fft_launch(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """One launch of K3 on contiguous rows [..., n], n <= ONE_LAUNCH_N."""
+    n = x.shape[-1]
     build.check_inputs("fft", x)
     y = torch.empty_like(x)
-    rows = x.numel() // n
     lib = build.library()
     err = lib.ofdm_fft(x.data_ptr(), y.data_ptr(),
-                       _twiddles(n, x.device).data_ptr(), rows,
+                       _twiddles(n, x.device).data_ptr(), x.numel() // n,
                        n.bit_length() - 1, int(inverse),
                        build.stream_ptr(x.device))
     build.check(err, "fft")
     policy.count_launch("fft")
     return y
+
+
+def _run_route(x: torch.Tensor, inverse: bool, sub_fft, transpose
+               ) -> torch.Tensor:
+    """x [..., n] through route(n), each step by the given functions."""
+    n = x.shape[-1]
+    y = x.reshape(-1, n)
+    for step in route(n):
+        if step[0] == "fft":
+            m = step[1]
+            y = sub_fft(y.reshape(-1, m), inverse).reshape(-1, n)
+        else:
+            _, r, c, twiddle = step
+            tw = _four_step_twiddles(n, y.device) if twiddle else None
+            y = transpose(y, r, c, tw, inverse)
+    return y.reshape(x.shape)
+
+
+def four_step_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """The kernels' route for x [..., n] through the plain versions of its
+    steps (fft_plain, transpose_plain); fft_plain's function."""
+    return _run_route(x, inverse, fft_plain, transpose_plain)
+
+
+def _fft_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    if x.dtype != torch.complex64:
+        raise ValueError(f"fft: need complex64, got {x.dtype}")
+    build.check_inputs("fft", x)
+    return _run_route(x, inverse, _fft_launch, _transpose_cuda)
 
 
 def cp_strip_fft_plain(x: torch.Tensor, start: int, n: int) -> torch.Tensor:

@@ -9,15 +9,16 @@ or R to device memory.
 The kernel keeps the plain version's pairwise-doubling summation order and
 unfused float32 arithmetic, so M agrees with the plain version to a few
 ulps and detection's >= comparisons fall the same way; the reference's TPU
-kernel summed in another order (agreement ~1e-5).
+kernel summed in another order (agreement ~1e-5). Any power-of-two l:
+above sync.TILE_MAX_L the sums run by the levels route (sync.route).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import build, policy
-from .sync import sc_correlate_plain, sc_metric, sc_rows
+from . import policy
+from .sync import sc_correlate_plain, sc_kernels, sc_metric
 
 
 def sc_frontend_plain(r: torch.Tensor, l: int
@@ -28,17 +29,9 @@ def sc_frontend_plain(r: torch.Tensor, l: int
 
 def _scfront_cuda(r: torch.Tensor, l: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    flat, nd = sc_rows("scfront", r, l)
-    rows, n = flat.shape
-    p = torch.empty((rows, nd), dtype=torch.complex64, device=r.device)
-    m = torch.empty((rows, nd), dtype=torch.float32, device=r.device)
-    lib = build.library()
-    err = lib.ofdm_scfront(flat.data_ptr(), p.data_ptr(), m.data_ptr(), rows,
-                           n, l, build.stream_ptr(r.device))
-    build.check(err, "scfront")
-    policy.count_launch("scfront")
-    lead = r.shape[:-1]
-    return p.reshape(lead + (nd,)), m.reshape(lead + (nd,))
+    """K6's launch (sync.route(l): the tile kernel, counted 'scfront', up
+    to TILE_MAX_L; the levels route above)."""
+    return sc_kernels("scfront", r, l, metric=True)
 
 
 def sc_frontend(r: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -10,7 +10,9 @@ device (policy.py):
     phy/bits.py:viterbi_decode;
   * `viterbi_windowed` (K4w): the sliding-window decode of
     pallas_viterbi.py:viterbi_pallas_windowed and phy/bits.py:
-    viterbi_decode_windowed, with the window and overlap as arguments.
+    viterbi_decode_windowed, with the window and overlap as arguments;
+    one thread decodes one window (csrc/viterbi_window.cuh), its
+    decisions in a scratch of e x windows x 8 bytes.
 
 Both use the reference's arithmetic: branch metrics without the 0.5
 factor, strict '>' (a tie keeps predecessor 0), and the window boundary
@@ -176,12 +178,33 @@ def _viterbi_windowed_cuda(llr: torch.Tensor, window: int, overlap: int
     bsz, n = llr.shape[0], llr.shape[1] // 2
     l, e, starts = window_geometry(n, window, overlap)
     bits = torch.empty((bsz, n), dtype=torch.uint8, device=llr.device)
+    # each step's two decision words of every window, [e, B * W]
+    dec = torch.empty((e, bsz * len(starts), 2), dtype=torch.int32,
+                      device=llr.device)
     lib = build.library()
-    err = lib.ofdm_viterbi_windowed(llr.data_ptr(), bits.data_ptr(), bsz, n,
-                                    len(starts), l, overlap, e,
-                                    build.stream_ptr(llr.device))
+    err = lib.ofdm_viterbi_windowed(llr.data_ptr(), dec.data_ptr(),
+                                    bits.data_ptr(), bsz, n, len(starts), l,
+                                    overlap, e, build.stream_ptr(llr.device))
     build.check(err, "viterbi_windowed")
     policy.count_launch("viterbi_windowed")
+    return bits
+
+
+def _viterbi_windowed_warp_cuda(llr: torch.Tensor, window: int,
+                                overlap: int) -> torch.Tensor:
+    """K4w's previous body (one warp a window, decisions in shared memory):
+    the same bits; the A/B baseline of chip_smoke.py, which no path
+    runs."""
+    _check_llr("viterbi_windowed_warp", llr)
+    bsz, n = llr.shape[0], llr.shape[1] // 2
+    l, e, starts = window_geometry(n, window, overlap)
+    bits = torch.empty((bsz, n), dtype=torch.uint8, device=llr.device)
+    lib = build.library()
+    err = lib.ofdm_viterbi_windowed_warp(llr.data_ptr(), bits.data_ptr(),
+                                         bsz, n, len(starts), l, overlap, e,
+                                         build.stream_ptr(llr.device))
+    build.check(err, "viterbi_windowed_warp")
+    policy.count_launch("viterbi_windowed_warp")
     return bits
 
 

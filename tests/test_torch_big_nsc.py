@@ -1,0 +1,184 @@
+"""FFT sizes and S&C lags above the chain's own: every power-of-two n_sc
+the reference's WaveformSpec accepts runs through the port's kernels.
+
+K3 transforms up to 4096 points in one launch and larger ones by the
+four-step route (kernels/fft.py route: two K3 launches and three of the
+transpose-twiddle kernel); the S&C kernels K6 and K9 sum up to lag 4096
+in one tile launch and above it by the levels route (kernels/sync.py
+route: leaves, log2 l doubling levels, the epilogue). Here on the CPU:
+the route plans for every power of two from 2 to 2^20; each route's
+arithmetic through the plain versions of its steps against torch.fft and
+the plain S&C; and the RX chain against the JAX package at n_sc = 4096
+and 16384, once through the plain versions and once with the routes'
+plain emulations in place of the FFT and S&C calls.
+"""
+
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from bench_lib import build_capture as ref_build_capture  # noqa: E402
+from ofdm_uhd_tpu.core.spec import WaveformSpec as RefSpec  # noqa: E402
+from ofdm_uhd_tpu.pipeline import RxPipeline as RefRx  # noqa: E402
+from ofdm_uhd_tpu_torch.bench_lib import to_sc16  # noqa: E402
+from ofdm_uhd_tpu_torch.convert import spec_from_reference  # noqa: E402
+from ofdm_uhd_tpu_torch.kernels import fft, policy, scfront  # noqa: E402
+from ofdm_uhd_tpu_torch.kernels import sync as ksync  # noqa: E402
+from ofdm_uhd_tpu_torch.phy import sync as psync  # noqa: E402
+from ofdm_uhd_tpu_torch.pipeline import RxPipeline  # noqa: E402
+
+torch.set_num_threads(2)
+
+POWERS = [1 << k for k in range(1, 21)]
+
+
+@pytest.mark.parametrize("n", POWERS)
+def test_fft_route_plans_every_power_of_two(n):
+    """One K3 launch up to 4096 points; above, the four-step route: two
+    K3 launches whose sizes multiply to n, each at most 4096, between
+    three transposes of [r, c] views of n samples, the middle one with
+    the twiddles."""
+    plan = fft.route(n)
+    if n <= fft.ONE_LAUNCH_N:
+        assert plan == [("fft", n)]
+        return
+    assert [s[0] for s in plan] == ["transpose", "fft", "transpose", "fft",
+                                    "transpose"]
+    (_, r0, c0, t0), (_, n1), (_, r1, c1, t1), (_, n2), (_, r2, c2, t2) = plan
+    assert n1 * n2 == n and n1 <= fft.ONE_LAUNCH_N >= n2 and n1 >= n2
+    assert (r0, c0, r1, c1, r2, c2) == (n1, n2, n2, n1, n1, n2)
+    assert (t0, t1, t2) == (False, True, False)
+    assert r0 % 32 == 0 and c0 % 32 == 0      # the transpose's 32 x 32 tiles
+
+
+@pytest.mark.parametrize("n", [3, 48, 1 << 25, 0])
+def test_fft_route_refuses_what_it_cannot_take(n):
+    with pytest.raises(ValueError):
+        fft.route(n)
+
+
+@pytest.mark.parametrize("l", POWERS)
+def test_sc_route_plans_every_power_of_two(l):
+    """One tile launch up to lag 4096; above, the leaves, one doubling
+    level at each width 1, 2, .., l/2, and the epilogue, which takes the
+    energy's last level (width l)."""
+    plan = ksync.route(l)
+    if l <= ksync.TILE_MAX_L:
+        assert plan == [("tile",)]
+        return
+    assert plan[0] == ("leaves",) and plan[-1] == ("out",)
+    assert [s[1] for s in plan[1:-1]] == [1 << k
+                                         for k in range(l.bit_length() - 1)]
+
+
+@pytest.mark.parametrize("l", [3, 6000])
+def test_sc_route_refuses_other_lags(l):
+    with pytest.raises(ValueError):
+        ksync.route(l)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [8192, 16384, 65536])
+def test_four_step_route_equals_torch_fft(n, inverse):
+    """The four-step route through fft_plain and transpose_plain: within
+    1e-5 of max|y| of torch.fft (norm='ortho'), seeded rows."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy((rng.normal(size=(3, n))
+                          + 1j * rng.normal(size=(3, n))).astype(np.complex64))
+    got = fft.four_step_plain(x, inverse)
+    f = torch.fft.ifft if inverse else torch.fft.fft
+    want = f(x, norm="ortho")
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_four_step_twiddles_are_the_route_factors():
+    """The middle transpose's table holds W_n^(i j) for i < n2, j < n1."""
+    n = 8192
+    _, n2, n1, _ = fft.route(n)[2]
+    tw = fft.four_step_twiddle_table(n).reshape(n2, n1)
+    i, j = 37, 101
+    assert tw.dtype == np.complex64
+    assert abs(tw[i, j] - np.exp(-2j * np.pi * i * j / n)) <= 1e-7
+
+
+@pytest.mark.parametrize("metric", [False, True])
+@pytest.mark.parametrize("l", [8192, 64])
+def test_levels_route_equals_plain_sc(l, metric):
+    """The levels route's plain emulation gives sc_correlate_plain's (P, R)
+    and sc_frontend_plain's (P, M) bit for bit: the same adds in the same
+    order, an idle stretch (M = 0) included."""
+    rng = np.random.default_rng(l)
+    n = 2 * l + 5001
+    r = torch.from_numpy((rng.normal(size=(2, n))
+                          + 1j * rng.normal(size=(2, n))).astype(np.complex64))
+    r[1, 1000:4000] = 0
+    got = ksync.levels_plain(r, l, metric)
+    want = (scfront.sc_frontend_plain(r, l) if metric
+            else ksync.sc_correlate_plain(r, l))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+# the RX chain against the reference: QPSK, CP n/8, 2 data symbols, 2
+# captures of 2 frames. At 16384 the occupancy is cut to 2080 subcarriers
+# (3802 payload bits; the default 13312 gives 24538, and the reference's
+# CRC matrix is O(n^2) in them); the FFT and the S&C lag stay 16384 and
+# 8192.
+N_CAPS, N_FRAMES, GAP, MAX_FRAMES = 2, 2, 300, 4
+SIZES = {4096: 0, 16384: 2080}
+
+
+@pytest.fixture(scope="module", params=sorted(SIZES))
+def ref(request):
+    n = request.param
+    rspec = RefSpec(n_sc=n, cp=n // 8, modulation="qpsk", n_data_syms=2,
+                    n_occupied=SIZES[n])
+    built = [ref_build_capture(rspec, N_FRAMES, GAP, seed=s)
+             for s in range(N_CAPS)]
+    iq = to_sc16(np.stack([c for c, _ in built]))
+    out = RefRx(rspec, diag=True).rx_capture_sc16(iq, max_frames=MAX_FRAMES)
+    return {"spec": rspec, "iq": iq,
+            "pays": np.stack([p for _, p in built]),
+            "out": {k: np.asarray(v) for k, v in out.items()}}
+
+
+def _route_emulations(monkeypatch):
+    """The FFT and S&C calls of the chain through the kernels' routes,
+    each step by its plain version."""
+    from ofdm_uhd_tpu_torch.phy import frame
+    monkeypatch.setattr(frame.K1, "fft", lambda x: fft.four_step_plain(x))
+    monkeypatch.setattr(frame.K1, "ifft",
+                        lambda x: fft.four_step_plain(x, True))
+    monkeypatch.setattr(psync, "sc_frontend",
+                        lambda r, l: ksync.levels_plain(r, l, True))
+
+
+@pytest.mark.parametrize("routes", ["plain", "route_emulation"])
+def test_rx_chain_matches_reference(ref, routes, monkeypatch):
+    """d, valid and crc_ok exact, the valid slots' payloads exact and
+    equal to the sent ones, EVM within 1e-4 dB."""
+    if routes == "route_emulation":
+        _route_emulations(monkeypatch)
+    spec = spec_from_reference(dataclasses.asdict(ref["spec"]))
+    policy.reset_launches()
+    out = RxPipeline(spec, diag=True).rx_capture_sc16(
+        torch.from_numpy(ref["iq"]), max_frames=MAX_FRAMES)
+    out = {k: v.numpy() for k, v in out.items()}
+    assert policy.launches() == dict.fromkeys(policy.KERNELS, 0)
+    want = ref["out"]
+    for k in ("d", "valid", "crc_ok"):
+        np.testing.assert_array_equal(out[k], want[k], err_msg=k)
+    valid = want["valid"]
+    assert valid.sum() == N_CAPS * N_FRAMES and want["crc_ok"][valid].all()
+    np.testing.assert_array_equal(out["payload"][valid],
+                                  want["payload"][valid])
+    np.testing.assert_array_equal(out["payload"][:, :N_FRAMES], ref["pays"])
+    np.testing.assert_allclose(out["evm_db"][valid], want["evm_db"][valid],
+                               atol=1e-4)

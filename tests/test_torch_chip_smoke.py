@@ -436,3 +436,92 @@ def test_kernel_registers_reads_ptxas_output():
         "ptxas info    : Used 40 registers"])
     assert chip_smoke.kernel_registers(log) == {
         "fft_cp_kernel<10>": [122, 12], "viterbi_kernel": [40, 0]}
+
+
+def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
+    """run_big_nsc at tiny sizes, the routes' thresholds lowered so that
+    n_sc = 64 takes one K3 launch and the S&C tile kernel and n_sc = 256
+    the four-step route and the levels route, the wrappers patched to
+    their plain versions with a launch count: every frame decodes, the
+    path's kernels launch (the TX's inverse FFT too) and the other
+    route's never, each levels kernel and transpose is held against its
+    plain step, and the kernels line gets entries for them."""
+    from ofdm_uhd_tpu_torch.kernels import build, localize, scfront, viterbi
+
+    def tile(kernel, flat, nd, l, metric):
+        policy.count_launch(kernel)
+        return (scfront.sc_frontend_plain(flat, l) if metric
+                else sync.sc_correlate_plain(flat, l))
+    monkeypatch.setattr(policy, "use_kernel",
+                        lambda x: not policy._STATE.forced_plain)
+    monkeypatch.setattr(build, "check_inputs", lambda *a: None)
+    for mod, name, count, fn in (
+            (fft, "_fft_launch", "fft", fft.fft_plain),
+            (fft, "_transpose_cuda", "fft_transpose", fft.transpose_plain),
+            (sync, "_leaves_cuda", "sc_leaves", sync.leaves_plain),
+            (sync, "_level_cuda", "sc_level", sync.level_plain),
+            (sync, "_out_cuda", "sc_out", sync.out_plain),
+            (localize, "_localize_cuda", "localize",
+             lambda m, p, c, s, cp, rel: localize.localize_plain(m, p, c, s,
+                                                                 cp)),
+            (viterbi, "_viterbi_cuda", "viterbi", viterbi.viterbi_plain)):
+        monkeypatch.setattr(mod, name, _counted(count, fn))
+    monkeypatch.setattr(sync, "_tile_cuda", tile)
+    monkeypatch.setattr(fft, "ONE_LAUNCH_N", 128)
+    monkeypatch.setattr(sync, "TILE_MAX_L", 32)
+    monkeypatch.setattr(chip_smoke, "BIG_NSC", (64, 256))
+    monkeypatch.setattr(chip_smoke, "BIG_CAPS", 2)
+    monkeypatch.setattr(chip_smoke, "BIG_FRAMES", 2)
+    monkeypatch.setattr(chip_smoke, "BIG_FFT_NS", (128, 256))
+    monkeypatch.setattr(chip_smoke, "BIG_FFT_SAMPLES", 2048)
+    monkeypatch.setattr(chip_smoke, "REPS", 1)
+    monkeypatch.setattr(chip_smoke, "device_busy_share",
+                        lambda torch, run: {"busy_share": None,
+                                            "traced_wall_ms": 0.0})
+    out = chip_smoke.run_big_nsc(torch, torch.device("cpu"))
+    launches, tx = out["launches"], out["tx_launches"]
+    for k in ("scfront", "sc_leaves", "sc_level", "sc_out", "localize",
+              "extract", "fft", "fft_transpose", "viterbi"):
+        assert launches[k] > 0, k
+    assert tx["fft"] > 0 and tx["fft_transpose"] > 0
+    assert launches["sc_level"] == 7              # one counted run, l = 128
+    assert {f"{k}_256" for k in ("sc_leaves", "sc_level", "sc_out",
+                                 "sc_out_route", "fft_transpose_16x16",
+                                 "fft_transpose_16x16_twiddle")} <= set(
+        out["kernels"])
+    assert "scfront_64" in out["kernels"] and "fft_n256" in out["kernels"]
+    for n in (64, 256):
+        assert out["slices"][n]["frames_ok"] == 4
+    by_path = chip_smoke.path_launches({"big_nsc": out})
+    for name in ("fft_transpose", "sc_leaves", "sc_level", "sc_out"):
+        entry = chip_smoke.kernel_entry(name, {"big_nsc": out}, by_path)
+        assert entry["launches"] > 0 and entry["bound_ms"] > 0
+
+
+def test_hold_windowed_rehearsal(on_host, monkeypatch):
+    """K4w's hold: bit-exact against the plain version, the warp body held
+    against K4w's bits, both timed in turns with their ACS rates; the two
+    entries map to their kernels in the kernels line, and the warp body's
+    counted run launches it once."""
+    from ofdm_uhd_tpu_torch.kernels import viterbi
+    monkeypatch.setattr(viterbi, "_viterbi_windowed_cuda", _counted(
+        "viterbi_windowed", viterbi.viterbi_windowed_plain))
+    monkeypatch.setattr(viterbi, "_viterbi_windowed_warp_cuda", _counted(
+        "viterbi_windowed_warp", viterbi.viterbi_windowed_plain))
+    llr = torch.randn((3, 2 * 900), generator=torch.Generator().manual_seed(4))
+    res = chip_smoke.hold_windowed(torch, llr, viterbi.FUSED_WINDOW, "c5")
+    assert list(res) == ["viterbi_windowed", "viterbi_windowed_warp"]
+    for v in res.values():
+        assert v["max_abs_err"] == 0 and len(v["device_ms_turns"]) == 2
+        assert v["bound_by"] == "operations"
+    assert chip_smoke.held_kernel("viterbi_windowed_warp_512") == \
+        "viterbi_windowed_warp"
+    assert chip_smoke.held_kernel("viterbi_windowed_512") == \
+        "viterbi_windowed"
+    ab = chip_smoke.run_k4w_ab(torch, llr)
+    assert ab["launches"]["viterbi_windowed_warp"] == 1
+    by_path = chip_smoke.path_launches({"c5": {"kernels": res,
+                                               "launches": ab["launches"]}})
+    entry = chip_smoke.kernel_entry("viterbi_windowed_warp",
+                                    {"c5": {"kernels": res}}, by_path)
+    assert entry["launches"] == 1 and entry["max_abs_err"] == 0

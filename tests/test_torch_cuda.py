@@ -77,8 +77,11 @@ def test_viterbi_windowed_kernel_exact(dev, geometry, bsz, n):
                                       generator=_gen(n + 1),
                                       device=dev).float()):
         x = gen()
-        assert torch.equal(viterbi.viterbi_windowed(x, *geometry),
-                           viterbi.viterbi_windowed_plain(x, *geometry))
+        want = viterbi.viterbi_windowed_plain(x, *geometry)
+        assert torch.equal(viterbi.viterbi_windowed(x, *geometry), want)
+        # the previous body, chip_smoke.py's A/B baseline, gives the same
+        assert torch.equal(
+            viterbi._viterbi_windowed_warp_cuda(x, *geometry), want)
 
 
 def test_viterbi_decode_algorithms_on_card(dev):
@@ -96,8 +99,9 @@ def test_viterbi_decode_algorithms_on_card(dev):
     assert torch.equal(viterbi.viterbi_fused(short), want)
 
 
-# every power of two each FFT kernel takes (K3 up to 2048, K5 up to 512)
-FFT_NS = [1 << k for k in range(1, 12)]
+# powers of two up to 2^16 (K3 in one launch up to 4096, the four-step
+# route above; K5 up to 512)
+FFT_NS = [1 << k for k in range(1, 17)]
 CP_NS = [n for n in FFT_NS if n <= fft.MAX_CP_N]
 
 
@@ -114,6 +118,28 @@ def test_fft_kernel_close(dev, n, inverse, rows):
     got = f(x)
     ref = fft.fft_plain(x, inverse=inverse)
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("n", [8192, 32768])
+def test_fft_four_step_route_on_card(dev, n):
+    """Above 4096 points: two K3 launches and three of the
+    transpose-twiddle kernel; each transpose equals its plain version (bit
+    for bit without the twiddle, within 1e-6 of max|y| with it)."""
+    x = torch.randn((5, n), dtype=torch.complex64, generator=_gen(n),
+                    device=dev)
+    policy.reset_launches()
+    fft.fft(x)
+    got = policy.launches()
+    assert (got["fft"], got["fft_transpose"]) == (2, 3)
+    for _, r, c, twiddle in [s for s in fft.route(n) if s[0] != "fft"]:
+        tw = fft._four_step_twiddles(n, dev) if twiddle else None
+        for inverse in (False, True):
+            k = fft._transpose_cuda(x, r, c, tw, inverse)
+            p = fft.transpose_plain(x, r, c, tw, inverse)
+            if tw is None:
+                assert torch.equal(k, p)
+            else:
+                _within(k, p, 1e-6)
 
 
 @pytest.mark.parametrize("odd", [0, 1])
@@ -181,6 +207,44 @@ def test_sc_correlate_kernel_close(dev, l, n):
         <= 1e-5
     m, m0 = sync.sc_metric(p, rr), sync.sc_metric(p0, rr0)
     assert (m - m0).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("metric", [False, True])
+def test_sc_levels_route_close(dev, metric):
+    """K6 and K9 at l = 8192 (n_sc = 16384), the levels route: 2 + 13
+    launches, within the S&C gates of the plain version."""
+    l = 8192
+    x = torch.randn((2, 50001), dtype=torch.complex64, generator=_gen(l),
+                    device=dev)
+    x[1, 10000:40000] = 0
+    policy.reset_launches()
+    f = scfront.sc_frontend if metric else sync.sc_correlate
+    p, q = f(x, l)
+    got = policy.launches()
+    assert (got["sc_leaves"], got["sc_level"], got["sc_out"]) == (1, 13, 1)
+    assert got["scfront"] == got["sccorr"] == 0
+    p0, q0 = (scfront.sc_frontend_plain if metric
+              else sync.sc_correlate_plain)(x, l)
+    _within(p, p0)
+    if metric:
+        assert (q - q0).abs().max() <= 1e-5
+    else:
+        assert float(((q - q0).abs() / q0.abs().clamp_min(1e-30)).max()) \
+            <= 1e-5
+
+
+@pytest.mark.parametrize("l", [1, 32, 128])
+def test_sc_levels_route_equals_tile_route(dev, l):
+    """Both routes sum in the same order: the levels kernels give the tile
+    kernels' bits at a lag both take."""
+    x = torch.randn((3, 20001), dtype=torch.complex64, generator=_gen(l),
+                    device=dev)
+    for metric in (False, True):
+        tile = sync.sc_kernels("sccorr", x, l, metric)
+        levels = sync.levels_route(x, l, metric, sync._leaves_cuda,
+                                   sync._level_cuda, sync._out_cuda)
+        for a, b in zip(tile, levels):
+            assert torch.equal(a, b)
 
 
 def test_localize_kernel_exact(dev):

@@ -8,10 +8,13 @@ Pallas decoder (whole sequence below a gate, else windows of 256, overlap
 64). On inputs whose survivor paths do not merge, here pure noise and
 codewords at -3 dB, the windowed decoders differ from the scan, so only
 the same algorithm gives the same bits. Every bit of every row is
-compared; the Pallas kernels run in interpret mode.
+compared; the Pallas kernels run in interpret mode. Last, the CUDA
+kernel's per-window body (one thread a window), compiled for the host,
+against the plain windowed decoder.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -163,3 +166,82 @@ def test_viterbi_impl_matches_reference():
             for batch in (None, 1, 96, 97, 2048, 2049):
                 assert policy.viterbi_impl(4608, batch, requested, mode) == \
                     ref_policy.viterbi_impl(4608, batch, requested, mode)
+
+
+# K4w's per-window body (kernels/csrc/viterbi_window.cuh), compiled for
+# the host: one call decodes every window of a batch in turn, with the
+# window's decisions in a host buffer
+_HOST_HARNESS = r"""
+#include <cstddef>
+#include <vector>
+#include "viterbi_window.cuh"
+
+extern "C" void vit_windowed_host(const float* llr, uint8_t* bits, int batch,
+                                  int n, int windows, int l, int ov, int e) {
+    std::vector<uint2> dec(e);
+    for (int b = 0; b < batch; ++b) {
+        for (int wi = 0; wi < windows; ++wi) {
+            const vit::Window w(wi, n, l, ov, e);
+            const float2* ab = reinterpret_cast<const float2*>(llr)
+                               + static_cast<size_t>(b) * n + w.start;
+            uint8_t* brow = bits + static_cast<size_t>(b) * n + w.start;
+            vit::decode_window(
+                w, e,
+                [&](int t, float& la0, float& lb0, float& la1, float& lb1) {
+                    la0 = ab[t].x; lb0 = ab[t].y;
+                    la1 = ab[t + 1].x; lb1 = ab[t + 1].y;
+                },
+                [&](int t, float& la, float& lb) {
+                    la = ab[t].x; lb = ab[t].y;
+                },
+                [&](int t, const uint2& v) { dec[t] = v; },
+                [&](int t) { return dec[t]; },
+                [&](int t, uint8_t bit) { brow[t] = bit; });
+        }
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k4w_host(tmp_path_factory):
+    """The K4w body built with g++ (plain float operations, no contraction:
+    -ffp-contract=off) into a temporary directory, loaded with ctypes."""
+    import ctypes
+    import shutil
+    import subprocess
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not found: the K4w body cannot be built for the "
+                    "host")
+    out = tmp_path_factory.mktemp("k4w_host")
+    src = out / "harness.cpp"
+    src.write_text(_HOST_HARNESS)
+    csrc = os.path.join(os.path.dirname(KV.__file__), "csrc")
+    lib = out / "libk4w_host.so"
+    subprocess.run([gxx, "-O2", "-std=c++17", "-ffp-contract=off", "-fPIC",
+                    "-shared", "-I", csrc, "-o", str(lib), str(src)],
+                   check=True, capture_output=True)
+    dll = ctypes.CDLL(str(lib))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.vit_windowed_host.argtypes = [p, p, i, i, i, i, i, i]
+    dll.vit_windowed_host.restype = None
+    return dll
+
+
+@pytest.mark.parametrize("geometry", [KV.FUSED_WINDOW, KV.XLA_WINDOW])
+def test_k4w_body_on_host_matches_plain(k4w_host, geometry):
+    """The one-thread-a-window body, bit for bit against
+    viterbi_windowed_plain over every window of a seeded [8, 6912] batch
+    (the first and tail windows included): noise, codewords at -3 dB and
+    integer LLRs, whose ties test the strict '>'."""
+    n = 6912
+    llr = _llrs(n, 8, seed=17)
+    llr[:2] = np.random.default_rng(18).integers(-2, 3, (2, 2 * n))
+    llr = np.ascontiguousarray(llr, dtype=np.float32)
+    l, e, starts = KV.window_geometry(n, *geometry)
+    got = np.full((8, n), 7, np.uint8)
+    k4w_host.vit_windowed_host(llr.ctypes.data, got.ctypes.data, 8, n,
+                               len(starts), l, geometry[1], e)
+    want = KV.viterbi_windowed_plain(_t(llr), *geometry).numpy()
+    np.testing.assert_array_equal(got, want)
