@@ -78,11 +78,12 @@ findings on a line of its own:
   big_nsc, RxPipeline.rx_capture_sc16 at n_sc = 4096, 16384 and 32768
       (QPSK, CP n/8, 2 data symbols, 4 captures x 4 frames built by the
       port's TX on the card): K3 in one launch at 4096 and by its
-      four-step route above (two K3 launches, three of the
-      transpose-twiddle kernel), the S&C tile kernel at l = 2048 and its
+      two-pass route above (the column pass, then the row pass, which
+      stores in natural order), the S&C tile kernel at l = 2048 and its
       levels route at 8192 and 16384 (leaves, log2 l levels, epilogue),
       each route kernel against its plain step; then K3 alone at N =
-      4096 .. 65536 beside torch.fft.fft.
+      4096 .. 65536 beside torch.fft.fft, with every split N1 x N2 of the
+      route (and one launch at 8192) timed in turns.
   Wherever the windowed Viterbi kernel (K4w, one thread a window) is
   held, its previous body (one warp a window, which no path runs) is held
   beside it and both are timed in turns, with their ACS rates; the warp
@@ -187,9 +188,12 @@ KERNEL_INFO = {
     # runs; held and timed in turns beside K4w wherever K4w is held
     "viterbi_windowed_warp": ("ofdm_uhd_tpu_torch/kernels/csrc/viterbi.cu",
                               "ofdm_uhd_tpu/kernels/pallas_viterbi.py:285"),
-    # K3's four-step route above 4096 points (big_nsc): its transposes
-    "fft_transpose": ("ofdm_uhd_tpu_torch/kernels/csrc/fft.cu",
-                      "ofdm_uhd_tpu/kernels/pallas_fft.py:185"),
+    # K3's two-pass route above one launch (big_nsc): the column pass
+    # (with the twiddles) and the row pass (natural-order store)
+    "fft_columns": ("ofdm_uhd_tpu_torch/kernels/csrc/fft.cu",
+                    "ofdm_uhd_tpu/kernels/pallas_fft.py:185"),
+    "fft_rows_t": ("ofdm_uhd_tpu_torch/kernels/csrc/fft.cu",
+                   "ofdm_uhd_tpu/kernels/pallas_fft.py:185"),
     # the S&C levels route above l = 4096 (big_nsc): K6's (and K9's) sums
     # through device memory
     "sc_leaves": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
@@ -276,7 +280,7 @@ TIERS_SESSION = (16, 8192)
 
 # big_nsc: RxPipeline at FFT sizes above the chain's own, QPSK, CP n/8, 2
 # data symbols (LTE / NR carriers run 2048-4096 points, DVB-T2's 16K and
-# 32K modes 16384 and 32768): K3 in one launch at 4096, the four-step
+# 32K modes 16384 and 32768): K3 in one launch at 4096, the two-pass
 # route and the S&C levels route above; BIG_CAPS captures of BIG_FRAMES
 # frames each (gap 300, build_capture's default channel, seeds 0..)
 BIG_NSC = (4096, 16384, 32768)
@@ -2152,13 +2156,13 @@ def phase_two_cards(torch, spec, stacks, pays) -> dict | None:
 
 def big_path(spec) -> tuple:
     """The kernels a big_nsc spec's RX launches: the S&C tile kernel or
-    the levels route (l = n_sc / 2), K1, K2, K3 (with the transposes of
-    its four-step route above ONE_LAUNCH_N) and the spec's Viterbi."""
+    the levels route (l = n_sc / 2), K1, K2, K3 (its two passes above
+    ONE_LAUNCH_N) and the spec's Viterbi."""
     from ofdm_uhd_tpu_torch.kernels import fft, policy, sync
     sc = (("scfront",) if sync.route(spec.n_sc // 2)[0][0] == "tile"
           else ("sc_leaves", "sc_level", "sc_out"))
-    ff = ("fft",) if len(fft.route(spec.n_sc)) == 1 else ("fft",
-                                                           "fft_transpose")
+    ff = (("fft",) if len(fft.route(spec.n_sc)) == 1
+          else ("fft_columns", "fft_rows_t"))
     vit = ("viterbi" if policy.viterbi_impl(
         0, None, spec.kernel_backend, spec.viterbi_mode) == "scan"
         else "viterbi_windowed")
@@ -2167,7 +2171,7 @@ def big_path(spec) -> tuple:
 
 def make_input_big(torch, spec, label, device):
     """BIG_CAPS captures (seeds 0..) of BIG_FRAMES frames from the port's
-    TxPipeline on the card (K3's inverse, by its four-step route above
+    TxPipeline on the card (K3's inverse, by its two-pass route above
     ONE_LAUNCH_N): sc16 planes [2, C, n], the sent payloads, the TX's
     launch counts."""
     import numpy as np
@@ -2180,9 +2184,11 @@ def make_input_big(torch, spec, label, device):
              for s in range(BIG_CAPS)]
     torch.cuda.synchronize()
     launches = policy.launches()
-    four_step = len(fft.route(spec.n_sc)) > 1
-    check(launches["fft"] > 0 and (launches["fft_transpose"] > 0)
-          == four_step, f"{label} input: the TX launched {launches}")
+    passes = ("fft_columns", "fft_rows_t")
+    ran = (passes if len(fft.route(spec.n_sc)) > 1 else ("fft",))
+    check(all(launches[k] > 0 for k in ran)
+          and not any(launches[k] for k in {"fft", *passes} - set(ran)),
+          f"{label} input: the TX launched {launches}")
     caps = np.stack([c for c, _ in built])
     pays = torch.from_numpy(np.stack([p for _, p in built])).to(device)
     iq = torch.from_numpy(to_sc16(caps)).to(device)
@@ -2240,47 +2246,65 @@ def hold_sc_levels(torch, label, cap, l) -> dict:
     return res
 
 
-def hold_transposes(torch, label, x) -> dict:
-    """The four-step route's three transposes on the inputs the route
-    gives them from the main path's FFT windows x [..., n]: bit-exact
-    where there is no twiddle, within 1e-6 of max|y| with it; library: the
-    one transposing copy (no twiddle)."""
+def hold_passes(torch, label, x) -> dict:
+    """The two-pass route's passes on the inputs the route gives them from
+    the main path's FFT windows x [..., n]: the column pass (its twiddles
+    included) and the row pass, each within REL_TOL of max|y| of its plain
+    step, in-kernel. No one PyTorch call computes either pass."""
     from ofdm_uhd_tpu_torch.kernels import fft
     n = x.shape[-1]
-    y = x.reshape(-1, n).contiguous()
+    xin = x.reshape(-1, n).contiguous()
+    (_, n1, n2), _ = fft.route(n)
+    tw = fft._route_twiddles(n1, n2, xin.device)
+    rows = xin.shape[0]
+    mid = fft._columns_cuda(xin, n1, n2, tw, False)
+    fb, fo = work_fft(rows * n2, n1, n1, n1)
+    runs = {
+        f"fft_columns_{n1}x{n2}": (
+            lambda: fft._columns_cuda(xin, n1, n2, tw, False),
+            lambda: fft.columns_plain(xin, n1, n2, tw, False),
+            (fb + 8.0 * n, fo + 6.0 * rows * n)),
+        f"fft_rows_t_{n1}x{n2}": (
+            lambda: fft._rows_t_cuda(mid, n1, n2, False),
+            lambda: fft.rows_t_plain(mid, n1, n2, False),
+            work_fft(rows * n1, n2, n2, n2))}
     res = {}
-    for step in fft.route(n):
-        if step[0] == "fft":
-            y = fft._fft_launch(y.reshape(-1, step[1]), False).reshape(-1, n)
-            continue
-        _, r, c, twiddle = step
-        tw = fft._four_step_twiddles(n, y.device) if twiddle else None
-        xin = y
-
-        def close(k, p, exact=tw is None):
-            err = float((k - p).abs().max())
-            if exact:
-                return bool(torch.equal(k, p)), err
-            return err <= 1e-6 * float(p.abs().max()), err
-        key = f"fft_transpose_{r}x{c}" + ("_twiddle" if twiddle else "")
-        res[key] = held(
-            torch, key, lambda: fft._transpose_cuda(xin, r, c, tw, False),
-            lambda: fft.transpose_plain(xin, r, c, tw, False), close,
-            xin.shape, (16.0 * xin.numel() + (8.0 * n if twiddle else 0),
-                        6.0 * xin.numel() if twiddle else 0.0),
-            None if twiddle else (lambda: xin.view(-1, r, c).transpose(
-                1, 2).contiguous()))
-        res[key]["device_ms"] = device_ms(
-            torch, lambda: fft._transpose_cuda(xin, r, c, tw, False))
-        y = fft._transpose_cuda(xin, r, c, tw, False)
+    for key, (run_k, run_p, work) in runs.items():
+        res[key] = held(torch, key, run_k, run_p, rel_close, xin.shape, work)
+        res[key]["device_ms"] = device_ms(torch, run_k)
     log_kernels(label, res)
     return res
+
+
+def route_splits(torch, x) -> dict:
+    """K3's two passes on x [rows, n] at every split n1 x n2 with n2 from
+    PASS_MAX_N / 8 to PASS_MAX_N (512 .. 4096), and one launch where n <=
+    ONE_LAUNCH_N, each within REL_TOL of max|y| of fft_plain: in-kernel
+    ms in turns, {split: [first, second]}. route() takes the fastest."""
+    from ofdm_uhd_tpu_torch.kernels import fft
+    n = x.shape[-1]
+    want = fft.fft_plain(x)
+    runs = {}
+    for n2 in (fft.PASS_MAX_N >> k for k in (3, 2, 1, 0)):
+        n1 = n // n2
+        if n1 < 2 or n1 > fft.PASS_MAX_N:
+            continue
+        tw = fft._route_twiddles(n1, n2, x.device)
+        runs[f"{n1}x{n2}"] = (lambda n1=n1, n2=n2, tw=tw: fft._rows_t_cuda(
+            fft._columns_cuda(x, n1, n2, tw, False), n1, n2, False))
+    if n <= fft.ONE_LAUNCH_N:
+        runs["one_launch"] = lambda: fft._fft_launch(x, False)
+    for key, run in runs.items():
+        ok, err = rel_close(run(), want)
+        check(ok, f"fft {n} split {key}: differs from fft_plain by {err}")
+    return in_turns(torch, runs, tuple(runs))
 
 
 def hold_fft_sizes(torch, device) -> dict:
     """K3 at N = BIG_FFT_NS on seed-0 rows of BIG_FFT_SAMPLES samples in
     all: within REL_TOL of max|y| of fft_plain, in-kernel in turns with
-    torch.fft.fft (ortho), its unscaled call beside."""
+    torch.fft.fft (ortho), its unscaled call beside; above PASS_MAX_N
+    every split of the route in turns (route_splits)."""
     from ofdm_uhd_tpu_torch.kernels import fft
     g = torch.Generator(device=device).manual_seed(0)
     res = {}
@@ -2295,6 +2319,10 @@ def hold_fft_sizes(torch, device) -> dict:
         fft_in_turns(torch, res[f"fft_n{n}"], lambda: fft._fft_cuda(x, False),
                      lambda: torch.fft.fft(x, norm="ortho"),
                      lambda: torch.fft.fft(x, norm="backward"))
+        if n > fft.PASS_MAX_N:
+            res[f"fft_n{n}"]["splits"] = route_splits(torch, x)
+            log(f"big_nsc fft {n} splits, in-kernel ms: "
+                + fmt_turns(res[f"fft_n{n}"]["splits"]))
         del x
     log_kernels("big_nsc fft", res)
     return res
@@ -2304,13 +2332,14 @@ def run_big_nsc(torch, device) -> dict:
     """RxPipeline.rx_capture_sc16 at n_sc = BIG_NSC (QPSK, CP n/8, 2 data
     symbols): the TX builds the captures on the card, the stages and
     kernels on the whole batch (the levels route's kernels and the
-    four-step route's transposes each against its plain step), then the
+    two-pass route's passes each against its plain step), then the
     slice: every frame bit-exact, equal to the plain-forced run, every
     kernel of big_path launched and none of the other route's. Last, K3
     alone at N = 4096 .. 65536."""
     from ofdm_uhd_tpu_torch.core.spec import WaveformSpec
     from ofdm_uhd_tpu_torch.kernels import policy
-    routes = {"scfront", "sc_leaves", "sc_level", "sc_out", "fft_transpose"}
+    routes = {"scfront", "sc_leaves", "sc_level", "sc_out", "fft",
+              "fft_columns", "fft_rows_t"}
     out = {"kernels": {}, "slices": {}, "stages_ms": {},
            "launches": dict.fromkeys(policy.KERNELS, 0),
            "tx_launches": dict.fromkeys(policy.KERNELS, 0)}
@@ -2325,13 +2354,13 @@ def run_big_nsc(torch, device) -> dict:
                                                 max_frames, path)
         kernels = phase_kernels(torch, spec, label, ins, tuple(
             k for k in path if k in ("scfront", "localize", "extract", "fft",
-                                     "viterbi", "viterbi_windowed")))
+                                     "viterbi", "viterbi_windowed"))
+            + (("fft",) if "fft_columns" in path else ()))
         if "sc_leaves" in path:
             kernels.update(hold_sc_levels(torch, label, ins["cap"], n // 2))
-        if "fft_transpose" in path:
+        if "fft_columns" in path:
             syms, st = ins["syms"], ins["start"]
-            kernels.update(hold_transposes(torch, label,
-                                           syms[..., st:st + n]))
+            kernels.update(hold_passes(torch, label, syms[..., st:st + n]))
         del ins
         sl = phase_slice(torch, spec, label, iq, iq ^ 1, pays, max_frames,
                          path, sc16=True, absent=tuple(routes - set(path)))

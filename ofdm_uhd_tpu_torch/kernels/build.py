@@ -43,8 +43,10 @@ _SIGNATURES = {
     "ofdm_viterbi_windowed_warp": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, y, twiddles, rows, log2n, inverse, stream
     "ofdm_fft": [_P, _P, _P, _I, _I, _I, _P],
-    # x, y, twiddles (or null), rows, r, c, conj_tw, stream
-    "ofdm_fft_transpose": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, y, twiddles, route twiddles, rows, log2n1, log2n2, inverse, stream
+    "ofdm_fft_columns": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, y, twiddles, rows, log2n1, log2n2, inverse, stream
+    "ofdm_fft_rows_t": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, y, twiddles, rows, log2n, inverse, in_stride, in_off, cp, stream
     "ofdm_fft_cp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # m, p, cand, d, eps, caps, nd, mf, span, cp_half, rel, stream

@@ -1,7 +1,7 @@
 // Batched orthonormal FFT / IFFT along rows, complex64, for power-of-two
-// lengths 2..4096 in one launch (the chain uses N = 256 on RX and TX at C3
-// and C5, 1024 at C4, 64 at C2), its two CP-fused forms, and the
-// transpose-twiddle kernel of the four-step route for N >= 8192.
+// lengths 2..8192 in one launch (the chain uses N = 256 on RX and TX at C3
+// and C5, 1024 at C4, 64 at C2), its two CP-fused forms, and the two
+// passes of the route above 8192 points.
 //
 // Replaces:
 //   ofdm_fft (K3): ofdm_uhd_tpu/kernels/pallas_fft.py:185 fft_pallas
@@ -72,15 +72,27 @@
 // no path runs, is not tuned: there a warp spans 16 or more transforms,
 // so each load instruction uses part of every sector it touches.
 //
-// Above 4096 points (kernels/fft.py route) a transform is N = N1 N2 in
-// five launches: a transpose of each row's [N1, N2] view, K3 on rows of
-// N1, a transpose with the twiddles W_N^(n2 k1), K3 on rows of N2, and a
-// transpose into the natural order. ofdm_fft_transpose serves all three:
-// a block moves one 32 x 32 tile through shared memory, so both its reads
-// and its writes are whole 256-byte rows of a warp; the twiddle table
-// (kernels/fft.py four_step_twiddle_table, from float64) is read in the
-// input's layout, coalesced. Each launch moves the whole row once, so the
-// route moves ~5x the bytes of one launch.
+// N = 8192 is one launch too: a transform of 512 threads, one a block,
+// its exchanges (68 KB) in dynamic shared memory.
+//
+// Above one launch (kernels/fft.py route) a transform is N = N1 N2 in two
+// launches, each reading and writing every row once, with no transpose
+// launch: a column pass (ofdm_fft_columns) takes the N1-point transforms
+// over each row's [N1, N2] view at element stride N2, multiplies them by
+// W_N^(n2 k1) and stores them in place of their inputs' layout; a row pass
+// (ofdm_fft_rows_t) takes the N2-point transforms of the rows that leaves
+// and stores Z[k1, k2] at X[k1 + N1 k2] through a shared tile, so that the
+// output is in natural order. Both passes run the same Stockham body; the
+// designs of their loads and stores are at the kernels. Each pass moves
+// the row once, so the route's floor is twice one launch's bytes. The
+// five-launch route this replaces (a transpose, K3 on rows of N1, a
+// transpose with the twiddles, K3 on rows of N2, a transpose) moved the
+// row five times. Measured by chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W),
+// in-kernel on 2^23 samples: 8192 in one launch 0.057 ms (two passes
+// 0.100; the one-pass byte bound 0.040); 16384-65536 in two passes
+// 0.101-0.103 at N2 = 512, 0.104-0.107 at 1024, 0.11-0.22 at 2048 and
+// 4096 (fewer rows a block, shorter store runs); the five launches took
+// 0.239-0.243, torch.fft.fft(norm="ortho") 0.101-0.154.
 #include <cmath>
 
 #include "ofdm_kernels.h"
@@ -88,7 +100,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxLog2N = 12;
+constexpr int kMaxLog2N = 13;       // one launch of K3 (512 threads at 13)
+constexpr int kMaxPassLog2N = 12;   // each pass of the two-pass route
 
 constexpr float kR2 = 0.70710678118654752f;    // 1 / sqrt(2)
 constexpr float kC16 = 0.92387953251128674f;   // cos(pi / 8)
@@ -191,15 +204,20 @@ struct Dft {
 };
 
 // The plan for N = 2^L: E samples a thread, T threads a transform, passes
-// of radix 16 and then the remaining radix.
+// of radix 16 and then the remaining radix. A block has kThreads threads,
+// or T where one transform needs more (N = 8192: 512).
 template <int L>
 struct Plan {
     static constexpr int N = 1 << L;
     static constexpr int E = N < 16 ? N : 16;
     static constexpr int T = N / E;
     static constexpr int kPasses = (L + 3) / 4;
-    static constexpr int kPerBlock = kThreads / T;     // transforms a block
+    static constexpr int kBlock = T > kThreads ? T : kThreads;
+    static constexpr int kPerBlock = kBlock / T;       // transforms a block
     static constexpr int kStride = N + N / 16;         // padded, in shared
+    // the exchanges' float2s a block; above 48 KB only as dynamic memory
+    static constexpr int kSmem = kPasses > 1 ? kPerBlock * kStride : 1;
+    static constexpr bool kDynamic = kSmem * 8 > 48 * 1024;
     __host__ __device__ static constexpr int radix(int p) {
         return p + 1 < kPasses ? 16 : N >> (4 * (kPasses - 1));
     }
@@ -234,10 +252,24 @@ __device__ __forceinline__ void fft_pass(float2 (&v)[Plan<L>::E], int t,
     }
 }
 
+// Where sample i of a transform lies in shared memory, from its base: a
+// padded row, one float2 skipped every 16 (Pad: K3, K5 and the row pass),
+// or the C columns of a block interleaved, sample i of column c at i C + c
+// (Cols<C>: the column pass, whose neighbouring lanes hold neighbouring
+// columns).
+struct Pad {
+    static __device__ __forceinline__ int at(int i) { return i + (i >> 4); }
+};
+
+template <int C>
+struct Cols {
+    static __device__ __forceinline__ int at(int i) { return i * C; }
+};
+
 // After pass p: output r of butterfly j goes to (j / NS) NS R + j % NS +
 // r NS of the transform (Stockham's self-sorting order); thread t then
-// reads back samples t + T m. s is the transform's padded shared row.
-template <int L, int P>
+// reads back samples t + T m. s is the transform's base in shared memory.
+template <int L, int P, class Lay>
 __device__ __forceinline__ void exchange(float2 (&v)[Plan<L>::E], int t,
                                          float2* s) {
     using Pl = Plan<L>;
@@ -249,26 +281,40 @@ __device__ __forceinline__ void exchange(float2 (&v)[Plan<L>::E], int t,
 #pragma unroll
         for (int r = 0; r < R; ++r) {
             const int i = d + r * NS;
-            s[i + (i >> 4)] = v[b + r * (E / R)];
+            s[Lay::at(i)] = v[b + r * (E / R)];
         }
     }
     __syncthreads();
 #pragma unroll
     for (int m = 0; m < E; ++m) {
         const int i = t + T * m;
-        v[m] = s[i + (i >> 4)];
+        v[m] = s[Lay::at(i)];
     }
 }
 
-template <int L, int P>
+template <int L, int P, class Lay = Pad>
 __device__ __forceinline__ void fft_passes(float2 (&v)[Plan<L>::E], int t,
                                            float2* s,
                                            const float2* __restrict__ tw) {
     fft_pass<L, P>(v, t, tw);
     if constexpr (P + 1 < Plan<L>::kPasses) {
         if constexpr (P > 0) __syncthreads();    // the last reads are done
-        exchange<L, P>(v, t, s);
-        fft_passes<L, P + 1>(v, t, s, tw);
+        exchange<L, P, Lay>(v, t, s);
+        fft_passes<L, P + 1, Lay>(v, t, s, tw);
+    }
+}
+
+// The block's exchange memory: static up to 48 KB, else dynamic (the
+// launch sets its size).
+template <int L>
+__device__ __forceinline__ float2* plan_smem() {
+    using Pl = Plan<L>;
+    if constexpr (Pl::kDynamic) {
+        extern __shared__ float2 dyn_smem[];
+        return dyn_smem;
+    } else {
+        __shared__ float2 smem[Pl::kSmem];
+        return smem;
     }
 }
 
@@ -276,13 +322,14 @@ __device__ __forceinline__ void fft_passes(float2 (&v)[Plan<L>::E], int t,
 // y[r * (N + cp), + N + cp): the transform's last cp samples, then all N.
 // K3 is the case in_stride = N, in_off = 0, cp = 0.
 template <int L>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Plan<L>::kBlock,
+                                  Plan<L>::kBlock > kThreads ? 1 : 2)
 fft_cp_kernel(const float2* __restrict__ x, float2* __restrict__ y,
               const float2* __restrict__ tw, int rows, int inverse,
               float scale, int in_stride, int in_off, int cp) {
     using Pl = Plan<L>;
     constexpr int N = Pl::N, E = Pl::E, T = Pl::T;
-    __shared__ float2 smem[Pl::kPasses > 1 ? Pl::kPerBlock * Pl::kStride : 1];
+    float2* smem = plan_smem<L>();
     const int t = threadIdx.x % T;
     const int tr = threadIdx.x / T;
     const int row = blockIdx.x * Pl::kPerBlock + tr;
@@ -315,49 +362,105 @@ fft_cp_kernel(const float2* __restrict__ x, float2* __restrict__ y,
 }
 
 
-// The four-step route's transpose (csrc comment at ofdm_fft_transpose):
-// each block moves one 32 x 32 tile of a row's [r, c] view through shared
-// memory (padded to 33 columns, so that the column reads are free of bank
-// conflicts), reading and writing 256 B a warp-row, coalesced;
-// y[b, j, i] = x[b, i, j] * tw[i * c + j] (conjugated for the inverse),
-// or x[b, i, j] where tw is null.
-constexpr int kTile = 32;
-constexpr int kTileRows = 8;           // 256 threads, 4 samples each
-
-__global__ void __launch_bounds__(kTile * kTileRows)
-transpose_twiddle_kernel(const float2* __restrict__ x, float2* __restrict__ y,
-                         const float2* __restrict__ tw, int r, int c,
-                         int conj_tw, long long tiles_r, long long tiles_c) {
-    __shared__ float2 tile[kTile][kTile + 1];
-    const long long per_row = tiles_r * tiles_c;
-    const long long b = blockIdx.x / per_row;
-    const long long k = blockIdx.x - b * per_row;
-    const int i0 = static_cast<int>(k / tiles_c) * kTile;
-    const int j0 = static_cast<int>(k % tiles_c) * kTile;
-    const size_t base = static_cast<size_t>(b) * r * c;
-    const float sign = conj_tw ? -1.0f : 1.0f;
+// The two-pass route above one launch (kernels/fft.py route): N = N1 N2,
+// each row x viewed [N1, N2], n = N2 n1 + n2, and
+//   X[k1 + N1 k2] = sum_n2 W_N2^(n2 k2) W_N^(n2 k1) sum_n1 x[N2 n1 + n2] W_N1^(n1 k1).
+//
+// Column pass: column n2 of each row (N1 samples, element stride N2) is
+// transformed over n1 by the Plan<L1> body, output k1 multiplied by
+// W_N^(n2 k1) (the wrapper's table, laid out [k1, n2] as the pass reads it)
+// and stored at [k1, n2] of the same layout, so that no transpose follows.
+// A block holds C = 256 / T adjacent columns of one row and its lanes run
+// along the columns (lane c of column col0 + c, then t): every load and
+// store of a warp covers whole sectors while C >= 4 (N1 <= 1024), and at
+// N1 <= 16 (T = 1) a thread holds its whole column, so the pass never
+// touches shared memory. Above, the exchanges interleave the columns
+// (Cols<C>), so that a half-warp's lanes hit 16 neighbouring banks.
+template <int L1>
+__global__ void __launch_bounds__(kThreads)
+fft_columns_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                   const float2* __restrict__ tw,
+                   const float2* __restrict__ wn, int groups, int log2n2,
+                   int inverse, float scale) {
+    using Pl = Plan<L1>;
+    constexpr int N1 = Pl::N, E = Pl::E, T = Pl::T, C = kThreads / T;
+    __shared__ float2 smem[Pl::kPasses > 1 ? C * N1 : 1];
+    const int n2 = 1 << log2n2;
+    const int c = threadIdx.x % C;
+    const int t = threadIdx.x / C;
+    const int row = blockIdx.x / groups;
+    const int col = (blockIdx.x - row * groups) * C + c;
+    const bool live = col < n2;    // columns past N2 still meet every barrier
+    const float conj = inverse ? -1.0f : 1.0f;
+    const size_t base = (static_cast<size_t>(row) << (L1 + log2n2)) + col;
+    float2 v[E];
+    if (live) {
 #pragma unroll
-    for (int q = 0; q < kTile; q += kTileRows) {
-        const int i = i0 + threadIdx.y + q;
-        const int j = j0 + threadIdx.x;
-        float2 v = x[base + static_cast<size_t>(i) * c + j];
-        if (tw != nullptr) {
-            float2 w = __ldg(tw + static_cast<size_t>(i) * c + j);
-            w.y *= sign;
-            v = cmul(v, w);
-        }
-        tile[threadIdx.y + q][threadIdx.x] = v;
+        for (int m = 0; m < E; ++m)
+            v[m] = x[base + (static_cast<size_t>(t + T * m) << log2n2)];
+    } else {
+#pragma unroll
+        for (int m = 0; m < E; ++m) v[m] = make_float2(0.0f, 0.0f);
     }
-    __syncthreads();
 #pragma unroll
-    for (int q = 0; q < kTile; q += kTileRows) {
-        const int j = j0 + threadIdx.y + q;
-        const int i = i0 + threadIdx.x;
-        y[base + static_cast<size_t>(j) * r + i] =
-            tile[threadIdx.x][threadIdx.y + q];
+    for (int m = 0; m < E; ++m) v[m].y *= conj;
+    fft_passes<L1, 0, Cols<C>>(v, t, smem + c, tw);
+    if (!live) return;
+    const float im = conj * scale;
+#pragma unroll
+    for (int m = 0; m < E; ++m) {
+        const size_t k1 = static_cast<size_t>(t + T * m) << log2n2;
+        const float2 o = cmul(v[m], __ldg(wn + k1 + col));
+        y[base + k1] = make_float2(o.x * scale, o.y * im);
     }
 }
 
+// Row pass: row k1 of the column pass's output (N2 contiguous samples) is
+// transformed by the Plan<L2> body and Z[k1, k2] is stored at X[k1 + N1 k2].
+// A block holds P = kPerBlock transforms, rows k1_0 .. k1_0 + P - 1 of one
+// row (N1 % P == 0), and stores them through a shared tile laid out
+// [k2][P]: lane q of the block writes output q % P of k2 = q / P, so each
+// warp's store is 32 / P runs of P adjacent samples, whole 32-byte sectors
+// from P = 4 (N2 <= 1024; the route's N2 = 512 gives 64-byte runs). The
+// tile (index q padded by q / 16, free of bank conflicts for P = 8, 4 and
+// 2) takes the exchange memory once the last exchange is read.
+template <int L2>
+__global__ void __launch_bounds__(kThreads, 2)
+fft_rows_t_kernel(const float2* __restrict__ x, float2* __restrict__ y,
+                  const float2* __restrict__ tw, int log2n1, int inverse,
+                  float scale) {
+    using Pl = Plan<L2>;
+    constexpr int N2 = Pl::N, E = Pl::E, T = Pl::T, P = Pl::kPerBlock;
+    constexpr int kTileLen = P * N2;                  // = kThreads * E
+    __shared__ float2 smem[kTileLen + kTileLen / 16];
+    const int t = threadIdx.x % T;
+    const int tr = threadIdx.x / T;
+    const size_t g0 = static_cast<size_t>(blockIdx.x) * P;  // b N1 + k1_0
+    const float conj = inverse ? -1.0f : 1.0f;
+    float2 v[E];
+    const float2* src = x + ((g0 + tr) << L2) + t;
+#pragma unroll
+    for (int m = 0; m < E; ++m) v[m] = src[m * T];
+#pragma unroll
+    for (int m = 0; m < E; ++m) v[m].y *= conj;
+    fft_passes<L2, 0>(v, t, smem + tr * Pl::kStride, tw);
+    if constexpr (Pl::kPasses > 1) __syncthreads();   // exchange reads done
+    const float im = conj * scale;
+#pragma unroll
+    for (int m = 0; m < E; ++m) {
+        const int q = (t + T * m) * P + tr;
+        smem[q + (q >> 4)] = make_float2(v[m].x * scale, v[m].y * im);
+    }
+    __syncthreads();
+    const size_t b = g0 >> log2n1;
+    const size_t k1_0 = g0 & ((size_t{1} << log2n1) - 1);
+    float2* dst = y + (b << (log2n1 + L2)) + k1_0;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+        const int q = threadIdx.x + kThreads * i;
+        dst[(static_cast<size_t>(q / P) << log2n1) + q % P] = smem[q + (q >> 4)];
+    }
+}
 float ortho_scale(int log2n) {
     return static_cast<float>(
         1.0 / std::sqrt(static_cast<double>(1 << log2n)));
@@ -367,8 +470,17 @@ template <int L>
 int launch(const float2* x, float2* y, const float2* tw, int rows,
            int inverse, int in_stride, int in_off, int cp,
            cudaStream_t stream) {
-    constexpr int per = Plan<L>::kPerBlock;
-    fft_cp_kernel<L><<<(rows + per - 1) / per, kThreads, 0, stream>>>(
+    using Pl = Plan<L>;
+    constexpr int per = Pl::kPerBlock;
+    int smem = 0;
+    if constexpr (Pl::kDynamic) {
+        smem = Pl::kSmem * static_cast<int>(sizeof(float2));
+        const cudaError_t err = cudaFuncSetAttribute(
+            fft_cp_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    fft_cp_kernel<L><<<(rows + per - 1) / per, Pl::kBlock, smem, stream>>>(
         x, y, tw, rows, inverse, ortho_scale(L), in_stride, in_off, cp);
     return static_cast<int>(cudaGetLastError());
 }
@@ -390,8 +502,80 @@ int launch_any(const float2* x, float2* y, const float2* tw, int rows,
     case 10: return launch<10>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
     case 11: return launch<11>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
     case 12: return launch<12>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
+    case 13: return launch<13>(x, y, tw, rows, inverse, in_stride, in_off, cp, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
     }
+}
+
+// The route's passes over `rows` rows of N = 2^(log2n1 + log2n2); l is the
+// pass's own transform (L1 for the column pass, L2 for the row pass).
+struct Route {
+    const float2* x;
+    float2* y;
+    const float2* tw;      // the pass's plan table
+    const float2* wn;      // the column pass's W_N^(n2 k1), [k1, n2]
+    int rows, log2n1, log2n2, inverse;
+    cudaStream_t stream;
+};
+
+template <int L1>
+int launch_columns(const Route& r) {
+    constexpr int C = kThreads / Plan<L1>::T;
+    const long long groups = ((1LL << r.log2n2) + C - 1) / C;
+    const long long blocks = r.rows * groups;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    fft_columns_kernel<L1><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             r.stream>>>(
+        r.x, r.y, r.tw, r.wn, static_cast<int>(groups), r.log2n2, r.inverse,
+        ortho_scale(L1));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int L2>
+int launch_rows_t(const Route& r) {
+    constexpr int P = Plan<L2>::kPerBlock;
+    if ((1 << r.log2n1) % P) return static_cast<int>(cudaErrorInvalidValue);
+    const long long blocks = (static_cast<long long>(r.rows) << r.log2n1) / P;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    fft_rows_t_kernel<L2><<<static_cast<unsigned>(blocks), kThreads, 0,
+                            r.stream>>>(r.x, r.y, r.tw, r.log2n1, r.inverse,
+                                        ortho_scale(L2));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// One of the two passes at its transform's log2 l in 1..kMaxPassLog2N.
+template <template <int> class Pass>
+int launch_pass(int l, const Route& r) {
+    switch (l) {
+    case 1: return Pass<1>::run(r);
+    case 2: return Pass<2>::run(r);
+    case 3: return Pass<3>::run(r);
+    case 4: return Pass<4>::run(r);
+    case 5: return Pass<5>::run(r);
+    case 6: return Pass<6>::run(r);
+    case 7: return Pass<7>::run(r);
+    case 8: return Pass<8>::run(r);
+    case 9: return Pass<9>::run(r);
+    case 10: return Pass<10>::run(r);
+    case 11: return Pass<11>::run(r);
+    case 12: return Pass<12>::run(r);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+template <int L>
+struct ColumnsPass {
+    static int run(const Route& r) { return launch_columns<L>(r); }
+};
+
+template <int L>
+struct RowsTPass {
+    static int run(const Route& r) { return launch_rows_t<L>(r); }
+};
+
+bool route_ok(int rows, int log2n1, int log2n2) {
+    return rows > 0 && log2n1 >= 1 && log2n1 <= kMaxPassLog2N
+        && log2n2 >= 1 && log2n2 <= kMaxPassLog2N;
 }
 
 }  // namespace
@@ -409,25 +593,33 @@ OFDM_API int ofdm_fft_cp(const float2* x, float2* y, const float2* twiddles,
                          int rows, int log2n, int inverse, int in_stride,
                          int in_off, int cp, void* stream) {
     if (rows <= 0) return 0;
-    if (log2n < 1 || log2n > kMaxLog2N || cp < 0 || cp > (1 << log2n)
+    if (log2n < 1 || log2n > kMaxPassLog2N || cp < 0 || cp > (1 << log2n)
             || in_off < 0 || in_stride < in_off + (1 << log2n))
         return static_cast<int>(cudaErrorInvalidValue);
     return launch_any(x, y, twiddles, rows, log2n, inverse, in_stride, in_off,
                       cp, stream);
 }
 
-OFDM_API int ofdm_fft_transpose(const float2* x, float2* y,
-                                const float2* twiddles, int rows, int r,
-                                int c, int conj_tw, void* stream) {
+OFDM_API int ofdm_fft_columns(const float2* x, float2* y,
+                              const float2* twiddles,
+                              const float2* route_twiddles, int rows,
+                              int log2n1, int log2n2, int inverse,
+                              void* stream) {
     if (rows <= 0) return 0;
-    if (r <= 0 || c <= 0 || r % kTile || c % kTile)
+    if (!route_ok(rows, log2n1, log2n2))
         return static_cast<int>(cudaErrorInvalidValue);
-    const long long tiles_r = r / kTile, tiles_c = c / kTile;
-    const long long blocks = rows * tiles_r * tiles_c;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    transpose_twiddle_kernel<<<static_cast<unsigned>(blocks),
-                               dim3(kTile, kTileRows), 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        x, y, twiddles, r, c, conj_tw, tiles_r, tiles_c);
-    return static_cast<int>(cudaGetLastError());
+    const Route r{x, y, twiddles, route_twiddles, rows, log2n1, log2n2,
+                  inverse, static_cast<cudaStream_t>(stream)};
+    return launch_pass<ColumnsPass>(log2n1, r);
+}
+
+OFDM_API int ofdm_fft_rows_t(const float2* x, float2* y,
+                             const float2* twiddles, int rows, int log2n1,
+                             int log2n2, int inverse, void* stream) {
+    if (rows <= 0) return 0;
+    if (!route_ok(rows, log2n1, log2n2))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Route r{x, y, twiddles, nullptr, rows, log2n1, log2n2, inverse,
+                  static_cast<cudaStream_t>(stream)};
+    return launch_pass<RowsTPass>(log2n2, r);
 }

@@ -34,18 +34,29 @@ OFDM_API int ofdm_viterbi_windowed_warp(const float* llr, uint8_t* bits,
                                         int ov, int e, void* stream);
 
 // Orthonormal FFT/IFFT along rows (a Stockham FFT in registers, log2n in
-// 1..12): x, y [rows, 2^log2n] complex64 (float2), twiddles: the plan's
+// 1..13): x, y [rows, 2^log2n] complex64 (float2), twiddles: the plan's
 // table (kernels/fft.py twiddle_table; empty for log2n <= 4).
 OFDM_API int ofdm_fft(const float2* x, float2* y, const float2* twiddles,
                       int rows, int log2n, int inverse, void* stream);
 
-// The four-step route's transpose: x [rows, r, c] -> y [rows, c, r]
-// complex64, y[b, j, i] = x[b, i, j] * twiddles[i * c + j] (conjugated
-// where conj_tw), or x[b, i, j] where twiddles is null; r, c multiples
-// of 32.
-OFDM_API int ofdm_fft_transpose(const float2* x, float2* y,
-                                const float2* twiddles, int rows, int r,
-                                int c, int conj_tw, void* stream);
+// The column pass of the two-pass route (N = N1 N2, log2n1 and log2n2 in
+// 1..12): x, y [rows, N1, N2] complex64; column n2 of each row transformed
+// over n1 (ortho scale 1/sqrt N1; the inverse where `inverse`), output k1
+// times route_twiddles[k1 N2 + n2] = W_N^(n2 k1) (conjugated for the
+// inverse), stored at [k1, n2]. twiddles: the N1-point plan's table.
+OFDM_API int ofdm_fft_columns(const float2* x, float2* y,
+                              const float2* twiddles,
+                              const float2* route_twiddles, int rows,
+                              int log2n1, int log2n2, int inverse,
+                              void* stream);
+
+// The row pass: x [rows, N1, N2] -> y [rows, N], row k1 of x transformed
+// (scale 1/sqrt N2), output k2 stored at y[k1 + N1 k2]. twiddles: the
+// N2-point plan's table. N1 must be a multiple of the rows a block holds
+// (4096 / N2 for N2 >= 16, else 256).
+OFDM_API int ofdm_fft_rows_t(const float2* x, float2* y,
+                             const float2* twiddles, int rows, int log2n1,
+                             int log2n2, int inverse, void* stream);
 
 // The same transform with the CP fused in: row r reads x[r * in_stride +
 // in_off, + n) and writes y[r * (n + cp), + n + cp), the transform's last

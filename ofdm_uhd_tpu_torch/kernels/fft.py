@@ -3,8 +3,7 @@ plain versions.
 
   fft / ifft (K3): replace ofdm_uhd_tpu/kernels/pallas_fft.py:fft_pallas;
       complex64 [..., N] -> [..., N], power-of-two N from 2 to 2^24: one
-      launch up to 4096 (ONE_LAUNCH_N), the four-step route above
-      (`route`).
+      launch up to ONE_LAUNCH_N, two passes above (`route`).
   cp_strip_fft (K5, RX): replaces pallas_fft.py:cp_strip_fft_pallas;
       symbol rows [..., in_len] -> the FFT of [..., start:start+n].
   ifft_cp (K5, TX): replaces pallas_fft.py:ifft_cp_pallas; grid rows
@@ -21,15 +20,19 @@ concatenation pass remains. The wrapper hands the kernel its twiddle table
 (`twiddle_table`). The plain versions are torch.fft with norm='ortho' (and
 torch.cat); the kernels never call cuFFT.
 
-Above 4096 points a transform takes five launches (`route`): with N = N1
-N2, N1 = 2^ceil(k/2) and N2 = 2^floor(k/2) (both <= 4096 up to 2^24), each
-row viewed [N1, N2] is transposed to [N2, N1], transformed in rows of N1
-by K3, multiplied by W_N^(n2 k1) and transposed back (one launch of the
-transpose-twiddle kernel, `ofdm_fft_transpose`), transformed in rows of
-N2, and transposed to the natural output order. The two ortho scales
-multiply to 1/sqrt N; the inverse takes K3's inverse and the conjugate
-twiddles. `four_step_plain` runs the same route through the plain
-versions of its steps.
+Above ONE_LAUNCH_N a transform takes two launches (`route`), each
+reading and writing every row once: with N = N1 N2 and each row viewed
+[N1, N2] (n = N2 n1 + n2), the column pass (`ofdm_fft_columns`) takes the
+N1-point transform of each column at element stride N2, multiplies output
+k1 by W_N^(n2 k1) (`route_twiddle_table`, from float64) and stores it at
+[k1, n2]; the row pass (`ofdm_fft_rows_t`) takes the N2-point transform
+of each row k1 and stores output k2 at X[k1 + N1 k2], the natural order,
+through a shared tile. N2 = ROW_N (512) while N1 = N / ROW_N <= 4096,
+above that N1 = 4096: chip_smoke.py's route_splits times every split
+(PERF.md), and N2 = 512 was the fastest at 8192-65536. The two ortho scales multiply to 1/sqrt N; the
+inverse takes K3's inverse and the conjugate twiddles. `two_pass_plain`
+runs the same route through the plain versions of its steps
+(`columns_plain`, `rows_t_plain`).
 """
 
 from __future__ import annotations
@@ -41,8 +44,10 @@ import torch
 
 from . import build, policy
 
-ONE_LAUNCH_N = 4096  # K3's one-launch plans (csrc/fft.cu kMaxLog2N = 12)
-MAX_N = 1 << 24     # the four-step route: N1, N2 <= ONE_LAUNCH_N
+ONE_LAUNCH_N = 8192  # K3 in one launch (csrc/fft.cu kMaxLog2N = 13)
+PASS_MAX_N = 4096   # each pass of the route above (kMaxPassLog2N = 12)
+ROW_N = 512         # the row pass's transform, where n <= ROW_N PASS_MAX_N
+MAX_N = 1 << 24     # the route: N1, N2 <= PASS_MAX_N
 MAX_CP_N = 512      # the K5 forms: n <= 512, as the reference routes them
 
 
@@ -81,59 +86,105 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 def route(n: int) -> list[tuple]:
     """The launches of an n-point transform: [("fft", n)] up to
-    ONE_LAUNCH_N; above, the four-step route over n = n1 * n2 (n1 =
-    2^ceil(k/2), n2 = 2^floor(k/2)): ("transpose", r, c, twiddle) moves
-    each row's [r, c] view to [c, r] (times W_n^(i j) where twiddle),
-    ("fft", m) transforms rows of m."""
+    ONE_LAUNCH_N; above, two passes over n = n1 * n2, n2 = ROW_N where
+    that leaves n1 <= PASS_MAX_N (else n2 = n / PASS_MAX_N):
+    ("columns", n1, n2) transforms each row's [n1, n2] view along n1
+    and multiplies by W_n^(n2 k1), ("rows_t", n1, n2) transforms along
+    n2 and stores Z[k1, k2] at [k1 + n1 k2]."""
     if n < 2 or n > MAX_N or n & (n - 1):
         raise ValueError(f"fft: N must be a power of two in [2, {MAX_N}], "
                          f"got {n}")
     if n <= ONE_LAUNCH_N:
         return [("fft", n)]
-    k = n.bit_length() - 1
-    n1, n2 = 1 << ((k + 1) // 2), 1 << (k // 2)
-    return [("transpose", n1, n2, False), ("fft", n1),
-            ("transpose", n2, n1, True), ("fft", n2),
-            ("transpose", n1, n2, False)]
+    n2 = max(min(ROW_N, PASS_MAX_N, n // 2), n // PASS_MAX_N)
+    return [("columns", n // n2, n2), ("rows_t", n // n2, n2)]
 
 
-def four_step_twiddle_table(n: int) -> np.ndarray:
-    """W_n^(i j) = exp(-2 pi i i j / n) at [i * n1 + j], i < n2, j < n1
-    (the route's middle transpose reads it as its input is laid out), from
-    float64 cast to complex64."""
-    _, n2, n1, _ = route(n)[2]
-    k = np.arange(n2)[:, None] * np.arange(n1)
+def route_twiddle_table(n1: int, n2: int) -> np.ndarray:
+    """W_n^(j k1) = exp(-2 pi i j k1 / n), n = n1 n2, at [k1 * n2 + j],
+    k1 < n1, j < n2 (the column pass reads it in its output's layout),
+    from float64 cast to complex64."""
+    n = n1 * n2
+    k = (np.arange(n1, dtype=np.int64)[:, None] * np.arange(n2)) % n
     return np.exp(-2j * np.pi * k / n).ravel().astype(np.complex64)
 
 
 @functools.lru_cache(maxsize=8)
-def _four_step_twiddles(n: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(four_step_twiddle_table(n)).to(device)
+def _route_twiddles(n1: int, n2: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(route_twiddle_table(n1, n2)).to(device)
 
 
-def transpose_plain(x: torch.Tensor, r: int, c: int,
-                    tw: torch.Tensor | None, inverse: bool) -> torch.Tensor:
-    """Rows [B, r * c] viewed [B, r, c] -> [B, c * r], y[b, j, i] =
-    x[b, i, j] * tw[i * c + j] (conjugated for the inverse; none where tw
-    is None)."""
-    y = x.reshape(-1, r, c)
-    if tw is not None:
-        y = y * (tw.conj() if inverse else tw).reshape(r, c)
-    return y.transpose(1, 2).reshape(-1, r * c)
+def rows_per_block(n2: int) -> int:
+    """The n2-point transforms a block of the row pass holds (csrc/fft.cu
+    Plan::kPerBlock); n1 must be a multiple of it."""
+    return 4096 // n2 if n2 >= 16 else 256
 
 
-def _transpose_cuda(x: torch.Tensor, r: int, c: int,
-                    tw: torch.Tensor | None, inverse: bool) -> torch.Tensor:
-    """One launch of the transpose-twiddle kernel on contiguous rows."""
-    build.check_inputs("fft_transpose", x)
+def columns_plain(x: torch.Tensor, n1: int, n2: int, tw: torch.Tensor,
+                  inverse: bool) -> torch.Tensor:
+    """Rows [B, n1 * n2] viewed [B, n1, n2]: each column's n1-point
+    transform (fft_plain), output k1 times tw[k1 * n2 + j] (conjugated for
+    the inverse), in the same layout."""
+    y = fft_plain(x.reshape(-1, n1, n2).transpose(1, 2), inverse)
+    w = (tw.conj() if inverse else tw).reshape(n1, n2)
+    return (y.transpose(1, 2) * w).reshape(-1, n1 * n2)
+
+
+def rows_t_plain(x: torch.Tensor, n1: int, n2: int,
+                 inverse: bool) -> torch.Tensor:
+    """Rows [B, n1 * n2] viewed [B, n1, n2]: each row's n2-point transform
+    Z[k1, k2] (fft_plain), stored at [k1 + n1 k2]."""
+    z = fft_plain(x.reshape(-1, n1, n2), inverse)
+    return z.transpose(1, 2).reshape(-1, n1 * n2)
+
+
+def _check_pass(kernel: str, x: torch.Tensor, n1: int, n2: int) -> None:
+    for m in (n1, n2):
+        if m < 2 or m > PASS_MAX_N or m & (m - 1):
+            raise ValueError(f"{kernel}: n1 and n2 must be powers of two in "
+                             f"[2, {PASS_MAX_N}], got {n1} x {n2}")
+    if x.dtype != torch.complex64 or x.dim() < 1 or x.shape[-1] != n1 * n2:
+        raise ValueError(f"{kernel}: need complex64 [..., {n1 * n2}], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+
+
+def _columns_cuda(x: torch.Tensor, n1: int, n2: int, tw: torch.Tensor,
+                  inverse: bool) -> torch.Tensor:
+    """One launch of the column pass on contiguous rows [..., n1 * n2]."""
+    _check_pass("fft_columns", x, n1, n2)
+    if tw.dtype != torch.complex64 or tw.numel() != n1 * n2:
+        raise ValueError(f"fft_columns: need the {n1} x {n2} complex64 "
+                         f"route twiddles, got {tw.dtype} {tuple(tw.shape)}")
+    build.check_inputs("fft_columns", x, tw)
     y = torch.empty_like(x)
     lib = build.library()
-    err = lib.ofdm_fft_transpose(x.data_ptr(), y.data_ptr(),
-                                 None if tw is None else tw.data_ptr(),
-                                 x.numel() // (r * c), r, c, int(inverse),
-                                 build.stream_ptr(x.device))
-    build.check(err, "fft_transpose")
-    policy.count_launch("fft_transpose")
+    err = lib.ofdm_fft_columns(x.data_ptr(), y.data_ptr(),
+                               _twiddles(n1, x.device).data_ptr(),
+                               tw.data_ptr(), x.numel() // (n1 * n2),
+                               n1.bit_length() - 1, n2.bit_length() - 1,
+                               int(inverse), build.stream_ptr(x.device))
+    build.check(err, "fft_columns")
+    policy.count_launch("fft_columns")
+    return y
+
+
+def _rows_t_cuda(x: torch.Tensor, n1: int, n2: int,
+                 inverse: bool) -> torch.Tensor:
+    """One launch of the row pass on contiguous rows [..., n1 * n2]."""
+    _check_pass("fft_rows_t", x, n1, n2)
+    if n1 % rows_per_block(n2):
+        raise ValueError(f"fft_rows_t: n1 = {n1} is not a multiple of the "
+                         f"{rows_per_block(n2)} rows a block holds")
+    build.check_inputs("fft_rows_t", x)
+    y = torch.empty_like(x)
+    lib = build.library()
+    err = lib.ofdm_fft_rows_t(x.data_ptr(), y.data_ptr(),
+                              _twiddles(n2, x.device).data_ptr(),
+                              x.numel() // (n1 * n2), n1.bit_length() - 1,
+                              n2.bit_length() - 1, int(inverse),
+                              build.stream_ptr(x.device))
+    build.check(err, "fft_rows_t")
+    policy.count_launch("fft_rows_t")
     return y
 
 
@@ -152,33 +203,36 @@ def _fft_launch(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     return y
 
 
-def _run_route(x: torch.Tensor, inverse: bool, sub_fft, transpose
+def _run_route(x: torch.Tensor, inverse: bool, one, columns, rows_t
                ) -> torch.Tensor:
     """x [..., n] through route(n), each step by the given functions."""
     n = x.shape[-1]
     y = x.reshape(-1, n)
     for step in route(n):
         if step[0] == "fft":
-            m = step[1]
-            y = sub_fft(y.reshape(-1, m), inverse).reshape(-1, n)
+            y = one(y, inverse)
+        elif step[0] == "columns":
+            _, n1, n2 = step
+            y = columns(y, n1, n2, _route_twiddles(n1, n2, y.device),
+                        inverse)
         else:
-            _, r, c, twiddle = step
-            tw = _four_step_twiddles(n, y.device) if twiddle else None
-            y = transpose(y, r, c, tw, inverse)
+            _, n1, n2 = step
+            y = rows_t(y, n1, n2, inverse)
     return y.reshape(x.shape)
 
 
-def four_step_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def two_pass_plain(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """The kernels' route for x [..., n] through the plain versions of its
-    steps (fft_plain, transpose_plain); fft_plain's function."""
-    return _run_route(x, inverse, fft_plain, transpose_plain)
+    steps (fft_plain, columns_plain, rows_t_plain); fft_plain's
+    function."""
+    return _run_route(x, inverse, fft_plain, columns_plain, rows_t_plain)
 
 
 def _fft_cuda(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     if x.dtype != torch.complex64:
         raise ValueError(f"fft: need complex64, got {x.dtype}")
     build.check_inputs("fft", x)
-    return _run_route(x, inverse, _fft_launch, _transpose_cuda)
+    return _run_route(x, inverse, _fft_launch, _columns_cuda, _rows_t_cuda)
 
 
 def cp_strip_fft_plain(x: torch.Tensor, start: int, n: int) -> torch.Tensor:

@@ -40,12 +40,12 @@ import torch
 # ("shift_sc": its S&C correlator, served by the sccorr kernel); nor runs
 # any path "banded_*" (kernels/banded.py, K8), "ilv_*" (research/fir_ilv.py,
 # K13, on the same kernel source) or "deframe" (research/deframe.py, K12);
-# "fft_transpose" counts the four-step FFT route's transpose-twiddle
-# kernel (N > 4096), "sc_leaves", "sc_level" and "sc_out" the S&C levels
-# route (l > 4096), "viterbi_windowed_warp" K4w's previous body, the A/B
+# "fft_columns" and "fft_rows_t" count the two passes of K3's route above
+# one launch, "sc_leaves", "sc_level" and "sc_out" the S&C levels route
+# (l > 4096), "viterbi_windowed_warp" K4w's previous body, the A/B
 # baseline no path runs
-KERNELS = ("localize", "extract", "fft", "fft_transpose", "viterbi",
-           "viterbi_windowed", "viterbi_windowed_warp",
+KERNELS = ("localize", "extract", "fft", "fft_columns", "fft_rows_t",
+           "viterbi", "viterbi_windowed", "viterbi_windowed_warp",
            "fir", "interp", "fir_bf16", "interp_bf16", "scfront", "cpfft",
            "ifftcp", "sccorr", "halo", "shift_fir", "shift_decim",
            "shift_interp", "shift_sc", "banded_fir", "banded_decim",

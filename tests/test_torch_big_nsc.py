@@ -1,9 +1,9 @@
 """FFT sizes and S&C lags above the chain's own: every power-of-two n_sc
 the reference's WaveformSpec accepts runs through the port's kernels.
 
-K3 transforms up to 4096 points in one launch and larger ones by the
-four-step route (kernels/fft.py route: two K3 launches and three of the
-transpose-twiddle kernel); the S&C kernels K6 and K9 sum up to lag 4096
+K3 transforms up to 8192 points in one launch and larger ones by the
+two-pass route (kernels/fft.py route: a column pass that applies the
+twiddles, then a row pass that stores in natural order); the S&C kernels K6 and K9 sum up to lag 4096
 in one tile launch and above it by the levels route (kernels/sync.py
 route: leaves, log2 l doubling levels, the epilogue). Here on the CPU:
 the route plans for every power of two from 2 to 2^20; each route's
@@ -40,21 +40,22 @@ POWERS = [1 << k for k in range(1, 21)]
 
 @pytest.mark.parametrize("n", POWERS)
 def test_fft_route_plans_every_power_of_two(n):
-    """One K3 launch up to 4096 points; above, the four-step route: two
-    K3 launches whose sizes multiply to n, each at most 4096, between
-    three transposes of [r, c] views of n samples, the middle one with
-    the twiddles."""
+    """One K3 launch up to 8192 points; above, two passes, no transpose:
+    the column pass and the row pass over one split n1 x n2 = n, both
+    powers of two of at most 4096 points, n2 = 512 while that leaves n1
+    <= 4096 (above, n1 = 4096), and n1 a multiple of the rows a row-pass
+    block holds."""
     plan = fft.route(n)
-    if n <= fft.ONE_LAUNCH_N:
+    assert fft.ONE_LAUNCH_N == 8192
+    if n <= 8192:
         assert plan == [("fft", n)]
         return
-    assert [s[0] for s in plan] == ["transpose", "fft", "transpose", "fft",
-                                    "transpose"]
-    (_, r0, c0, t0), (_, n1), (_, r1, c1, t1), (_, n2), (_, r2, c2, t2) = plan
-    assert n1 * n2 == n and n1 <= fft.ONE_LAUNCH_N >= n2 and n1 >= n2
-    assert (r0, c0, r1, c1, r2, c2) == (n1, n2, n2, n1, n1, n2)
-    assert (t0, t1, t2) == (False, True, False)
-    assert r0 % 32 == 0 and c0 % 32 == 0      # the transpose's 32 x 32 tiles
+    assert [s[0] for s in plan] == ["columns", "rows_t"]
+    (_, n1, n2), (_, m1, m2) = plan
+    assert (n1, n2) == (m1, m2) and n1 * n2 == n
+    assert n1 <= fft.PASS_MAX_N == 4096 and n2 <= fft.PASS_MAX_N
+    assert n2 == (512 if n <= 512 * 4096 else n // 4096)
+    assert n1 % fft.rows_per_block(n2) == 0
 
 
 @pytest.mark.parametrize("n", [3, 48, 1 << 25, 0])
@@ -86,26 +87,37 @@ def test_sc_route_refuses_other_lags(l):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("n", [8192, 16384, 65536])
 def test_four_step_route_equals_torch_fft(n, inverse):
-    """The four-step route through fft_plain and transpose_plain: within
-    1e-5 of max|y| of torch.fft (norm='ortho'), seeded rows."""
+    """The route through fft_plain, columns_plain and rows_t_plain, and
+    the two passes at the split n / 512 x 512 (8192 takes one launch, the
+    passes 16 x 512): within 1e-5 of max|y| of torch.fft (norm='ortho'),
+    seeded rows."""
     rng = np.random.default_rng(n)
     x = torch.from_numpy((rng.normal(size=(3, n))
                           + 1j * rng.normal(size=(3, n))).astype(np.complex64))
-    got = fft.four_step_plain(x, inverse)
+    n1, n2 = n // 512, 512
+    tw = fft._route_twiddles(n1, n2, x.device)
+    passes = fft.rows_t_plain(fft.columns_plain(x, n1, n2, tw, inverse),
+                              n1, n2, inverse)
     f = torch.fft.ifft if inverse else torch.fft.fft
     want = f(x, norm="ortho")
-    assert got.shape == want.shape and got.dtype == torch.complex64
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for got in (fft.two_pass_plain(x, inverse), passes):
+        assert got.shape == want.shape and got.dtype == torch.complex64
+        assert (float((got - want).abs().max())
+                <= 1e-5 * float(want.abs().max()))
 
 
 def test_four_step_twiddles_are_the_route_factors():
-    """The middle transpose's table holds W_n^(i j) for i < n2, j < n1."""
-    n = 8192
-    _, n2, n1, _ = fft.route(n)[2]
-    tw = fft.four_step_twiddle_table(n).reshape(n2, n1)
-    i, j = 37, 101
-    assert tw.dtype == np.complex64
-    assert abs(tw[i, j] - np.exp(-2j * np.pi * i * j / n)) <= 1e-7
+    """The column pass's table holds W_n^(j k1) at [k1 * n2 + j], k1 < n1,
+    j < n2: the layout the pass reads and writes."""
+    n = 16384
+    (_, n1, n2), _ = fft.route(n)
+    tw = fft.route_twiddle_table(n1, n2)
+    assert tw.dtype == np.complex64 and tw.shape == (n,)
+    tw = tw.reshape(n1, n2)
+    for k1, j in ((0, 0), (5, 101), (n1 - 1, n2 - 1)):
+        assert abs(tw[k1, j] - np.exp(-2j * np.pi * k1 * j / n)) <= 1e-7
+    dev = fft._route_twiddles(n1, n2, torch.device("cpu"))
+    assert np.array_equal(dev.numpy(), tw.ravel())
 
 
 @pytest.mark.parametrize("metric", [False, True])
@@ -153,9 +165,9 @@ def _route_emulations(monkeypatch):
     """The FFT and S&C calls of the chain through the kernels' routes,
     each step by its plain version."""
     from ofdm_uhd_tpu_torch.phy import frame
-    monkeypatch.setattr(frame.K1, "fft", lambda x: fft.four_step_plain(x))
+    monkeypatch.setattr(frame.K1, "fft", lambda x: fft.two_pass_plain(x))
     monkeypatch.setattr(frame.K1, "ifft",
-                        lambda x: fft.four_step_plain(x, True))
+                        lambda x: fft.two_pass_plain(x, True))
     monkeypatch.setattr(psync, "sc_frontend",
                         lambda r, l: ksync.levels_plain(r, l, True))
 

@@ -441,11 +441,12 @@ def test_kernel_registers_reads_ptxas_output():
 def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
     """run_big_nsc at tiny sizes, the routes' thresholds lowered so that
     n_sc = 64 takes one K3 launch and the S&C tile kernel and n_sc = 256
-    the four-step route and the levels route, the wrappers patched to
+    the two-pass route and the levels route, the wrappers patched to
     their plain versions with a launch count: every frame decodes, the
     path's kernels launch (the TX's inverse FFT too) and the other
-    route's never, each levels kernel and transpose is held against its
-    plain step, and the kernels line gets entries for them."""
+    route's never, each levels kernel and each pass is held against its
+    plain step, every split of the route is timed beside one launch, and
+    the kernels line gets entries for them."""
     from ofdm_uhd_tpu_torch.kernels import build, localize, scfront, viterbi
 
     def tile(kernel, flat, nd, l, metric):
@@ -457,7 +458,8 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
     monkeypatch.setattr(build, "check_inputs", lambda *a: None)
     for mod, name, count, fn in (
             (fft, "_fft_launch", "fft", fft.fft_plain),
-            (fft, "_transpose_cuda", "fft_transpose", fft.transpose_plain),
+            (fft, "_columns_cuda", "fft_columns", fft.columns_plain),
+            (fft, "_rows_t_cuda", "fft_rows_t", fft.rows_t_plain),
             (sync, "_leaves_cuda", "sc_leaves", sync.leaves_plain),
             (sync, "_level_cuda", "sc_level", sync.level_plain),
             (sync, "_out_cuda", "sc_out", sync.out_plain),
@@ -468,6 +470,7 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
         monkeypatch.setattr(mod, name, _counted(count, fn))
     monkeypatch.setattr(sync, "_tile_cuda", tile)
     monkeypatch.setattr(fft, "ONE_LAUNCH_N", 128)
+    monkeypatch.setattr(fft, "PASS_MAX_N", 64)
     monkeypatch.setattr(sync, "TILE_MAX_L", 32)
     monkeypatch.setattr(chip_smoke, "BIG_NSC", (64, 256))
     monkeypatch.setattr(chip_smoke, "BIG_CAPS", 2)
@@ -481,19 +484,29 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
     out = chip_smoke.run_big_nsc(torch, torch.device("cpu"))
     launches, tx = out["launches"], out["tx_launches"]
     for k in ("scfront", "sc_leaves", "sc_level", "sc_out", "localize",
-              "extract", "fft", "fft_transpose", "viterbi"):
+              "extract", "fft", "fft_columns", "fft_rows_t", "viterbi"):
         assert launches[k] > 0, k
-    assert tx["fft"] > 0 and tx["fft_transpose"] > 0
+    for k in ("fft", "fft_columns", "fft_rows_t"):
+        assert tx[k] > 0, k
+    for n, ran in ((64, ("fft",)), (256, ("fft_columns", "fft_rows_t"))):
+        got = out["slices"][n]["launches"]
+        assert {k for k in ("fft", "fft_columns", "fft_rows_t")
+                if got[k]} == set(ran)
     assert launches["sc_level"] == 7              # one counted run, l = 128
     assert {f"{k}_256" for k in ("sc_leaves", "sc_level", "sc_out",
-                                 "sc_out_route", "fft_transpose_16x16",
-                                 "fft_transpose_16x16_twiddle")} <= set(
+                                 "sc_out_route", "fft_columns_4x64",
+                                 "fft_rows_t_4x64", "fft")} <= set(
         out["kernels"])
     assert "scfront_64" in out["kernels"] and "fft_n256" in out["kernels"]
+    assert set(out["kernels"]["fft_n128"]["splits"]) == {
+        "16x8", "8x16", "4x32", "2x64", "one_launch"}
+    assert set(out["kernels"]["fft_n256"]["splits"]) == {
+        "32x8", "16x16", "8x32", "4x64"}
     for n in (64, 256):
         assert out["slices"][n]["frames_ok"] == 4
     by_path = chip_smoke.path_launches({"big_nsc": out})
-    for name in ("fft_transpose", "sc_leaves", "sc_level", "sc_out"):
+    for name in ("fft_columns", "fft_rows_t", "sc_leaves", "sc_level",
+                 "sc_out"):
         entry = chip_smoke.kernel_entry(name, {"big_nsc": out}, by_path)
         assert entry["launches"] > 0 and entry["bound_ms"] > 0
 

@@ -122,24 +122,28 @@ def test_fft_kernel_close(dev, n, inverse, rows):
 
 @pytest.mark.parametrize("n", [8192, 32768])
 def test_fft_four_step_route_on_card(dev, n):
-    """Above 4096 points: two K3 launches and three of the
-    transpose-twiddle kernel; each transpose equals its plain version (bit
-    for bit without the twiddle, within 1e-6 of max|y| with it)."""
+    """One launch at 8192, above it one column pass and one row pass a
+    transform, both ways, and no other launch; each pass at the split n /
+    512 x 512 within 1e-5 of max|y| of its plain step, both ways; the row
+    pass refuses an n1 that is not a multiple of the rows its blocks
+    hold."""
     x = torch.randn((5, n), dtype=torch.complex64, generator=_gen(n),
                     device=dev)
-    policy.reset_launches()
-    fft.fft(x)
-    got = policy.launches()
-    assert (got["fft"], got["fft_transpose"]) == (2, 3)
-    for _, r, c, twiddle in [s for s in fft.route(n) if s[0] != "fft"]:
-        tw = fft._four_step_twiddles(n, dev) if twiddle else None
-        for inverse in (False, True):
-            k = fft._transpose_cuda(x, r, c, tw, inverse)
-            p = fft.transpose_plain(x, r, c, tw, inverse)
-            if tw is None:
-                assert torch.equal(k, p)
-            else:
-                _within(k, p, 1e-6)
+    n1, n2 = n // fft.ROW_N, fft.ROW_N
+    tw = fft._route_twiddles(n1, n2, dev)
+    want = ({"fft": 1} if n <= fft.ONE_LAUNCH_N
+            else {"fft_columns": 1, "fft_rows_t": 1})
+    for inverse in (False, True):
+        policy.reset_launches()
+        (fft.ifft if inverse else fft.fft)(x)
+        got = {k: v for k, v in policy.launches().items() if v}
+        assert got == want
+        k = fft._columns_cuda(x, n1, n2, tw, inverse)
+        _within(k, fft.columns_plain(x, n1, n2, tw, inverse))
+        _within(fft._rows_t_cuda(k, n1, n2, inverse),
+                fft.rows_t_plain(k, n1, n2, inverse))
+    with pytest.raises(ValueError):           # 8 rows a block at n2 = 512
+        fft._rows_t_cuda(x[:, :1024].contiguous(), 2, 512, False)
 
 
 @pytest.mark.parametrize("odd", [0, 1])
