@@ -88,6 +88,11 @@ findings on a line of its own:
   held, its previous body (one warp a window, which no path runs) is held
   beside it and both are timed in turns, with their ACS rates; the warp
   body has one counted run of its own on c3_pallas's LLRs (k4w_ab).
+  Wherever the whole-sequence Viterbi kernel (K4) is held (C3, C4,
+  c2_pallas, big_nsc), every group size it takes (4, 8, 16, 32 lanes a
+  sequence) is checked bit for bit and timed in turns with its ACS rate,
+  and the forward pass alone in turns with the whole decode (the
+  traceback's share).
 
   1. device:  a CUDA card must be present; prints the card's name and
               power limit as nvidia-smi reports them;
@@ -791,10 +796,6 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
     rows, n = cap.shape
     l = spec.n_sc // 2
 
-    def vit_close(k, p):
-        bad = int((k != p).sum())
-        return bad == 0, float(bad)
-
     def hold_scfront():
         # S&C front end at l = n_sc / 2 (128 on C3, 512 on C4)
         return held(torch, "scfront", lambda: scfront._scfront_cuda(cap, l),
@@ -892,11 +893,9 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
         return res
 
     def hold_viterbi():
-        # whole-sequence K4: bit-exact with the plain scan
-        b, n2 = llr.shape
-        return held(torch, "viterbi", lambda: viterbi._viterbi_cuda(llr),
-                    lambda: viterbi.viterbi_plain(llr), vit_close, llr.shape,
-                    work_viterbi(b, n2 // 2, b * n2 // 2))
+        # whole-sequence K4: bit-exact with the plain scan at every group
+        # size, timed in turns
+        return hold_k4(torch, llr, label)
 
     def hold_viterbi_windowed():
         # K4w at the fused decoder's 256/64 windows: bit-exact, and the
@@ -912,6 +911,66 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
         got = holds[k]()
         res.update(got if k in ("fft", "viterbi_windowed") else {k: got})
     log_kernels(label, res)
+    return res
+
+
+def hold_k4(torch, llr, label) -> dict:
+    """K4 on llr [B, 2n] against its plain version, bit-exact, at the group
+    size k4_group picks (the timed check) and at every other one (each
+    bit-exact too); all in-kernel in turns (each group size twice,
+    mirrored), each with its ACS rate (state-steps a second: 64 states x B
+    x n steps over the in-kernel time); and the forward alone (no
+    traceback) at the picked size in turns with the whole decode, whose
+    difference is the traceback's share."""
+    from ofdm_uhd_tpu_torch.kernels import viterbi
+
+    def close(k, p):
+        bad = int((k != p).sum())
+        return bad == 0, float(bad)
+    b, n = llr.shape[0], llr.shape[1] // 2
+    group = viterbi.k4_group(b, torch.cuda.get_device_properties(
+        llr.device).multi_processor_count)
+    res = held(torch, "viterbi", lambda: viterbi._viterbi_cuda(llr),
+               lambda: viterbi.viterbi_plain(llr), close, llr.shape,
+               work_viterbi(b, n, b * n))
+    want = viterbi._viterbi_cuda(llr)        # the plain version's bits
+    runs = {}
+    for g in viterbi.K4_GROUPS:
+        ok, bad = close(viterbi._viterbi_cuda(llr, g), want)
+        check(ok, f"{label} viterbi, group {g}: {bad} bits differ from the "
+              "plain version's")
+        runs[f"g{g}"] = lambda g=g: viterbi._viterbi_cuda(llr, g)
+    turns = in_turns(torch, runs, tuple(runs))
+    state_steps = 64.0 * b * n
+    res["group"] = group
+    res["groups"] = {}
+    for g in viterbi.K4_GROUPS:
+        got = [t for t in turns[f"g{g}"] if t is not None]
+        ms = statistics.mean(got) if got else None
+        res["groups"][g] = {"device_ms": ms,
+                            "device_ms_turns": turns[f"g{g}"],
+                            "acs_per_s": (state_steps / (ms * 1e-3)
+                                          if ms else None)}
+    res["device_ms"] = res["groups"][group]["device_ms"]
+    res["acs_per_s"] = res["groups"][group]["acs_per_s"]
+    split = in_turns(torch, {
+        "decode": lambda: viterbi._viterbi_cuda(llr, group),
+        "forward": lambda: viterbi._viterbi_cuda(llr, group,
+                                                 traceback=False)},
+        ("decode", "forward"))
+    means = {k: statistics.mean([t for t in v if t is not None] or [0.0])
+             for k, v in split.items()}
+    res["forward_ms_turns"] = split["forward"]
+    res["traceback_share"] = (1.0 - means["forward"] / means["decode"]
+                              if means["decode"] else None)
+    log(f"{label} K4 on {list(llr.shape)} ({b} sequences of {n} steps), "
+        f"group {group}; in-kernel in turns: {fmt_turns(turns)} ms; ACS "
+        "rate " + ", ".join(
+            f"g{g} {r['acs_per_s']:.3e}" if r["acs_per_s"] else f"g{g} none"
+            for g, r in res["groups"].items())
+        + f" state-steps/s; forward alone vs decode: {fmt_turns(split)} ms"
+        + (f", traceback share {res['traceback_share']:.3f}"
+           if res["traceback_share"] is not None else ""))
     return res
 
 

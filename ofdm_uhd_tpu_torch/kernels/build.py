@@ -28,15 +28,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
            "fir.cu", "fir_bf16.cu", "scfront.cu", "halo.cu", "shift.cu",
            "banded.cu", "deframe.cu")
-HEADERS = ("ofdm_kernels.h", "viterbi_window.cuh")
+HEADERS = ("ofdm_kernels.h", "viterbi_group.cuh", "viterbi_window.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C interface: every entry point returns a cudaError_t (0 = launched)
 _SIGNATURES = {
-    # llr, dec, bits, batch, n, stream
-    "ofdm_viterbi": [_P, _P, _P, _I, _I, _P],
+    # llr, rec, bits, batch, n, group, traceback, stream
+    "ofdm_viterbi": [_P, _P, _P, _I, _I, _I, _I, _P],
     # llr, dec, bits, batch, n, windows, l, ov, e, stream
     "ofdm_viterbi_windowed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # llr, bits, batch, n, windows, l, ov, e, stream

@@ -10,10 +10,14 @@
 
 #define OFDM_API extern "C" __attribute__((visibility("default")))
 
-// Rate-1/2 K=7 Viterbi, whole-sequence: llr [batch, 2n] f32 (a/b
-// interleaved) -> bits [batch, n] u8; dec [batch, n] x 2 u32 scratch.
-OFDM_API int ofdm_viterbi(const float* llr, uint32_t* dec, uint8_t* bits,
-                          int batch, int n, void* stream);
+// Rate-1/2 K=7 Viterbi, whole-sequence, one group of `group` lanes (4,
+// 8, 16 or 32) a sequence: llr [batch, 2n] f32 (a/b interleaved) -> bits
+// [batch, n] u8; rec [batch, ceil(n / R) | 1, 64] u32 scratch (the
+// survivor records of R = 24 steps, 20 at 32 lanes). traceback = 0 stops
+// after the forward pass (bits unset), for timing the traceback's share.
+OFDM_API int ofdm_viterbi(const float* llr, uint32_t* rec, uint8_t* bits,
+                          int batch, int n, int group, int traceback,
+                          void* stream);
 
 // Rate-1/2 K=7 Viterbi in sliding windows, one thread a window: llr
 // [batch, 2n] f32 -> bits [batch, n] u8. Window wi of a row decodes steps

@@ -1,5 +1,7 @@
 // Soft-input Viterbi decoders, rate 1/2, K=7 (polys 0o133 / 0o171):
-//   ofdm_viterbi           (K4)  whole sequence, pinned to state 0 at both ends;
+//   ofdm_viterbi           (K4)  whole sequence, pinned to state 0 at both
+//                          ends; one group of G lanes a sequence
+//                          (viterbi_group.cuh);
 //   ofdm_viterbi_windowed  (K4w) sliding windows with overlap, one thread a
 //                          window (viterbi_window.cuh);
 //   ofdm_viterbi_windowed_warp  K4w's previous body, one warp a window,
@@ -17,21 +19,43 @@
 // dependent steps, so a decode is latency- or issue-bound, not
 // bandwidth-bound.
 //
-// K4 and the warp baseline: ONE WARP PER SEQUENCE (K4) or PER WINDOW.
-// Lane l holds the path metrics of states l and l+32 in registers; both
-// states share the predecessors 2l and 2l+1, which four warp shuffles
-// bring in (`Acs`). No shared memory and no block barrier sit in the step
-// loop, and a block's four warps decode four independent rows.
+// K4: ONE GROUP OF G = 64 / 2^M LANES PER SEQUENCE (G = 4, 8, 16 or 32,
+// chosen at launch by kernels/viterbi.py k4_group from the batch and the
+// card's SMs), a one-warp block (viterbi_group.cuh has the layouts).
+//   * G = 4, 8, 16: 32 / G sequences a warp. A lane holds 2^M states, runs
+//     M trellis steps with no exchange (the states whose top 6 - M bits
+//     are fixed hold both predecessors of all their successors), and the
+//     group regroups its (metric, path) pairs through shared memory under
+//     one __syncwarp every M steps. Many sequences an SM (C3's 8208 rows:
+//     G = 4, 16 states a lane, ~6.8 instructions a state-step) are bound
+//     by issue, the other warps hiding each one's latency.
+//   * G = 32: one warp a sequence, a pair of states a lane, a butterfly of
+//     two shuffles with lane v ^ 2^(t mod 5) every step; LLRs and, in the
+//     traceback, records come through shared memory by cp.async many steps
+//     ahead. Few sequences (C4's 272, big_nsc's 24: one or two warps an
+//     SM) are bound by the latency of a step, one shuffle.
+// Survivors travel as 32-bit path words (register exchange), stored as a
+// 256-byte record of the 64 states every 24 steps (20 at G = 32), and the
+// traceback reads one word a record. Against the warp body it replaced
+// (one warp a sequence, states l and l + 32 a lane, 4 predecessor
+// shuffles, 2 LLR shuffles and 2 ballots a step, the decisions 8 bytes a
+// step and a traceback of one shuffled decision a step): no ballot, one
+// exchange every M steps or one butterfly a step, and a traceback chain 20
+// to 24 times shorter.
+//
+// The warp baseline: ONE WARP PER WINDOW. Lane l holds the path metrics of
+// states l and l+32 in registers; both states share the predecessors 2l
+// and 2l+1, which four warp shuffles bring in (`Acs`). No shared memory
+// and no block barrier sit in the step loop.
 //   * LLRs: each lane loads one (a, b) pair per 32-step chunk, coalesced;
 //     step j takes them by shuffle from lane j (`forward`).
 //   * Decisions: __ballot_sync packs the 64 choices of a step into two
 //     words (states 0-31, 32-63); lane j keeps step j's pair and the warp
-//     stores the chunk's 32 pairs in one coalesced 256-byte write. K4
-//     writes them to device memory (8 bytes a step: a whole C3 trellis
-//     does not fit on chip); the warp baseline keeps its window's e x 8
-//     bytes in shared memory.
+//     stores the chunk's 32 pairs to the window's e x 8 bytes of shared
+//     memory.
 //   * Traceback reads a chunk of 32 pairs per load the same way and walks
-//     it by shuffles; every lane tracks the same state (`traceback`).
+//     it by shuffles; every lane tracks the same state (`traceback`), from
+//     the first state that reaches the maximum (`first_max_state`).
 // A step costs each warp 6 shuffles, 2 ballots and ~20 other
 // instructions; Hopper issues one warp-wide shuffle an SM a clock against
 // four FP32 instructions, so at c3_pallas (221,616 windows of 384 steps)
@@ -65,12 +89,14 @@
 // Numerics: the ACS of phy/bits.py exactly (no 0.5 factor; bm0 = sa0*la +
 // sb0*lb; c0 = pm_even + bm0; c1 = pm_odd - bm0; strict c1 > c0, so a tie
 // keeps predecessor 0), with __fadd_rn / __fsub_rn / __fmul_rn so no
-// multiply-add is contracted. K4w's window boundary conditions are the
+// multiply-add is contracted. K4 starts in state 0 and traces back from
+// state 0 at step n. K4w's window boundary conditions are the
 // reference's: the window that starts at step 0 is pinned to state 0, the
 // others start uniform (all metrics 0); the window that ends at step n
 // adds -1e30 to every nonzero state's final metric; each traces back from
 // the first state that reaches the maximum (argmax's tie-break).
 #include "ofdm_kernels.h"
+#include "viterbi_group.cuh"
 #include "viterbi_window.cuh"
 
 namespace {
@@ -140,8 +166,9 @@ struct Acs {
     }
 };
 
-// Forward ACS over n steps of ab (a/b pairs) from the lane's metrics;
-// step t's decision words go to dec[t], stored by lane t % 32.
+// The warp baseline's forward ACS over n steps of ab (a/b pairs) from the
+// lane's metrics; step t's decision words go to dec[t], stored by lane
+// t % 32.
 __device__ __forceinline__ void forward(const float2* __restrict__ ab,
                                         uint2* dec, int n, int lane,
                                         float& pm_lo, float& pm_hi) {
@@ -205,22 +232,66 @@ __device__ __forceinline__ int first_max_state(float pm_lo, float pm_hi,
     return s;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-viterbi_k7_kernel(const float* __restrict__ llr, uint2* __restrict__ dec,
-                  uint8_t* __restrict__ bits, int batch, int n) {
-    const int seq = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (seq >= batch) return;       // the whole warp leaves together
-    const float2* ab = reinterpret_cast<const float2*>(llr) +
-                       static_cast<size_t>(seq) * n;
-    uint2* dseq = dec + static_cast<size_t>(seq) * n;
-    uint8_t* bseq = bits + static_cast<size_t>(seq) * n;
+// K4: one group of G = 64 >> M lanes a sequence (viterbi_group.cuh), a
+// block one warp, so that a small batch spreads over as many SMs as it
+// has warps; sequence blockIdx.x * (32 / G) + lane / G.
+template <int M>
+__global__ void __launch_bounds__(32)
+viterbi_k7_group_kernel(const float* __restrict__ llr,
+                        unsigned* __restrict__ rec,
+                        uint8_t* __restrict__ bits, int batch, int n,
+                        bool traceback) {
+    using L = vit::GroupLayout<M>;
+    __shared__ __align__(16) uint2 buf[2 * L::kGroups * L::kGroupPairs];
+    const int lane = threadIdx.x;
+    const int q = lane / L::kLanes;
+    const long long seq =
+        static_cast<long long>(blockIdx.x) * L::kGroups + q;
+    const bool live = seq < batch;
+    const size_t row = static_cast<size_t>(live ? seq : batch - 1);
+    const size_t records =
+        static_cast<size_t>(vit::record_stride(n, vit::kRecordSteps));
+    vit::decode_group<M>(
+        reinterpret_cast<const float2*>(llr) + row * n,
+        rec + row * records * 64, bits + row * n, n, lane % L::kLanes, q, buf,
+        L::kGroups * L::kGroupPairs, live, traceback, [] { __syncwarp(); },
+        [](unsigned x, int src) {
+            return __shfl_sync(0xffffffffu, x, src, L::kLanes);
+        });
+}
 
-    float pm_lo = lane == 0 ? 0.0f : kNeg;
-    float pm_hi = kNeg;
-    forward(ab, dseq, n, lane, pm_lo, pm_hi);
-    // tail-terminated: trace back from state 0
-    traceback(dseq, n, 0, lane, [&](int t, uint8_t b) { bseq[t] = b; });
+// K4 at G = 32: one warp a sequence (vit::decode_butterfly).
+__global__ void __launch_bounds__(32)
+viterbi_k7_butterfly_kernel(const float* __restrict__ llr,
+                            unsigned* __restrict__ rec,
+                            uint8_t* __restrict__ bits, int n,
+                            bool traceback) {
+    __shared__ __align__(16) vit::ButterflySmem sm;
+    const size_t row = blockIdx.x;
+    const size_t records =
+        static_cast<size_t>(vit::record_stride(n, vit::kButterflyRecord));
+    vit::decode_butterfly(
+        reinterpret_cast<const float2*>(llr) + row * n,
+        rec + row * records * 64, bits + row * n, n, threadIdx.x, true,
+        traceback, sm, [] { __syncwarp(); },
+        [](unsigned x, int src) { return __shfl_sync(0xffffffffu, x, src); });
+}
+
+template <int M>
+int launch_group(const float* llr, unsigned* rec, uint8_t* bits, int batch,
+                 int n, bool traceback, cudaStream_t stream) {
+    constexpr int kGroups = vit::GroupLayout<M>::kGroups;
+    const int blocks = (batch + kGroups - 1) / kGroups;
+    viterbi_k7_group_kernel<M><<<blocks, 32, 0, stream>>>(
+        llr, rec, bits, batch, n, traceback);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int launch_butterfly(const float* llr, unsigned* rec, uint8_t* bits,
+                     int batch, int n, bool traceback, cudaStream_t stream) {
+    viterbi_k7_butterfly_kernel<<<batch, 32, 0, stream>>>(llr, rec, bits, n,
+                                                          traceback);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // The warp baseline: one warp per window; window wi of row b covers steps
@@ -315,14 +386,19 @@ viterbi_k7_window_kernel(const float* __restrict__ llr, uint2* __restrict__ dec,
 
 }  // namespace
 
-OFDM_API int ofdm_viterbi(const float* llr, uint32_t* dec, uint8_t* bits,
-                          int batch, int n, void* stream) {
+OFDM_API int ofdm_viterbi(const float* llr, uint32_t* rec, uint8_t* bits,
+                          int batch, int n, int group, int traceback,
+                          void* stream) {
     if (batch <= 0 || n <= 0) return 0;
-    const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    viterbi_k7_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        llr, reinterpret_cast<uint2*>(dec), bits, batch, n);
-    return static_cast<int>(cudaGetLastError());
+    const auto s = static_cast<cudaStream_t>(stream);
+    const bool tb = traceback != 0;
+    switch (group) {
+        case 4: return launch_group<4>(llr, rec, bits, batch, n, tb, s);
+        case 8: return launch_group<3>(llr, rec, bits, batch, n, tb, s);
+        case 16: return launch_group<2>(llr, rec, bits, batch, n, tb, s);
+        case 32: return launch_butterfly(llr, rec, bits, batch, n, tb, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
 OFDM_API int ofdm_viterbi_windowed(const float* llr, uint32_t* dec,

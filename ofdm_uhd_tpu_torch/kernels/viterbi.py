@@ -7,7 +7,12 @@ device (policy.py):
   * `viterbi` (K4): whole sequence, trellis pinned to state 0 at both
     ends; replaces ofdm_uhd_tpu/kernels/pallas_viterbi.py:viterbi_pallas
     with one window (`_run_windows`), bit-exact with the reference scan
-    phy/bits.py:viterbi_decode;
+    phy/bits.py:viterbi_decode. One group of G lanes decodes a sequence
+    (csrc/viterbi_group.cuh), 64 / G states a lane: at G = 4, 8, 16
+    regrouped through shared memory every log2(64 / G) steps, at G = 32
+    (one warp) exchanged by a shuffle butterfly every step; survivors in
+    records of 24 (20) steps; G from `k4_group` (the batch against the
+    card's SMs);
   * `viterbi_windowed` (K4w): the sliding-window decode of
     pallas_viterbi.py:viterbi_pallas_windowed and phy/bits.py:
     viterbi_decode_windowed, with the window and overlap as arguments;
@@ -46,6 +51,17 @@ _STEP_BYTES = {"shuffle": 2 * 128 * 4 + 3 * 128 * 4,
                "mm": 32 * 64 * 4 + 3 * 128 * 4}
 _BIG = 2048.0          # certainty-of-zero LLR of the padding steps
 _NEG = -1e30
+# K4's group sizes (lanes a sequence; csrc/viterbi.cu ofdm_viterbi) and the
+# steps a survivor record covers at each (csrc/viterbi_group.cuh
+# kRecordSteps, kButterflyRecord)
+K4_GROUPS = (4, 8, 16, 32)
+K4_RECORD_STEPS = {4: 24, 8: 24, 16: 24, 32: 20}
+# k4_group's rule: (sequences an SM at least, group size), the first that
+# holds; else 32. Timed in turns on an NVIDIA H100 80GB HBM3 (chip_smoke.py
+# hold_k4): 4 lanes fastest at C3 (62 sequences an SM), 16 at c2_pallas
+# (31.5), 32 at C4 (2.1) and big_nsc (0.2); each threshold lies between two
+# of them. 8 lanes was never the fastest and is only taken when asked for.
+K4_PER_SM = ((48, 4), (8, 16))
 
 
 def _signs(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -156,14 +172,41 @@ def _check_llr(kernel: str, llr: torch.Tensor) -> None:
     build.check_inputs(kernel, llr)
 
 
-def _viterbi_cuda(llr: torch.Tensor) -> torch.Tensor:
+def k4_group(batch: int, sms: int) -> int:
+    """Lanes a sequence for K4 on a card of `sms` SMs. Many sequences an SM
+    take few lanes (more states a lane, fewer instructions a state-step;
+    the other warps hide each one's latency); few take 32, one warp a
+    sequence, whose step waits on one shuffle (K4_PER_SM)."""
+    for per_sm, g in K4_PER_SM:
+        if batch >= per_sm * sms:
+            return g
+    return 32
+
+
+def _viterbi_cuda(llr: torch.Tensor, group: int | None = None,
+                  traceback: bool = True) -> torch.Tensor:
+    """K4 on a CUDA tensor, one group of `group` lanes a sequence (default
+    k4_group's choice for this batch and card). traceback=False runs the
+    forward alone and leaves the bits unset: chip_smoke.py times it for
+    the traceback's share; no path asks for it."""
     _check_llr("viterbi", llr)
     bsz, n = llr.shape[0], llr.shape[1] // 2
+    if group is None:
+        group = k4_group(bsz, torch.cuda.get_device_properties(
+            llr.device).multi_processor_count)
+    if group not in K4_GROUPS:
+        raise ValueError(f"viterbi: group must be one of {K4_GROUPS}, got "
+                         f"{group}")
     lib = build.library()
-    dec = torch.empty((bsz, n, 2), dtype=torch.int32, device=llr.device)
+    # the survivor records of a row, made odd (csrc/viterbi_group.cuh
+    # record_stride)
+    records = -(-n // K4_RECORD_STEPS[group]) | 1
+    rec = torch.empty((bsz, records, 64), dtype=torch.int32,
+                      device=llr.device)
     bits = torch.empty((bsz, n), dtype=torch.uint8, device=llr.device)
-    err = lib.ofdm_viterbi(llr.data_ptr(), dec.data_ptr(), bits.data_ptr(),
-                           bsz, n, build.stream_ptr(llr.device))
+    err = lib.ofdm_viterbi(llr.data_ptr(), rec.data_ptr(), bits.data_ptr(),
+                           bsz, n, group, int(traceback),
+                           build.stream_ptr(llr.device))
     build.check(err, "viterbi")
     policy.count_launch("viterbi")
     return bits

@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -466,8 +467,11 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
             (localize, "_localize_cuda", "localize",
              lambda m, p, c, s, cp, rel: localize.localize_plain(m, p, c, s,
                                                                  cp)),
-            (viterbi, "_viterbi_cuda", "viterbi", viterbi.viterbi_plain)):
+            (viterbi, "_viterbi_cuda", "viterbi",
+             lambda x, group=None, traceback=True: viterbi.viterbi_plain(x))):
         monkeypatch.setattr(mod, name, _counted(count, fn))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=132))
     monkeypatch.setattr(sync, "_tile_cuda", tile)
     monkeypatch.setattr(fft, "ONE_LAUNCH_N", 128)
     monkeypatch.setattr(fft, "PASS_MAX_N", 64)
@@ -509,6 +513,39 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
                  "sc_out"):
         entry = chip_smoke.kernel_entry(name, {"big_nsc": out}, by_path)
         assert entry["launches"] > 0 and entry["bound_ms"] > 0
+
+
+def test_hold_k4_rehearsal(on_host, monkeypatch):
+    """K4's hold: bit-exact against the plain version at k4_group's size
+    and at every forced one, each size timed in turns with its ACS rate,
+    the forward alone in turns with the decode for the traceback's share;
+    the entry maps to K4 in the kernels line."""
+    from ofdm_uhd_tpu_torch.kernels import viterbi
+    groups = []
+
+    def k4(x, group=None, traceback=True):
+        policy.count_launch("viterbi")
+        groups.append(group)
+        return viterbi.viterbi_plain(x)
+    monkeypatch.setattr(viterbi, "_viterbi_cuda", k4)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch, fn, reps=20: (fn(), 0.5)[1])
+    llr = torch.randn((3, 2 * 50), generator=torch.Generator().manual_seed(5))
+    res = chip_smoke.hold_k4(torch, llr, "c3")
+    assert res["max_abs_err"] == 0 and res["bound_by"] == "operations"
+    assert res["group"] == viterbi.k4_group(3, 132)
+    assert set(res["groups"]) == set(viterbi.K4_GROUPS)
+    for r in res["groups"].values():
+        assert len(r["device_ms_turns"]) == 2 and r["acs_per_s"] > 0
+    assert res["device_ms"] == res["groups"][res["group"]]["device_ms"]
+    assert len(res["forward_ms_turns"]) == 2
+    assert res["traceback_share"] == 0.0
+    assert set(viterbi.K4_GROUPS) <= set(groups)
+    entry = chip_smoke.kernel_entry("viterbi", {"c3": {"kernels": {
+        "viterbi": res}}}, {"c3": {"viterbi": 1}})
+    assert entry["launches"] == 1 and entry["max_abs_err"] == 0
 
 
 def test_hold_windowed_rehearsal(on_host, monkeypatch):

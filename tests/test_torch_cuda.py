@@ -45,18 +45,26 @@ def _coded_llrs(bsz, n, snr_db, dev, seed):
 
 
 @pytest.mark.parametrize("bsz,n", [(1, 7), (5, 100), (37, 6912),
-                                   (4, 18432)])
+                                   (4, 18432), (3, 36864)])
 def test_viterbi_kernel_exact(dev, bsz, n):
+    """K4 against its plain version on codewords at 5 dB, noise and integer
+    LLRs (ties), at k4_group's group size and at each one forced, one
+    launch a call; (3, 36864) is C4's trellis length."""
     llr, info = _coded_llrs(bsz, n, 5.0, dev, seed=n)
     policy.reset_launches()
     got = viterbi.viterbi(llr)
     assert policy.launches()["viterbi"] == 1
     assert torch.equal(got, viterbi.viterbi_plain(llr))
     rnd = torch.randn((bsz, 2 * n), generator=_gen(n), device=dev) * 3
-    assert torch.equal(viterbi.viterbi(rnd), viterbi.viterbi_plain(rnd))
     ties = torch.randint(-2, 3, (bsz, 2 * n), generator=_gen(n + 1),
                          device=dev).float()
-    assert torch.equal(viterbi.viterbi(ties), viterbi.viterbi_plain(ties))
+    for x in (llr, rnd, ties):
+        want = viterbi.viterbi_plain(x)
+        assert torch.equal(viterbi.viterbi(x), want)
+        for g in viterbi.K4_GROUPS:
+            policy.reset_launches()
+            assert torch.equal(viterbi._viterbi_cuda(x, g), want), g
+            assert policy.launches()["viterbi"] == 1
 
 
 @pytest.mark.parametrize("geometry", [(256, 64), (512, 96)])
@@ -283,6 +291,8 @@ def test_extract_kernel_exact(dev):
 def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         viterbi.viterbi(torch.zeros((2, 7), device=dev))
+    with pytest.raises(ValueError):
+        viterbi._viterbi_cuda(torch.zeros((2, 8), device=dev), 12)
     with pytest.raises(ValueError):
         viterbi.viterbi_windowed(torch.zeros((2, 700), device=dev,
                                              dtype=torch.float64), 256, 64)
