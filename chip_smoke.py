@@ -1040,20 +1040,26 @@ def phase_kernel_ifftcp(torch, spec, label, grid) -> dict:
     return res
 
 
-def fft_in_turns(torch, res, run_k, ortho, unscaled) -> None:
-    """Add to an FFT kernel's check its in-kernel ms and torch.fft's, taken
-    in turns (kernel, library, library, kernel): device_ms and
+def library_in_turns(torch, res, run_k, library) -> None:
+    """Add to a kernel's check its in-kernel ms and its library call's,
+    taken in turns (kernel, library, library, kernel): device_ms and
     library_device_ms, the means of their two turns (each list in
-    *_turns), and library_unscaled_ms, torch.fft's call without a scale
-    (norm="backward" forward, norm="forward" inverse: cuFFT's transform
-    and no scaling pass), as information."""
-    turns = in_turns(torch, {"kernel": run_k, "library": ortho},
+    *_turns)."""
+    turns = in_turns(torch, {"kernel": run_k, "library": library},
                      ("kernel", "library"))
     for key, name in (("device_ms", "kernel"),
                       ("library_device_ms", "library")):
         got = [t for t in turns[name] if t is not None]
         res[key] = statistics.mean(got) if got else None
         res[key + "_turns"] = turns[name]
+
+
+def fft_in_turns(torch, res, run_k, ortho, unscaled) -> None:
+    """library_in_turns of an FFT kernel with torch.fft's call (ortho), and
+    library_unscaled_ms, torch.fft's call without a scale (norm="backward"
+    forward, norm="forward" inverse: cuFFT's transform and no scaling
+    pass), as information."""
+    library_in_turns(torch, res, run_k, ortho)
     res["library_unscaled_ms"] = device_ms(torch, unscaled)
 
 
@@ -1061,7 +1067,9 @@ def phase_kernels_fir(torch, spec, label, ins, base) -> dict:
     """The FIR kernels of the spec's filter tier: the decimation of the
     padded radio-rate captures and the TX's interpolation of its baseband
     frames; the exact tier also the stride-1 FIR of the decimated captures.
-    The bf16 tier's bound counts its useful products at the bf16 peak."""
+    Each decimation and the stride-1 FIR also get their in-kernel time in
+    turns with their conv1d's (library_in_turns). The bf16 tier's bound
+    counts its useful products at the bf16 peak."""
     from ofdm_uhd_tpu_torch.kernels import fir, policy
     from ofdm_uhd_tpu_torch.phy import tables
     res = {}
@@ -1080,15 +1088,23 @@ def phase_kernels_fir(torch, spec, label, ins, base) -> dict:
         r, n_in = x.shape
         return work_filter(r, n_in, n_in // stride, nt, peak)
     xin = ins["radio"]
+    lib = library_fir(torch, xin, taps, lr, dtype)
     res[dname] = held(torch, f"{dname} decim",
                       lambda: strided(xin, taps, lr),
                       lambda: decim(xin, lr, taps), rel_close, xin.shape,
-                      work(xin, lr), library_fir(torch, xin, taps, lr, dtype))
+                      work(xin, lr), lib)
+    # in-kernel, in turns with conv1d's (cuDNN): no launch gap in either
+    library_in_turns(torch, res[dname], lambda: strided(xin, taps, lr), lib)
+    del lib
     if not bf16:
         dec = ins["dec"]
+        lib = library_fir(torch, dec, taps, 1)
         res["fir_stride1"] = held(torch, "fir", lambda: fir._strided_cuda(
             dec, taps, 1), lambda: fir.decim_plain(dec, 1, taps), rel_close,
-            dec.shape, work(dec, 1), library_fir(torch, dec, taps, 1))
+            dec.shape, work(dec, 1), lib)
+        library_in_turns(torch, res["fir_stride1"],
+                         lambda: fir._strided_cuda(dec, taps, 1), lib)
+        del lib
     r, nb = base.shape
     branch = fir.branch_matrix(taps, lr)[0].shape[1]
     res[iname] = held(torch, iname, lambda: interp(base, lr, taps),
@@ -1096,8 +1112,7 @@ def phase_kernels_fir(torch, spec, label, ins, base) -> dict:
                       base.shape, work_filter(r, nb, nb * lr, branch, peak),
                       library_interp(torch, base, lr, taps, dtype))
     # events around one call read the host's launch overhead where it
-    # exceeds the kernel (the interpolation): the profiler's in-kernel time
-    res[dname]["device_ms"] = device_ms(torch, lambda: strided(xin, taps, lr))
+    # exceeds the kernel (the interpolation): the in-kernel time
     res[iname]["device_ms"] = device_ms(torch, lambda: interp(base, lr, taps))
     log_kernels(label, res)
     return res

@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
            "fir.cu", "fir_bf16.cu", "scfront.cu", "halo.cu", "shift.cu",
            "banded.cu", "deframe.cu")
-HEADERS = ("ofdm_kernels.h", "viterbi_group.cuh", "viterbi_window.cuh")
+HEADERS = ("ofdm_kernels.h", "viterbi_group.cuh", "viterbi_window.cuh",
+           "fir_strided.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -7,54 +7,61 @@
 // matmuls per row block (the MXU was the only unit fast enough, at 2.7-6.6x
 // MAC inflation). Here the direct form costs 2 FMAs per tap and output with
 // no inflation, and each input sample is read from device memory about
-// once: a block stages its tile's input span and the taps in shared memory,
-// then each thread sums its output's taps in order (fmaf) out of shared
-// memory. On an H100 80GB HBM3 (700 W) the C4 decimation (8 x 517k outputs,
-// 193 taps: 3.2 GFLOP, 265 MB read) takes about 1.7 ms: 178 GB/s and
-// 1.9 TFLOP/s, a few percent of either peak, so neither memory nor
-// arithmetic bounds it. What does is not measured yet.
+// once.
+//
+// The strided kernel (ofdm_fir_strided; its body is fir_strided.cuh, which
+// sets out the design). Its bound on this card is bytes: the C4 decimation
+// (8 x 4,138,472 samples in, 517,309 outputs a row, 193 taps) moves 265 MB
+// in and 33 MB out, 0.089 ms at 3.35 TB/s, against 1.6 G FMAs, 0.048 ms
+// of float32; the stride-1 FIR at C4's baseband is bound by those FMAs.
+// The previous body staged each 256-output tile as interleaved float2 and
+// summed one output a thread, reading xs[thread * stride + t]: at stride 8
+// neighbouring lanes sat 64 B apart, an 8-way bank conflict, ~17
+// shared-memory wavefronts a warp and tap. Those wavefronts, not bytes or
+// FMAs, set its time (1.6 ms at C4 on an H100 80GB HBM3, 700 W, 18x the
+// bound). This body splits the taps into the stride's phases, keeps 9
+// outputs a thread and a sliding window of samples in registers (18 FMAs
+// a shared load; 36 on pair planes), reads every plane without a bank
+// conflict, and leaves the copy to producer warps that stage the next
+// tile by cp.async while consumer warps sum the current one. There (C4,
+// same card) the copy alone takes a little longer than the sums alone,
+// and neither reaches its peak: the copy moves ~1.8 TB/s (cp.async
+// requests in flight), the sums issue FMAs at about a third of the
+// float32 rate (scripts/k7_ablation.py).
+//
+// The interpolation kernel stages its tile's inputs and its branch matrix
+// in shared memory, and consecutive threads sum consecutive outputs.
 //
 // Rows never leak: each row is filtered on its own, with zeros read before
 // its start and past its end. Offsets into the rows are size_t.
 #include "ofdm_kernels.h"
+#include "fir_strided.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;     // threads per block
-constexpr int kTileOut = 256;     // strided kernel: outputs per block
+constexpr int kThreads = 256;     // interp kernel: threads per block
 constexpr int kTileIn = 256;      // interp kernel: input samples per block
+constexpr size_t kMaxSmem = 227 * 1024;   // shared memory a block may use
 
-// out[r, i] = sum_t w[t] * xp[r, i*stride + t], xp = row r with pad_left
-// zeros in front and zeros past its end; i < n_out.
-__global__ void __launch_bounds__(kThreads)
+// The strided FIR: one block's share of the persistent grid, S stages.
+constexpr int kStridedThreads =
+    firk::kGroups * firk::kGroupThreads + firk::kProducers;
+
+template <int S>
+__global__ void __launch_bounds__(kStridedThreads)
 fir_strided_kernel(const float2* __restrict__ x, const float* __restrict__ w,
-                   float2* __restrict__ y, int n_in, int n_out, int nt,
-                   int stride, int pad_left, int tiles) {
-    extern __shared__ float smem[];
-    float* ws = smem;                                      // [nt]
-    float2* xs = reinterpret_cast<float2*>(smem + ((nt + 1) & ~1));
-    const int row = blockIdx.x / tiles;
-    const int o0 = (blockIdx.x - row * tiles) * kTileOut;
-    const int span = (kTileOut - 1) * stride + nt;
-    const long long first = static_cast<long long>(o0) * stride - pad_left;
-    const float2* xr = x + static_cast<size_t>(row) * n_in;
-    for (int t = threadIdx.x; t < nt; t += kThreads) ws[t] = w[t];
-    for (int j = threadIdx.x; j < span; j += kThreads) {
-        const long long s = first + j;
-        xs[j] = (s >= 0 && s < n_in) ? xr[s] : make_float2(0.0f, 0.0f);
-    }
-    __syncthreads();
-    const int i = o0 + threadIdx.x;
-    if (i >= n_out) return;
-    const float2* xi = xs + threadIdx.x * stride;
-    float re = 0.0f, im = 0.0f;
-    for (int t = 0; t < nt; ++t) {
-        const float c = ws[t];
-        const float2 v = xi[t];
-        re = fmaf(c, v.x, re);
-        im = fmaf(c, v.y, im);
-    }
-    y[static_cast<size_t>(row) * n_out + i] = make_float2(re, im);
+                   float2* __restrict__ y, const firk::Plan g) {
+    extern __shared__ float4 fir_ring_smem[];
+    float* smem = reinterpret_cast<float*>(fir_ring_smem);
+    firk::DevicePipe pipe{
+        reinterpret_cast<unsigned long long*>(smem + g.ring_floats()), S};
+    const int consumers = g.consumers;
+    firk::strided_block<S>(
+        x, w, y, g, smem, blockIdx.x, gridDim.x, threadIdx.x, pipe,
+        [] { __syncthreads(); },
+        [consumers] {
+            asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+        });
 }
 
 // out[r, k] = sum_{d=d_min}^{d_max} g[k mod l, d - d_min] * x[r, k/l - d],
@@ -108,21 +115,46 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                                 static_cast<int>(bytes));
 }
 
+// A grid of as many blocks as fit on the card at once, at most one a work
+// item.
+template <int S>
+int launch_strided(const float2* x, const float* w, float2* y,
+                   const firk::Plan& g, cudaStream_t stream) {
+    const size_t smem = g.smem_bytes();
+    cudaError_t err = allow_smem(fir_strided_kernel<S>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, fir_strided_kernel<S>, g.block(), smem)) !=
+            cudaSuccess)
+        return static_cast<int>(err);
+    const long long fit =
+        static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+    const long long grid = g.items < fit ? g.items : fit;
+    fir_strided_kernel<S><<<static_cast<unsigned>(grid), g.block(), smem,
+                            stream>>>(x, w, y, g);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 OFDM_API int ofdm_fir_strided(const float2* x, const float* w, float2* y,
                               int rows, int n_in, int n_out, int nt,
                               int stride, int pad_left, void* stream) {
     if (rows <= 0 || n_out <= 0) return 0;
-    const int tiles = (n_out + kTileOut - 1) / kTileOut;
-    const size_t smem = sizeof(float) * ((nt + 1) & ~1)
-        + sizeof(float2) * static_cast<size_t>((kTileOut - 1) * stride + nt);
-    cudaError_t err = allow_smem(fir_strided_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fir_strided_kernel<<<rows * tiles, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-        x, w, y, n_in, n_out, nt, stride, pad_left, tiles);
-    return static_cast<int>(cudaGetLastError());
+    firk::Plan g;
+    const bool aligned16 = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    if (!firk::plan_strided(g, rows, n_in, n_out, nt, stride, pad_left,
+                            firk::kGroups, firk::kGroupThreads,
+                            firk::kProducers, firk::kStages, aligned16,
+                            kMaxSmem))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return g.stages == 2 ? launch_strided<2>(x, w, y, g, s)
+                         : launch_strided<1>(x, w, y, g, s);
 }
 
 OFDM_API int ofdm_fir_interp(const float2* x, const float* g, float2* y,

@@ -17,6 +17,15 @@ forms): a 1-D correlation over the (re, im) float32 planes. The stream's
 valid-mode decimation runs on the strided kernel with no left padding; its
 rational form (M > 1, an XLA convolution in the reference) stays plain.
 
+The exact strided kernel (csrc/fir_strided.cuh) splits the taps into the
+stride's phases and stages each tile of a row as phase planes (pair
+planes of float4 at an even stride where the pairs are 16-byte aligned),
+copied by producer warps with cp.async into a two-stage ring on mbarriers
+while consumer warps sum the tile before, 9 outputs a thread from a
+window of samples in registers; a persistent grid walks the (row, tile)
+items. tests/test_torch_fir_host.py builds that body with g++ and holds
+it against decim_plain and decim_stream_plain on the CPU.
+
 Coefficients are bit-equal to the reference's: fir and decimation take the
 taps as float32, reversed (correlation weights); interpolation takes the
 branch matrix `_branch_matrix` (float64 times L, cast to float32). The bf16

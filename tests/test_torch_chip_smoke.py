@@ -419,6 +419,37 @@ def test_fft_holds_rehearsal(on_host, monkeypatch):
     assert chip_smoke.held_kernel("fft_inverse") == "fft"
 
 
+@pytest.mark.parametrize("tier", ["exact", "bf16"])
+def test_fir_holds_rehearsal(on_host, monkeypatch, tier):
+    """phase_kernels_fir at a tiny C4 size, the wrappers patched to their
+    plain versions: the decimation (and, in the exact tier, the stride-1
+    FIR of the decimated rows) held with its in-kernel time taken in turns
+    with its conv1d's, the interpolation with its in-kernel time."""
+    from ofdm_uhd_tpu_torch.core.spec import config
+    spec = config("c4")
+    if tier == "bf16":
+        spec = spec.with_(filter_precision="bf16", kernel_backend="pallas")
+    monkeypatch.setattr(fir, "_strided_bf16_cuda", _counted(
+        "fir_bf16", lambda x, t, s: fir.decim_plain_bf16(x, s, t)))
+    monkeypatch.setattr(fir, "_interp_bf16_cuda",
+                        _counted("interp_bf16", fir.interp_plain_bf16))
+    ins = {"radio": _x(31, 2, 8 * 700 + 3), "dec": _x(32, 2, 700)}
+    res = chip_smoke.phase_kernels_fir(torch, spec, "c4", ins, _x(33, 3, 200))
+    held = (["fir", "fir_stride1"] if tier == "exact" else ["fir_bf16"])
+    interp = "interp" if tier == "exact" else "interp_bf16"
+    assert list(res) == held + [interp]
+    for key in held:
+        v = res[key]
+        assert v["max_abs_err"] == 0.0 and v["library_ms"] is not None
+        assert len(v["device_ms_turns"]) == 2
+        assert len(v["library_device_ms_turns"]) == 2
+        assert {"device_ms", "library_device_ms"} <= set(v)
+    assert res[held[0]]["shape"] == [2, 8 * 700 + 3]
+    assert "device_ms" in res[interp]
+    assert "library_device_ms" not in res[interp]
+    assert chip_smoke.held_kernel("fir_stride1") == "fir"
+
+
 def test_kernel_registers_reads_ptxas_output():
     """phase_build's table of registers and spills from `-Xptxas -v`: each
     entry function by its short name, a template's int argument kept."""

@@ -351,13 +351,28 @@ def _within(got, ref, rel=1e-5):
     assert err <= rel * float(ref.abs().max()), err
 
 
-@pytest.mark.parametrize("stride", [1, 2, 8])
-@pytest.mark.parametrize("ntaps", [3, 193])
-def test_fir_strided_kernel_close(dev, stride, ntaps):
-    taps = resample_filter(8, 1) if ntaps == 193 else [0.25, 0.5, 0.25]
-    # ragged rows: n_in not a multiple of the stride or the 256-output tile
-    x = torch.randn((3, 20011), dtype=torch.complex64, generator=_gen(ntaps),
-                    device=dev)
+def _fir_taps(ntaps):
+    if ntaps == 3:
+        return [0.25, 0.5, 0.25]
+    if ntaps == 193:
+        return resample_filter(8, 1)
+    return np.random.default_rng(ntaps).normal(size=ntaps).astype(np.float32)
+
+
+# (stride, taps, rows, n_in): ragged rows (n_in no multiple of the
+# stride, the 1152-output tile or the 9 outputs a thread) at strides 1, 2,
+# 3 and 8 and 3, 193 and 194 taps (194: an even count, nd = 25 taps in
+# two of 8 phases, 24 in the rest); then rows of C4's full width: its
+# decimation input [4,138,472] and its baseband [517,309]
+FIR_CASES = ([(s, t, 3, 20011) for s in (1, 2, 3, 8) for t in (3, 193, 194)]
+             + [(8, 193, 2, 4_138_472), (1, 193, 2, 517_309)])
+
+
+@pytest.mark.parametrize("stride,ntaps,rows,n_in", FIR_CASES)
+def test_fir_strided_kernel_close(dev, stride, ntaps, rows, n_in):
+    taps = _fir_taps(ntaps)
+    x = torch.randn((rows, n_in), dtype=torch.complex64,
+                    generator=_gen(ntaps + stride), device=dev)
     policy.reset_launches()
     if stride == 1:
         got, ref = fir.fir_filter(x, taps), fir.decim_plain(x, 1, taps)
@@ -368,6 +383,23 @@ def test_fir_strided_kernel_close(dev, stride, ntaps):
     _within(got, ref)
     one = fir.polyphase_decim(x[1:2].contiguous(), stride, taps)
     assert torch.equal(one[0], got[1])           # rows do not leak
+
+
+@pytest.mark.parametrize("stride,ntaps", [(1, 193), (8, 193), (3, 194),
+                                          (8, 3)])
+def test_fir_stream_valid_kernel_close(dev, stride, ntaps):
+    """The stream's valid-mode decimation (no padding, (n_in - nt) //
+    stride + 1 outputs) on the strided kernel, one launch, against
+    decim_stream_plain; rows do not leak."""
+    taps = _fir_taps(ntaps)
+    x = torch.randn((3, stride * 6000 + ntaps + 4), dtype=torch.complex64,
+                    generator=_gen(ntaps + 5 * stride), device=dev)
+    policy.reset_launches()
+    got = fir.polyphase_decim_stream(x, stride, taps)
+    assert policy.launches()["fir"] == 1
+    _within(got, fir.decim_stream_plain(x, stride, taps))
+    one = fir.polyphase_decim_stream(x[1:2].contiguous(), stride, taps)
+    assert torch.equal(one[0], got[1])
 
 
 @pytest.mark.parametrize("l", [2, 8])
