@@ -22,119 +22,62 @@
 //     level below computes the same R.
 // Detection compares M against its threshold and plateau with >=, so both
 // kernels keep the plain version's order instead (kernels/sync.py:
-// pairwise doubling, S_2w[i] = S_w[i] + S_w[i+w]): a block stages its
-// tile's leaves in shared memory and doubles them level by level, one
-// barrier per level, with every add and multiply written as __fadd_rn /
-// __fmul_rn so that nothing is contracted into an FMA. The energy is
-// |r| squared with |r| = hypotf, as r.abs() ** 2 computes it on the card.
+// pairwise doubling, S_2w[i] = S_w[i] + S_w[i+w]), with every add and
+// multiply written as __fadd_rn / __fmul_rn so that nothing is contracted
+// into an FMA. The energy is |r| squared with |r| = hypotf, as r.abs() **
+// 2 computes it on the card.
 //
-// Bound on this card: memory. A C3 dispatch reads 35.5M complex64 and
-// writes 12 B per output (284 + 426 MB); the tree costs ~26 shared-memory
-// adds per output at l = 128. The tile of kTile outputs stages
-// kTile + 2l - 1 samples, so the input is read (kTile + 2l) / kTile times,
-// mostly from L2. l must be a power of two (the wrapper checks). At C2
+// The tile route (l <= 4096, kernels/sync.py route): csrc/scfront_tile.cuh,
+// one warp walking a long segment of a row with all three planes in
+// registers, each doubling level a shuffle (w < 32), a register of the
+// same lane (w < 256) or a per-warp ring in shared memory (w >= 256); see
+// its note. Bound on this card: memory. A C3 dispatch reads 35.5M
+// complex64 and writes 12 B per output (284 + 426 MB, 0.212 ms); at C2
 // (l = 32, 32 captures of ~182k samples) a call moves ~117 MB, so it is
 // short enough that its launch shows.
 //
-// The tile needs 4(kTile + l) + 2(kTile + 2l) floats of shared memory,
-// 155 KB at l = 4096 and 287 KB at l = 8192, past the 227 KB a block may
-// have, so the tile route takes l <= 4096 (kernels/sync.py TILE_MAX_L).
-// Above it (n_sc >= 16384: DVB-T2's 16K and 32K modes) the same sums run
-// through device memory in 2 + log2 l launches (the levels route,
+// Above l = 4096 (n_sc >= 16384: DVB-T2's 16K and 32K modes) the same sums
+// run through device memory in 2 + log2 l launches (the levels route,
 // kernels/sync.py route): ofdm_sc_leaves writes the lag product's two
 // planes and the energy, ofdm_sc_level doubles all three planes once
 // (S_2w[i] = S_w[i] + S_w[i + w], w = 1 .. l/2, into the other of two
 // plane sets, since a block would otherwise overwrite S_w[i + w] before
 // another block reads it), and ofdm_sc_out takes the energy's last level,
 // R = 0.5 (S_l[i] + S_l[i + l]), and writes P and M or R with the tile
-// kernel's epilogue. Same adds in the same order, so both routes give the
-// same bits. Each level reads and writes ~3 planes, so at l = 8192 the
-// route moves ~15x the tile kernel's bytes.
+// route's epilogue (sct::write_out). Same adds in the same order, so both
+// routes give the same bits. Each level reads and writes ~3 planes, so at
+// l = 8192 the route moves ~15x the tile route's bytes.
 #include "ofdm_kernels.h"
+#include "scfront_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 1024;           // outputs per block
-constexpr int kMaxTileL = 4096;       // the tile's shared memory <= 227 KB
+constexpr size_t kMaxSmem = 227 * 1024;   // dynamic shared memory a block
+constexpr double kSlotsPerWarp = 1.0;     // work items a resident warp
+                                          // (scripts/k6_ab.py varies it)
 
-// The epilogue shared by both routes: P, and M or R, from the window sums.
-template <bool kMetric>
-__device__ __forceinline__ void write_out(float2* p_out, float* q_out,
-                                          size_t at, float pr, float pi,
-                                          float esum) {
-    const float rsum = __fmul_rn(0.5f, esum);
-    p_out[at] = make_float2(pr, pi);
-    if constexpr (kMetric) {
-        const float eps = 1e-12f;
-        const float mag = hypotf(pr, pi);
-        const float den = fmaxf(rsum, eps);
-        const float m = __fdiv_rn(__fmul_rn(mag, mag), __fmul_rn(den, den));
-        q_out[at] = rsum > eps ? m : 0.0f;
-    } else {
-        q_out[at] = rsum;
+// A warp for sct::walk: its lane and the shuffle of all 32 lanes.
+struct DeviceWarp {
+    int lane;
+    __device__ __forceinline__ float shfl(float v, int src) const {
+        return __shfl_sync(0xffffffffu, v, src);
     }
-}
+};
 
-// kMetric: the second output q is M (ofdm_scfront), else R.
-template <bool kMetric>
-__global__ void __launch_bounds__(kThreads)
+// kMetric: the second output q is M (ofdm_scfront), else R. Each warp
+// walks work items (row, segment) item += the grid's warps.
+template <int LG, bool kMetric>
+__global__ void __launch_bounds__(sct::kWarps * 32)
 scfront_kernel(const float2* __restrict__ r, float2* __restrict__ p_out,
-               float* __restrict__ q_out, int n, int nd, int l, int tiles) {
+               float* __restrict__ q_out, const sct::Plan g) {
     extern __shared__ float sm[];
-    const int lp = kTile + l - 1;     // lag-product leaves a tile needs
-    const int le = kTile + 2 * l - 1; // energy leaves
-    // ping-pong buffers: one level reads a*, writes b*, then they swap
-    float* pa_re = sm;
-    float* pa_im = pa_re + lp;
-    float* pb_re = pa_im + lp;
-    float* pb_im = pb_re + lp;
-    float* ea = pb_im + lp;
-    float* eb = ea + le;
-
-    const int row = blockIdx.x / tiles;
-    const int i0 = (blockIdx.x - row * tiles) * kTile;
-    const float2* rr = r + static_cast<size_t>(row) * n;
-    const float2 zero = make_float2(0.0f, 0.0f);
-    for (int j = threadIdx.x; j < le; j += kThreads) {
-        const int s = i0 + j;
-        const float2 a = s < n ? rr[s] : zero;
-        const float mag = hypotf(a.x, a.y);
-        ea[j] = __fmul_rn(mag, mag);
-        if (j < lp) {
-            const float2 b = s + l < n ? rr[s + l] : zero;
-            // conj(a) * b = (a.x b.x + a.y b.y) + i (a.x b.y - a.y b.x)
-            pa_re[j] = __fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
-            pa_im[j] = __fsub_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x));
-        }
-    }
-    __syncthreads();
-    // log2(l) levels for P's window l, log2(2l) for R's window 2l
-    int len_p = lp, len_e = le;
-    for (int w = 1; w < 2 * l; w *= 2) {
-        const bool do_p = w < l;
-        if (do_p) len_p -= w;
-        len_e -= w;
-        for (int j = threadIdx.x; j < len_e; j += kThreads) {
-            eb[j] = __fadd_rn(ea[j], ea[j + w]);
-            if (do_p && j < len_p) {
-                pb_re[j] = __fadd_rn(pa_re[j], pa_re[j + w]);
-                pb_im[j] = __fadd_rn(pa_im[j], pa_im[j + w]);
-            }
-        }
-        __syncthreads();
-        float* t = ea; ea = eb; eb = t;
-        if (do_p) {
-            t = pa_re; pa_re = pb_re; pb_re = t;
-            t = pa_im; pa_im = pb_im; pb_im = t;
-        }
-    }
-    const size_t base = static_cast<size_t>(row) * nd;
-    for (int j = threadIdx.x; j < kTile; j += kThreads) {
-        const int i = i0 + j;
-        if (i >= nd) break;
-        write_out<kMetric>(p_out, q_out, base + i, pa_re[j], pa_im[j], ea[j]);
-    }
+    const int warp = threadIdx.x / 32;
+    const DeviceWarp wp{static_cast<int>(threadIdx.x & 31)};
+    float* ring = sm + static_cast<size_t>(warp) * g.ring;
+    const long long stride = static_cast<long long>(gridDim.x) * g.warps;
+    for (long long item = static_cast<long long>(blockIdx.x) * g.warps + warp;
+         item < g.items; item += stride)
+        sct::walk<LG, kMetric>(r, p_out, q_out, g, item, ring, wp);
 }
 
 // The levels route's planes: set [3, rows, n] floats, plane 0 / 1 the lag
@@ -188,9 +131,9 @@ sc_out_kernel(const float* __restrict__ a, float2* __restrict__ p_out,
          k < total; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
         const size_t row = k / nd;
         const size_t at = row * n + (k - row * nd);
-        write_out<kMetric>(p_out, q_out, k, a[at], a[plane + at],
-                           __fadd_rn(a[2 * plane + at],
-                                     a[2 * plane + at + l]));
+        sct::write_out<kMetric>(p_out, q_out, k, a[at], a[plane + at],
+                                __fadd_rn(a[2 * plane + at],
+                                          a[2 * plane + at + l]));
     }
 }
 
@@ -199,27 +142,58 @@ unsigned grid_for(size_t total) {
     return static_cast<unsigned>(blocks < (1u << 20) ? blocks : (1u << 20));
 }
 
+// The grid for one lag: segments for as many warps as the card holds at
+// once at this kernel's registers and shared memory (kSlotsPerWarp work
+// items a resident warp), a block for every g.warps of them.
+template <int LG, bool kMetric>
+int launch_tile(const float2* r, float2* p, float* q, sct::Plan& g, int rows,
+                cudaStream_t stream) {
+    const size_t smem = g.smem_bytes();
+    cudaError_t err;
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(
+             scfront_kernel<LG, kMetric>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
+             static_cast<int>(smem))) != cudaSuccess)
+        return static_cast<int>(err);
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, scfront_kernel<LG, kMetric>, g.warps * 32, smem)) !=
+            cudaSuccess)
+        return static_cast<int>(err);
+    sct::plan_segments(g, rows, static_cast<long long>(
+        static_cast<double>(sms) * (per_sm > 0 ? per_sm : 1) * g.warps *
+        kSlotsPerWarp));
+    const long long blocks = (g.items + g.warps - 1) / g.warps;
+    scfront_kernel<LG, kMetric><<<static_cast<unsigned>(blocks),
+                                  g.warps * 32, smem, stream>>>(r, p, q, g);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kMetric, int LG = 0>
+int launch_lg(const float2* r, float2* p, float* q, sct::Plan& g, int rows,
+              cudaStream_t stream) {
+    if constexpr (LG > sct::kMaxLog2L) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+        if (g.lg == LG)
+            return launch_tile<LG, kMetric>(r, p, q, g, rows, stream);
+        return launch_lg<kMetric, LG + 1>(r, p, q, g, rows, stream);
+    }
+}
+
 template <bool kMetric>
 int launch(const float2* r, float2* p, float* q, int rows, int n, int l,
            void* stream) {
-    const int nd = n - 2 * l + 1;
-    if (rows <= 0 || nd <= 0) return 0;
-    if (l > kMaxTileL) return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = (nd + kTile - 1) / kTile;
-    const size_t smem = sizeof(float)
-        * (4 * static_cast<size_t>(kTile + l - 1)
-           + 2 * static_cast<size_t>(kTile + 2 * l - 1));
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            scfront_kernel<kMetric>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    scfront_kernel<kMetric><<<rows * tiles, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-        r, p, q, n, nd, l, tiles);
-    return static_cast<int>(cudaGetLastError());
+    if (rows <= 0 || n - 2 * l + 1 <= 0) return 0;
+    sct::Plan g;
+    if (!sct::plan_tile(g, n, l, kMaxSmem))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return launch_lg<kMetric>(r, p, q, g, rows,
+                              static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -239,8 +239,13 @@ def _interp_launch(kernel: str, x: torch.Tensor, l: int, taps
     return y.reshape(x.shape[:-1] + (n * l,))
 
 
+# kernel (counter) -> C entry; the ilv_*_bf16 counters are K13 at the
+# reference's DEFAULT precision (research/fir_ilv.py) on the bf16 tier
 _ENTRY = {"fir": "ofdm_fir_strided", "fir_bf16": "ofdm_fir_bf16_strided",
-          "interp": "ofdm_fir_interp", "interp_bf16": "ofdm_fir_bf16_interp"}
+          "interp": "ofdm_fir_interp", "interp_bf16": "ofdm_fir_bf16_interp",
+          "ilv_fir_bf16": "ofdm_fir_bf16_strided",
+          "ilv_decim_bf16": "ofdm_fir_bf16_strided",
+          "ilv_interp_bf16": "ofdm_fir_bf16_interp"}
 
 
 def _strided_cuda(x: torch.Tensor, taps, stride: int, valid: bool = False

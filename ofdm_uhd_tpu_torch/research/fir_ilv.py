@@ -16,8 +16,11 @@ with the reference's shape handling: a 1-D input is one row, an N-D one
 is flattened to rows and restored. The TPU's tiles (the reference's `blk`
 and `tr`) do not change the function and have no counterpart.
 `precision="highest"` is the reference's default
-(jax.lax.Precision.HIGHEST) and runs the float32 kernel; no other
-precision is ported (ROADMAP.md, Queue 2).
+(jax.lax.Precision.HIGHEST) and runs the float32 kernel;
+`precision="default"` is its Precision.DEFAULT, one bf16 pass of the
+TPU's MXU: samples and coefficients rounded to bf16, products summed in
+float32, the function of the port's bf16 filter tier (kernels/fir.py,
+K7-bf16). Any other precision raises.
 
 A CUDA tensor launches csrc/banded.cu's interleaved entry (counted as
 ilv_fir, ilv_decim, ilv_interp): the kernel reads the complex64 rows in
@@ -28,6 +31,15 @@ reference's taps dilated by 2 (w2[0::2] = w) are its way of skipping the
 other component of an interleaved row; the kernel needs no zero taps. A
 CPU tensor, or any inside policy.plain_versions(), takes the port's exact
 float32 filters (kernels/fir.py decim_plain, interp_plain).
+
+At "default" a CUDA tensor launches csrc/fir_bf16.cu's entries instead
+(ofdm_fir_bf16_strided, ofdm_fir_bf16_interp; counted as ilv_fir_bf16,
+ilv_decim_bf16, ilv_interp_bf16): the interleaved rows are the complex64
+rows that kernel reads as float2, the reference's dilated zero taps stay
+zero in bf16, and its interpolation band is the same branch matrix
+(pallas_fir_ilv.py:133-134 calls conv_backend._branch_matrix). A CPU
+tensor takes the bf16 plain versions (decim_plain_bf16,
+interp_plain_bf16).
 """
 
 from __future__ import annotations
@@ -38,15 +50,16 @@ from ..kernels import build, policy
 from ..kernels import fir as KF
 from ..phy import tables as T
 
-PRECISIONS = ("highest",)
+PRECISIONS = ("highest", "default")
 
 
-def _check_precision(precision: str) -> None:
+def _is_default(precision: str) -> bool:
+    """True for 'default' (bf16 products), False for 'highest'."""
     if precision not in PRECISIONS:
-        raise NotImplementedError(
-            f"fir_ilv: precision {precision!r} is not ported; only "
-            f"'highest' (float32) is (ROADMAP.md, Queue 2: K13 at DEFAULT "
-            f"precision)")
+        raise ValueError(
+            f"fir_ilv: precision must be 'highest' (float32) or 'default' "
+            f"(bf16 products, float32 sums), got {precision!r}")
+    return precision == "default"
 
 
 def _flatten(x: torch.Tensor) -> torch.Tensor:
@@ -101,29 +114,44 @@ def _interp_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
     return _unflatten(y, x)
 
 
+def _fir_bf16_cuda(x: torch.Tensor, taps) -> torch.Tensor:
+    return KF._strided_launch("ilv_fir_bf16", x, taps, 1, False)
+
+
+def _decim_bf16_cuda(x: torch.Tensor, m: int, taps) -> torch.Tensor:
+    return KF._strided_launch("ilv_decim_bf16", x, taps, m, False)
+
+
+def _interp_bf16_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
+    return KF._interp_launch("ilv_interp_bf16", x, l, taps)
+
+
 def fir_ilv(x: torch.Tensor, taps, precision: str = "highest"
             ) -> torch.Tensor:
     """'Same'-aligned real-taps FIR of complex x [..., n] -> [..., n]."""
-    _check_precision(precision)
+    bf16 = _is_default(precision)
     if policy.use_kernel(x):
-        return _fir_cuda(x, taps)
-    return _unflatten(KF.decim_plain(_flatten(x), 1, taps), x)
+        return _fir_bf16_cuda(x, taps) if bf16 else _fir_cuda(x, taps)
+    plain = KF.decim_plain_bf16 if bf16 else KF.decim_plain
+    return _unflatten(plain(_flatten(x), 1, taps), x)
 
 
 def polyphase_decim_ilv(x: torch.Tensor, m: int, taps,
                         precision: str = "highest") -> torch.Tensor:
     """M-fold decimation [..., n] -> [..., n // m]."""
-    _check_precision(precision)
+    bf16 = _is_default(precision)
     if policy.use_kernel(x):
-        return _decim_cuda(x, m, taps)
-    return _unflatten(KF.decim_plain(_flatten(x), m, taps), x)
+        return (_decim_bf16_cuda if bf16 else _decim_cuda)(x, m, taps)
+    plain = KF.decim_plain_bf16 if bf16 else KF.decim_plain
+    return _unflatten(plain(_flatten(x), m, taps), x)
 
 
 def polyphase_interp_ilv(x: torch.Tensor, l: int, taps,
                          precision: str = "highest") -> torch.Tensor:
     """L-fold interpolation [..., n] -> [..., n*l]; taps = the prototype
     low-pass (gain L applied here)."""
-    _check_precision(precision)
+    bf16 = _is_default(precision)
     if policy.use_kernel(x):
-        return _interp_cuda(x, l, taps)
-    return _unflatten(KF.interp_plain(_flatten(x), l, taps), x)
+        return (_interp_bf16_cuda if bf16 else _interp_cuda)(x, l, taps)
+    plain = KF.interp_plain_bf16 if bf16 else KF.interp_plain
+    return _unflatten(plain(_flatten(x), l, taps), x)

@@ -194,3 +194,32 @@ def test_rx_chain_matches_reference(ref, routes, monkeypatch):
     np.testing.assert_array_equal(out["payload"][:, :N_FRAMES], ref["pays"])
     np.testing.assert_allclose(out["evm_db"][valid], want["evm_db"][valid],
                                atol=1e-4)
+
+
+def test_pallas_at_2048_points_decodes_where_the_reference_asserts(
+        monkeypatch):
+    """n_sc = 2048 under kernel_backend='pallas' (a 2-frame QPSK capture,
+    CP 256, 2 data symbols): the reference's fused S&C front end asserts
+    that its halo block divides its main block (h = 24 does not divide tr
+    = 512 at l = 1024); the port's K6 takes the lag by its tile route
+    (one launch on the card) and decodes both frames."""
+    rspec = RefSpec(n_sc=2048, cp=256, modulation="qpsk", n_data_syms=2,
+                    kernel_backend="pallas")
+    cap, pays = ref_build_capture(rspec, 2, GAP, seed=0)
+    iq = to_sc16(cap[None])
+    with pytest.raises(AssertionError, match="halo"):
+        RefRx(rspec).rx_capture_sc16(iq, max_frames=MAX_FRAMES)
+    assert ksync.route(1024) == [("tile",)]
+    lags = []
+
+    def front(r, l):
+        lags.append(l)
+        return scfront.sc_frontend(r, l)
+    monkeypatch.setattr(psync, "sc_frontend", front)
+    spec = spec_from_reference(dataclasses.asdict(rspec))
+    out = RxPipeline(spec).rx_capture_sc16(torch.from_numpy(iq),
+                                           max_frames=MAX_FRAMES)
+    assert lags == [1024]
+    valid = out["valid"][0].numpy()
+    assert valid.sum() == 2 and out["crc_ok"][0].numpy()[valid].all()
+    np.testing.assert_array_equal(out["payload"][0, :2].numpy(), pays)

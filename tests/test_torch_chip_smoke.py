@@ -123,6 +123,9 @@ def test_kernels_line_names_every_kernel():
                      ("ilv_fir", "fir_ilv_pallas"),
                      ("ilv_decim", "polyphase_decim_ilv_pallas"),
                      ("ilv_interp", "polyphase_interp_ilv_pallas"),
+                     ("ilv_fir_bf16", "fir_ilv_pallas"),
+                     ("ilv_decim_bf16", "polyphase_decim_ilv_pallas"),
+                     ("ilv_interp_bf16", "polyphase_interp_ilv_pallas"),
                      ("deframe", "extract_frames_dma")):
         src, rep = chip_smoke.KERNEL_INFO[name]
         assert os.path.isfile(os.path.join(REPO, src))
@@ -136,6 +139,8 @@ def test_kernels_line_names_every_kernel():
         if k.startswith(("banded_", "ilv_")) or k == "deframe"}
     assert chip_smoke.held_kernel("banded_sc_c3") == "banded_sc"
     assert chip_smoke.held_kernel("deframe_offsets") == "deframe"
+    assert chip_smoke.held_kernel("ilv_decim_bf16_c4") == "ilv_decim_bf16"
+    assert chip_smoke.held_kernel("ilv_decim_c4") == "ilv_decim"
 
 
 def test_bound_takes_the_larger_time():
@@ -258,6 +263,12 @@ def on_host(monkeypatch):
              lambda x, t: fir.decim_plain(x, 1, t)),
             (fir_ilv, "_decim_cuda", "ilv_decim", fir.decim_plain),
             (fir_ilv, "_interp_cuda", "ilv_interp", fir.interp_plain),
+            (fir_ilv, "_fir_bf16_cuda", "ilv_fir_bf16",
+             lambda x, t: fir.decim_plain_bf16(x, 1, t)),
+            (fir_ilv, "_decim_bf16_cuda", "ilv_decim_bf16",
+             fir.decim_plain_bf16),
+            (fir_ilv, "_interp_bf16_cuda", "ilv_interp_bf16",
+             fir.interp_plain_bf16),
             (deframe, "_deframe_cuda", "deframe", deframe.deframe_plain)):
         monkeypatch.setattr(mod, name, _counted(count, fn))
     policy.reset_launches()
@@ -342,6 +353,8 @@ def test_tiers_phase_rehearsal(on_host, monkeypatch):
     assert launches["banded_decim"] == 2 and launches["banded_interp"] == 2
     assert launches["ilv_fir"] == 1 and launches["ilv_decim"] == 2
     assert launches["ilv_interp"] == 2 and launches["deframe"] == 2
+    assert launches["ilv_fir_bf16"] == 1 and launches["ilv_decim_bf16"] == 2
+    assert launches["ilv_interp_bf16"] == 2
     assert all(c == 0 for k, c in launches.items()
                if k not in chip_smoke.TIERS_PATH)
     res = out["kernels"]
@@ -349,7 +362,10 @@ def test_tiers_phase_rehearsal(on_host, monkeypatch):
         "banded_fir", "banded_decim_c4", "banded_decim", "banded_interp_c4",
         "banded_interp", "banded_sc_c3", "banded_sc", "ilv_fir",
         "ilv_decim_c4", "ilv_decim", "ilv_interp_c4", "ilv_interp",
-        "deframe_c3", "deframe_offsets"]
+        "ilv_fir_bf16", "ilv_decim_bf16_c4", "ilv_decim_bf16",
+        "ilv_interp_bf16_c4", "ilv_interp_bf16", "deframe_c3",
+        "deframe_offsets"]
+    assert res["ilv_decim_bf16_c4"]["bound_by"] == "bytes"
     assert res["banded_decim_c4"]["bound_by"] == "bytes"
     assert res["deframe_offsets"]["shape"] == [2 * 17, fl]
     assert set(out["ab"]["decim_c4"]) == {"K7", "K11", "K8", "K13",

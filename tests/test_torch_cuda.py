@@ -245,11 +245,15 @@ def test_sc_levels_route_close(dev, metric):
             <= 1e-5
 
 
-@pytest.mark.parametrize("l", [1, 32, 128])
-def test_sc_levels_route_equals_tile_route(dev, l):
+@pytest.mark.parametrize("l,rows,n", [(1, 3, 20001), (32, 3, 20001),
+                                      (128, 3, 20001), (512, 3, 20001),
+                                      (2048, 3, 20001), (4096, 3, 20001),
+                                      (128, 1, 4_436_068)])
+def test_sc_levels_route_equals_tile_route(dev, l, rows, n):
     """Both routes sum in the same order: the levels kernels give the tile
-    kernels' bits at a lag both take."""
-    x = torch.randn((3, 20001), dtype=torch.complex64, generator=_gen(l),
+    kernels' bits at a lag both take, up to the tile route's largest lag
+    and on a row of C3's width."""
+    x = torch.randn((rows, n), dtype=torch.complex64, generator=_gen(l),
                     device=dev)
     for metric in (False, True):
         tile = sync.sc_kernels("sccorr", x, l, metric)
@@ -511,7 +515,7 @@ def test_c4_bf16_slice_on_card_matches_cpu(dev):
     assert (gpu["eps"].cpu() - cpu["eps"]).abs().max() <= 1e-4
 
 
-@pytest.mark.parametrize("l", [32, 128, 512])
+@pytest.mark.parametrize("l", [32, 128, 512, 2048, 4096])
 def test_scfront_kernel_close(dev, l):
     x = torch.randn((3, 50000), dtype=torch.complex64, generator=_gen(l),
                     device=dev)
@@ -983,6 +987,36 @@ def test_banded_and_ilv_interp_kernels_close(dev, l, shape, kind):
     _within(got_i, want)
 
 
+@pytest.mark.parametrize("kind,f,shape", [
+    ("fir", 1, (1003,)), ("fir", 1, (3, 9001)), ("decim", 8, (5, 16384)),
+    ("decim", 2, (3, 20011)), ("interp", 8, (6, 2100)),
+    ("interp", 2, (3000,))])
+def test_ilv_default_kernels_close(dev, kind, f, shape):
+    """K13 at precision='default' launches the bf16 tier's kernels, once,
+    counted as ilv_*_bf16, within 1e-5 of max|y| of the bf16 plain
+    versions; 'highest' stays on the banded kernels."""
+    taps = _taps("proto", max(f, 8))
+    x = torch.randn(shape, dtype=torch.complex64,
+                    generator=_gen(f + shape[-1]), device=dev)
+    fn, plain = {
+        "fir": (lambda p: fir_ilv.fir_ilv(x, taps, precision=p),
+                lambda: fir.decim_plain_bf16(x, 1, taps)),
+        "decim": (lambda p: fir_ilv.polyphase_decim_ilv(x, f, taps,
+                                                        precision=p),
+                  lambda: fir.decim_plain_bf16(x, f, taps)),
+        "interp": (lambda p: fir_ilv.polyphase_interp_ilv(x, f, taps,
+                                                          precision=p),
+                   lambda: fir.interp_plain_bf16(x, f, taps))}[kind]
+    policy.reset_launches()
+    got = fn("default")
+    assert policy.launches()[f"ilv_{kind}_bf16"] == 1
+    assert sum(policy.launches().values()) == 1
+    _within(got, plain())
+    policy.reset_launches()
+    fn("highest")
+    assert policy.launches()[f"ilv_{kind}"] == 1
+
+
 @pytest.mark.parametrize("l,shape", [(32, (9000,)), (128, (20480,)),
                                      (48, (3, 6000)), (512, (2, 40000))])
 def test_banded_sc_kernel_close(dev, l, shape):
@@ -1029,8 +1063,8 @@ def test_banded_rejects_bad_input(dev):
         fir_ilv.polyphase_interp_ilv(c, 0, taps)
     with pytest.raises(ValueError):
         banded.sc_correlate_banded(c, 600)                   # 2l > n
-    with pytest.raises(NotImplementedError):
-        fir_ilv.fir_ilv(c, taps, precision="default")
+    with pytest.raises(ValueError):                          # no such tier
+        fir_ilv.fir_ilv(c, taps, precision="high")
     with pytest.raises(RuntimeError):                        # shared memory
         fir_ilv.polyphase_decim_ilv(c, 64, np.ones(4096, np.float32))
 
