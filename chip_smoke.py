@@ -81,14 +81,16 @@ findings on a line of its own:
       (QPSK, CP n/8, 2 data symbols, 4 captures x 4 frames built by the
       port's TX on the card): K3 in one launch at 4096 and by its
       two-pass route above (the column pass, then the row pass, which
-      stores in natural order), the S&C tile kernel at l = 2048 and its
-      levels route at 8192 and 16384 (leaves, log2 l levels, epilogue),
-      each route kernel against its plain step; then K3 alone at N =
+      stores in natural order), the S&C split route at l = 2048, 8192 and
+      16384 (the span pass to S_W, the stride pass over the residue
+      chains mod W), each pass against its plain step and the route
+      against the plain version, timed in-kernel, its bits checked against
+      the tile kernel at 2048 and logged as a digest; then K3 alone at N =
       4096 .. 65536 beside torch.fft.fft, with every split N1 x N2 of the
       route (and one launch at 8192) timed in turns.
   Wherever the S&C tile kernel (K6, or K9 at c2_pallas) is held, it is
   also timed in-kernel, and its P and M (or R) are checked bit for bit
-  against the levels route's and logged as a digest, by which the runs of
+  against the split route's and logged as a digest, by which the runs of
   two checkouts compare.
   Wherever the windowed Viterbi kernel (K4w, one thread a window) is
   held, its previous body (one warp a window, which no path runs) is held
@@ -206,14 +208,12 @@ KERNEL_INFO = {
                     "ofdm_uhd_tpu/kernels/pallas_fft.py:185"),
     "fft_rows_t": ("ofdm_uhd_tpu_torch/kernels/csrc/fft.cu",
                    "ofdm_uhd_tpu/kernels/pallas_fft.py:185"),
-    # the S&C levels route above l = 4096 (big_nsc): K6's (and K9's) sums
-    # through device memory
-    "sc_leaves": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
+    # the S&C split route above the tile route's lags (big_nsc): K6's (and
+    # K9's) sums in two passes (csrc/scfront_split.cuh)
+    "sc_span": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
+                "ofdm_uhd_tpu/kernels/pallas_scfront.py:103"),
+    "sc_stride": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
                   "ofdm_uhd_tpu/kernels/pallas_scfront.py:103"),
-    "sc_level": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
-                 "ofdm_uhd_tpu/kernels/pallas_scfront.py:103"),
-    "sc_out": ("ofdm_uhd_tpu_torch/kernels/csrc/scfront.cu",
-               "ofdm_uhd_tpu/kernels/pallas_scfront.py:103"),
     "fir": ("ofdm_uhd_tpu_torch/kernels/csrc/fir.cu",
             "ofdm_uhd_tpu/kernels/pallas_fir_mxu.py:154"),
     "interp": ("ofdm_uhd_tpu_torch/kernels/csrc/fir.cu",
@@ -302,7 +302,7 @@ TIERS_SESSION = (16, 8192)
 # big_nsc: RxPipeline at FFT sizes above the chain's own, QPSK, CP n/8, 2
 # data symbols (LTE / NR carriers run 2048-4096 points, DVB-T2's 16K and
 # 32K modes 16384 and 32768): K3 in one launch at 4096, the two-pass
-# route and the S&C levels route above; BIG_CAPS captures of BIG_FRAMES
+# route above, and the S&C split route; BIG_CAPS captures of BIG_FRAMES
 # frames each (gap 300, build_capture's default channel, seeds 0..)
 BIG_NSC = (4096, 16384, 32768)
 BIG_CAPS, BIG_FRAMES = 4, 4
@@ -943,23 +943,23 @@ def bits_digest(*ts) -> str:
 def sc_tile_bits(torch, label, res, kernel, cap, l, metric) -> dict:
     """K6's (metric) or K9's tile launch on the path's captures cap [C, n]
     at lag l, after its hold `res`: the same bits (P and M or R) as the
-    levels route (ofdm_sc_leaves, log2 l ofdm_sc_level, ofdm_sc_out: the
-    same adds through device memory), checked; its in-kernel time
-    (device_ms); and a digest of its bits (`bits`), by which the runs of
-    two checkouts on the same inputs are compared."""
+    split route (ofdm_sc_span, ofdm_sc_stride: the same adds in two
+    passes), checked; its in-kernel time (device_ms); and a digest of its
+    bits (`bits`), by which the runs of two checkouts on the same inputs
+    are compared."""
     from ofdm_uhd_tpu_torch.kernels import sync
     tile = sync.sc_kernels(kernel, cap, l, metric)
-    levels = sync.levels_route(cap, l, metric, sync._leaves_cuda,
-                               sync._level_cuda, sync._out_cuda)
-    check(all(bool(torch.equal(a, b)) for a, b in zip(tile, levels)),
-          f"{label} {kernel}: the tile route's bits differ from the levels "
+    split = sync.split_route(cap, l, metric, sync._span_cuda,
+                             sync._stride_cuda)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(tile, split)),
+          f"{label} {kernel}: the tile route's bits differ from the split "
           "route's")
     res["bits"] = bits_digest(*tile)
-    del tile, levels
+    del tile, split
     res["device_ms"] = device_ms(torch, lambda: sync.sc_kernels(
         kernel, cap, l, metric))
     t = res["device_ms"]
-    log(f"{label} {kernel}: bit for bit the levels route's P and "
+    log(f"{label} {kernel}: bit for bit the split route's P and "
         f"{'M' if metric else 'R'}, digest {res['bits']}; in-kernel "
         + ("none" if t is None else f"{t:.4f} ms"))
     return res
@@ -2315,11 +2315,11 @@ def phase_two_cards(torch, spec, stacks, pays) -> dict | None:
 
 def big_path(spec) -> tuple:
     """The kernels a big_nsc spec's RX launches: the S&C tile kernel or
-    the levels route (l = n_sc / 2), K1, K2, K3 (its two passes above
-    ONE_LAUNCH_N) and the spec's Viterbi."""
+    the split route's two passes (l = n_sc / 2), K1, K2, K3 (its two
+    passes above ONE_LAUNCH_N) and the spec's Viterbi."""
     from ofdm_uhd_tpu_torch.kernels import fft, policy, sync
     sc = (("scfront",) if sync.route(spec.n_sc // 2)[0][0] == "tile"
-          else ("sc_leaves", "sc_level", "sc_out"))
+          else ("sc_span", "sc_stride"))
     ff = (("fft",) if len(fft.route(spec.n_sc)) == 1
           else ("fft_columns", "fft_rows_t"))
     vit = ("viterbi" if policy.viterbi_impl(
@@ -2358,9 +2358,9 @@ def make_input_big(torch, spec, label, device):
 
 
 def planes_close(valid_p, valid_e):
-    """Plane sets [3, B, n] of the levels route, over their valid parts
-    (P's planes [:valid_p], the energy [:valid_e]): within REL_TOL of
-    each plane's max."""
+    """Plane sets [3, B, n] of the split route's span pass, over their
+    valid parts (P's planes [:valid_p], the energy [:valid_e]): within
+    REL_TOL of each plane's max."""
     def close(k, p):
         errs = [rel_close(k[i, :, :v], p[i, :, :v])
                 for i, v in ((0, valid_p), (1, valid_p), (2, valid_e))]
@@ -2368,39 +2368,54 @@ def planes_close(valid_p, valid_e):
     return close
 
 
-def hold_sc_levels(torch, label, cap, l) -> dict:
-    """The S&C levels route's kernels on the main path's AGC'd captures
-    [C, n] at lag l: the leaves, the first doubling level (w = 1) and the
-    epilogue (on the planes after all log2 l levels), each against its
-    plain step; then the whole route against sc_frontend_plain (under
-    sc_out_route)."""
+def hold_sc_split(torch, label, cap, l) -> dict:
+    """The S&C split route's passes on the main path's AGC'd captures [C,
+    n] at lag l and the route's width w: the span pass and the stride pass
+    (on the span kernel's set), each against its plain step, then the
+    whole route against sc_frontend_plain (under sc_stride_route); each
+    timed in-kernel. Where the tile kernel takes the lag, the route's P
+    and M are checked bit for bit against it; their digest is logged."""
     from ofdm_uhd_tpu_torch.kernels import scfront, sync
     rows, n = cap.shape
     nd = n - 2 * l + 1
-    res = {"sc_leaves": held(
-        torch, "sc_leaves", lambda: sync._leaves_cuda(cap, l),
-        lambda: sync.leaves_plain(cap, l), planes_close(n - l, n),
-        cap.shape, (8.0 * rows * n + 4.0 * rows * (3 * n - 2 * l),
-                    rows * (6.0 * (n - l) + 4.0 * n)))}
-    a = sync._leaves_cuda(cap, l)
-    lp, le = n - l - 1, n - 1
-    res["sc_level"] = held(
-        torch, "sc_level", lambda: sync._level_cuda(a, 1, lp, le),
-        lambda: sync.level_plain(a, 1, lp, le), planes_close(lp, le),
-        a.shape, (8.0 * rows * (2 * lp + le), rows * (2.0 * lp + le)))
-    for step in sync.levels_plan(l):
-        if step[0] == "level":
-            lp, le = n - l - (2 * step[1] - 1), n - (2 * step[1] - 1)
-            a = sync._level_cuda(a, step[1], lp, le)
-    res["sc_out"] = held(
-        torch, "sc_out", lambda: sync._out_cuda(a, l, nd, True),
-        lambda: sync.out_plain(a, l, nd, True), scfront_close, (rows, nd),
-        (16.0 * rows * nd + 12.0 * rows * nd, 10.0 * rows * nd))
-    res["sc_out_route"] = held(
-        torch, "scfront levels route",
-        lambda: sync.sc_kernels("scfront", cap, l, True),
-        lambda: scfront.sc_frontend_plain(cap, l), scfront_close,
-        cap.shape, work_sc(rows, n, l, metric=True))
+    w = sync.split_width(l)
+    lg, lgw = l.bit_length() - 1, w.bit_length() - 1
+    len_e, len_p = n - w + 1, n - l - w + 1
+    set_bytes = 4.0 * rows * (len_e + 2 * len_p)
+    a = sync._span_cuda(cap, l, w)
+    runs = {
+        "sc_span": (lambda: sync._span_cuda(cap, l, w),
+                    lambda: sync.span_plain(cap, l, w),
+                    planes_close(len_p, len_e), cap.shape,
+                    (8.0 * rows * n + set_bytes,
+                     rows * (10.0 * len_e + lgw * (len_e + 2.0 * len_p)))),
+        "sc_stride": (lambda: sync._stride_cuda(a, l, w, True),
+                      lambda: sync.stride_plain(a, l, w, True),
+                      scfront_close, a.shape,
+                      (set_bytes + 12.0 * rows * nd,
+                       rows * nd * (3.0 * (lg - lgw) + 10))),
+        "sc_stride_route": (lambda: sync.sc_kernels("scfront", cap, l, True),
+                            lambda: scfront.sc_frontend_plain(cap, l),
+                            scfront_close, cap.shape,
+                            work_sc(rows, n, l, metric=True))}
+    res = {}
+    for key, (run_k, run_p, tol, shape, work) in runs.items():
+        res[key] = held(torch, key, run_k, run_p, tol, shape, work)
+        res[key]["device_ms"] = device_ms(torch, run_k)
+    route = sync.sc_kernels("scfront", cap, l, True)
+    res["sc_stride_route"]["bits"] = bits_digest(*route)
+    res["sc_stride_route"]["width"] = w
+    tile = "none (l above the tile kernel's lags)"
+    if l <= sync.TILE_KERNEL_MAX_L:
+        t = sync._tile_cuda("scfront", cap, nd, l, True)
+        check(all(bool(torch.equal(x, y)) for x, y in zip(route, t)),
+              f"{label}: the split route's bits differ from the tile "
+              "kernel's")
+        tile = "equal to the tile kernel's"
+        del t
+    del route, a
+    log(f"{label} split route (W = {w}): P and M {tile}, digest "
+        f"{res['sc_stride_route']['bits']}")
     log_kernels(label, res)
     return res
 
@@ -2490,15 +2505,15 @@ def hold_fft_sizes(torch, device) -> dict:
 def run_big_nsc(torch, device) -> dict:
     """RxPipeline.rx_capture_sc16 at n_sc = BIG_NSC (QPSK, CP n/8, 2 data
     symbols): the TX builds the captures on the card, the stages and
-    kernels on the whole batch (the levels route's kernels and the
-    two-pass route's passes each against its plain step), then the
+    kernels on the whole batch (the S&C split route's passes and K3's
+    two passes each against its plain step), then the
     slice: every frame bit-exact, equal to the plain-forced run, every
     kernel of big_path launched and none of the other route's. Last, K3
     alone at N = 4096 .. 65536."""
     from ofdm_uhd_tpu_torch.core.spec import WaveformSpec
     from ofdm_uhd_tpu_torch.kernels import policy
-    routes = {"scfront", "sc_leaves", "sc_level", "sc_out", "fft",
-              "fft_columns", "fft_rows_t"}
+    routes = {"scfront", "sc_span", "sc_stride", "fft", "fft_columns",
+              "fft_rows_t"}
     out = {"kernels": {}, "slices": {}, "stages_ms": {},
            "launches": dict.fromkeys(policy.KERNELS, 0),
            "tx_launches": dict.fromkeys(policy.KERNELS, 0)}
@@ -2515,8 +2530,8 @@ def run_big_nsc(torch, device) -> dict:
             k for k in path if k in ("scfront", "localize", "extract", "fft",
                                      "viterbi", "viterbi_windowed"))
             + (("fft",) if "fft_columns" in path else ()))
-        if "sc_leaves" in path:
-            kernels.update(hold_sc_levels(torch, label, ins["cap"], n // 2))
+        if "sc_span" in path:
+            kernels.update(hold_sc_split(torch, label, ins["cap"], n // 2))
         if "fft_columns" in path:
             syms, st = ins["syms"], ins["start"]
             kernels.update(hold_passes(torch, label, syms[..., st:st + n]))

@@ -29,7 +29,7 @@ SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
            "fir.cu", "fir_bf16.cu", "scfront.cu", "halo.cu", "shift.cu",
            "banded.cu", "deframe.cu")
 HEADERS = ("ofdm_kernels.h", "viterbi_group.cuh", "viterbi_window.cuh",
-           "fir_strided.cuh", "scfront_tile.cuh")
+           "fir_strided.cuh", "scfront_tile.cuh", "scfront_split.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -81,12 +81,10 @@ _SIGNATURES = {
     "ofdm_scfront": [_P, _P, _P, _I, _I, _I, _P],
     # r, p, rr, rows, n, l, stream
     "ofdm_sc_correlate": [_P, _P, _P, _I, _I, _I, _P],
-    # r, set, rows, n, l, stream
-    "ofdm_sc_leaves": [_P, _P, _I, _I, _I, _P],
-    # a, b, rows, n, w, len_p, len_e, stream
-    "ofdm_sc_level": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # set, p, q, rows, n, l, metric, stream
-    "ofdm_sc_out": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # r, set, rows, n, l, w, stream
+    "ofdm_sc_span": [_P, _P, _I, _I, _I, _I, _P],
+    # set, p, q, rows, n, l, w, metric, stream
+    "ofdm_sc_stride": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # src pointers, dst pointers (host arrays), pairs, h, stream
     "ofdm_halo_from_right": [_P, _P, _I, _I, _P],
     # device, peer

@@ -163,18 +163,17 @@ OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
 OFDM_API int ofdm_sc_correlate(const float2* r, float2* p, float* rr,
                                int rows, int n, int l, void* stream);
 
-// The S&C levels route (l above the tile's 4096): set [3, rows, n] f32.
-// Leaves: set[0], set[1] = re, im of conj(r[i]) r[i + l] (i < n - l),
-// set[2] = |r[i]|^2. Level: b = a's three planes doubled at width w,
-// b[.][j] = a[.][j] + a[.][j + w] for j < len_p (planes 0, 1) and j <
-// len_e (plane 2). Out: p [rows, nd] complex64 from planes 0, 1, and
-// q [rows, nd] = M (metric) or R from R = 0.5 (a[2][i] + a[2][i + l]).
-OFDM_API int ofdm_sc_leaves(const float2* r, float* set, int rows, int n,
-                            int l, void* stream);
-OFDM_API int ofdm_sc_level(const float* a, float* b, int rows, int n, int w,
-                           int len_p, int len_e, void* stream);
-OFDM_API int ofdm_sc_out(const float* set, float2* p, float* q, int rows,
-                         int n, int l, int metric, void* stream);
+// The S&C split route (l above the tile's 4096), at a width w (powers of
+// two, w <= l, w <= 16384): set [3, rows, n] f32. Span: set[2][i] = S_w of
+// |r|^2 at i < n - w + 1, set[0], set[1] = S_w of the re, im of conj(r[j])
+// r[j + l] at i < n - l - w + 1 (the rest not written), S_w[i] the
+// pairwise doubling of w values from i. Stride: from those, p [rows, nd]
+// complex64 and q [rows, nd] = M (metric) or R, as ofdm_scfront and
+// ofdm_sc_correlate give them.
+OFDM_API int ofdm_sc_span(const float2* r, float* set, int rows, int n,
+                          int l, int w, void* stream);
+OFDM_API int ofdm_sc_stride(const float* set, float2* p, float* q, int rows,
+                            int n, int l, int w, int metric, void* stream);
 
 // Halo exchange: for each of `pairs` (source, destination) pointer pairs
 // (host arrays of device pointers; a source may lie on a peer card whose

@@ -27,7 +27,8 @@
 // into an FMA. The energy is |r| squared with |r| = hypotf, as r.abs() **
 // 2 computes it on the card.
 //
-// The tile route (l <= 4096, kernels/sync.py route): csrc/scfront_tile.cuh,
+// The tile route (l <= 1024, kernels/sync.py route; the kernel takes up to
+// 4096): csrc/scfront_tile.cuh,
 // one warp walking a long segment of a row with all three planes in
 // registers, each doubling level a shuffle (w < 32), a register of the
 // same lane (w < 256) or a per-warp ring in shared memory (w >= 256); see
@@ -36,27 +37,33 @@
 // (l = 32, 32 captures of ~182k samples) a call moves ~117 MB, so it is
 // short enough that its launch shows.
 //
-// Above l = 4096 (n_sc >= 16384: DVB-T2's 16K and 32K modes) the same sums
-// run through device memory in 2 + log2 l launches (the levels route,
-// kernels/sync.py route): ofdm_sc_leaves writes the lag product's two
-// planes and the energy, ofdm_sc_level doubles all three planes once
-// (S_2w[i] = S_w[i] + S_w[i + w], w = 1 .. l/2, into the other of two
-// plane sets, since a block would otherwise overwrite S_w[i + w] before
-// another block reads it), and ofdm_sc_out takes the energy's last level,
-// R = 0.5 (S_l[i] + S_l[i + l]), and writes P and M or R with the tile
+// Above (n_sc >= 4096, with DVB-T2's 16K and 32K modes) the same sums run
+// by the split route in two launches (kernels/sync.py route; the body
+// csrc/scfront_split.cuh, see its note): ofdm_sc_span walks the leaves and
+// the levels up to a width W as the tile body does and writes S_W of the
+// three planes, and ofdm_sc_stride runs the levels above W on each residue
+// chain i mod W, one thread a chain, and writes P and M or R with the tile
 // route's epilogue (sct::write_out). Same adds in the same order, so both
-// routes give the same bits. Each level reads and writes ~3 planes, so at
-// l = 8192 the route moves ~15x the tile route's bytes.
+// routes give the same bits. ~44 B a sample in all, where the levels route
+// it replaces above 4096 (2 + log2 l launches, each level reading and
+// writing all three planes through device memory) moved ~15x the tile
+// route's bytes at l = 8192. At l = 2048 and 4096 the split route also
+// beats the tile kernel, whose warm-up of 2l - 1 positions a segment
+// grows with l (PERF.md).
 #include "ofdm_kernels.h"
-#include "scfront_tile.cuh"
+#include "scfront_split.cuh"
 
 namespace {
 
 constexpr size_t kMaxSmem = 227 * 1024;   // dynamic shared memory a block
 constexpr double kSlotsPerWarp = 1.0;     // work items a resident warp
+                                          // of the tile and span walks
                                           // (scripts/k6_ab.py varies it)
+constexpr double kStrideSlots = 1.0;      // ... a resident thread of the
+                                          // stride pass (the same)
 
-// A warp for sct::walk: its lane and the shuffle of all 32 lanes.
+// A warp for sct::walk and scs::span_walk: its lane and the shuffle of
+// all 32 lanes.
 struct DeviceWarp {
     int lane;
     __device__ __forceinline__ float shfl(float v, int src) const {
@@ -80,66 +87,27 @@ scfront_kernel(const float2* __restrict__ r, float2* __restrict__ p_out,
         sct::walk<LG, kMetric>(r, p_out, q_out, g, item, ring, wp);
 }
 
-// The levels route's planes: set [3, rows, n] floats, plane 0 / 1 the lag
-// product's re / im (valid over n - l, then shorter by each level's w),
-// plane 2 the energy (valid over n).
-constexpr int kLevelThreads = 256;
-
-__global__ void __launch_bounds__(kLevelThreads)
-sc_leaves_kernel(const float2* __restrict__ r, float* __restrict__ set,
-                 int rows, int n, int l) {
-    const size_t plane = static_cast<size_t>(rows) * n;
-    const size_t total = plane;
-    for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-         k < total; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
-        const int s = static_cast<int>(k % n);
-        const float2 a = r[k];
-        const float mag = hypotf(a.x, a.y);
-        set[2 * plane + k] = __fmul_rn(mag, mag);
-        if (s < n - l) {
-            const float2 b = r[k + l];
-            set[k] = __fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
-            set[plane + k] = __fsub_rn(__fmul_rn(a.x, b.y),
-                                       __fmul_rn(a.y, b.x));
-        }
-    }
-}
-
-__global__ void __launch_bounds__(kLevelThreads)
-sc_level_kernel(const float* __restrict__ a, float* __restrict__ b, int rows,
-                int n, int w, int len_p, int len_e) {
-    const size_t plane = static_cast<size_t>(rows) * n;
-    for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-         k < plane; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
-        const int j = static_cast<int>(k % n);
-        if (j < len_e)
-            b[2 * plane + k] = __fadd_rn(a[2 * plane + k], a[2 * plane + k + w]);
-        if (j < len_p) {
-            b[k] = __fadd_rn(a[k], a[k + w]);
-            b[plane + k] = __fadd_rn(a[plane + k], a[plane + k + w]);
-        }
-    }
-}
-
-template <bool kMetric>
-__global__ void __launch_bounds__(kLevelThreads)
-sc_out_kernel(const float* __restrict__ a, float2* __restrict__ p_out,
-              float* __restrict__ q_out, int rows, int n, int l, int nd) {
-    const size_t plane = static_cast<size_t>(rows) * n;
-    const size_t total = static_cast<size_t>(rows) * nd;
-    for (size_t k = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-         k < total; k += static_cast<size_t>(gridDim.x) * blockDim.x) {
-        const size_t row = k / nd;
-        const size_t at = row * n + (k - row * nd);
-        sct::write_out<kMetric>(p_out, q_out, k, a[at], a[plane + at],
-                                __fadd_rn(a[2 * plane + at],
-                                          a[2 * plane + at + l]));
-    }
-}
-
-unsigned grid_for(size_t total) {
-    const size_t blocks = (total + kLevelThreads - 1) / kLevelThreads;
-    return static_cast<unsigned>(blocks < (1u << 20) ? blocks : (1u << 20));
+// The blocks of `kernel` the card holds at once at `threads` threads and
+// `smem` bytes of dynamic shared memory a block (after allowing it
+// above 48 KB), at least one an SM.
+template <class Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
+                            long long& blocks) {
+    cudaError_t err;
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             static_cast<int>(smem))) != cudaSuccess)
+        return err;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, threads, smem)) != cudaSuccess)
+        return err;
+    blocks = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+    return cudaSuccess;
 }
 
 // The grid for one lag: segments for as many warps as the card holds at
@@ -149,24 +117,12 @@ template <int LG, bool kMetric>
 int launch_tile(const float2* r, float2* p, float* q, sct::Plan& g, int rows,
                 cudaStream_t stream) {
     const size_t smem = g.smem_bytes();
-    cudaError_t err;
-    if (smem > 48 * 1024 &&
-        (err = cudaFuncSetAttribute(
-             scfront_kernel<LG, kMetric>,
-             cudaFuncAttributeMaxDynamicSharedMemorySize,
-             static_cast<int>(smem))) != cudaSuccess)
-        return static_cast<int>(err);
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, scfront_kernel<LG, kMetric>, g.warps * 32, smem)) !=
-            cudaSuccess)
-        return static_cast<int>(err);
+    long long resident = 0;
+    const cudaError_t err = resident_blocks(scfront_kernel<LG, kMetric>,
+                                            g.warps * 32, smem, resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
     sct::plan_segments(g, rows, static_cast<long long>(
-        static_cast<double>(sms) * (per_sm > 0 ? per_sm : 1) * g.warps *
-        kSlotsPerWarp));
+        static_cast<double>(resident) * g.warps * kSlotsPerWarp));
     const long long blocks = (g.items + g.warps - 1) / g.warps;
     scfront_kernel<LG, kMetric><<<static_cast<unsigned>(blocks),
                                   g.warps * 32, smem, stream>>>(r, p, q, g);
@@ -196,6 +152,84 @@ int launch(const float2* r, float2* p, float* q, int rows, int n, int l,
                               static_cast<cudaStream_t>(stream));
 }
 
+// ---- the split route (csrc/scfront_split.cuh) ------------------------
+
+// The span pass: each warp walks work items (row, segment), item += the
+// grid's warps.
+template <int LGW>
+__global__ void __launch_bounds__(sct::kWarps * 32)
+sc_span_kernel(const float2* __restrict__ r, float* __restrict__ set,
+               const scs::SpanPlan g) {
+    extern __shared__ float sm[];
+    const int warp = threadIdx.x / 32;
+    const DeviceWarp wp{static_cast<int>(threadIdx.x & 31)};
+    float* ring = sm + static_cast<size_t>(warp) * g.ring;
+    const long long stride = static_cast<long long>(gridDim.x) * g.warps;
+    for (long long item = static_cast<long long>(blockIdx.x) * g.warps + warp;
+         item < g.items; item += stride)
+        scs::span_walk<LGW>(r, set, g, item, ring, wp);
+}
+
+template <int LGW = 0>
+int launch_span(const float2* r, float* set, scs::SpanPlan& g,
+                cudaStream_t stream) {
+    if constexpr (LGW > scs::kMaxLog2W) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+        if (g.lgw != LGW) return launch_span<LGW + 1>(r, set, g, stream);
+        const size_t smem = g.smem_bytes();
+        long long resident = 0;
+        const cudaError_t err = resident_blocks(sc_span_kernel<LGW>,
+                                                g.warps * 32, smem, resident);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        scs::plan_span_segments(g, static_cast<long long>(
+            static_cast<double>(resident) * g.warps * kSlotsPerWarp));
+        const long long blocks = (g.items + g.warps - 1) / g.warps;
+        sc_span_kernel<LGW><<<static_cast<unsigned>(blocks), g.warps * 32,
+                              smem, stream>>>(r, set, g);
+        return static_cast<int>(cudaGetLastError());
+    }
+}
+
+// The stride pass: work items (row, segment, residue), the residue
+// fastest, th += the grid's threads (the launch gives each thread one); a
+// thread's ring is its column of the block's shared memory.
+template <int NR, bool kMetric>
+__global__ void __launch_bounds__(scs::kStrideBlock)
+sc_stride_kernel(const float* __restrict__ set, float2* __restrict__ p_out,
+                 float* __restrict__ q_out, const scs::StridePlan g) {
+    extern __shared__ float sm[];
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long th =
+             static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+         th < g.threads; th += stride)
+        scs::stride_walk<NR, kMetric>(set, p_out, q_out, g, th,
+                                      sm + threadIdx.x, blockDim.x);
+}
+
+template <bool kMetric, int NR = 0>
+int launch_stride(const float* set, float2* p, float* q, scs::StridePlan& g,
+                  cudaStream_t stream) {
+    if constexpr (NR > scs::kRegLg + 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+        if (scs::reg_levels(g.lgd) != NR)
+            return launch_stride<kMetric, NR + 1>(set, p, q, g, stream);
+        const size_t smem = g.smem_bytes();
+        long long resident = 0;
+        const cudaError_t err = resident_blocks(sc_stride_kernel<NR, kMetric>,
+                                                g.block, smem, resident);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        scs::plan_stride_segments(g, static_cast<long long>(
+            static_cast<double>(resident) * g.block * kStrideSlots));
+        const long long blocks = (g.threads + g.block - 1) / g.block;
+        sc_stride_kernel<NR, kMetric><<<static_cast<unsigned>(blocks),
+                                        g.block, smem, stream>>>(set, p, q,
+                                                                 g);
+        return static_cast<int>(cudaGetLastError());
+    }
+}
+
 }  // namespace
 
 OFDM_API int ofdm_scfront(const float2* r, float2* p, float* m, int rows,
@@ -208,38 +242,22 @@ OFDM_API int ofdm_sc_correlate(const float2* r, float2* p, float* rr,
     return launch<false>(r, p, rr, rows, n, l, stream);
 }
 
-OFDM_API int ofdm_sc_leaves(const float2* r, float* set, int rows, int n,
-                            int l, void* stream) {
-    if (rows <= 0 || n <= 0) return 0;
-    if (l < 1 || l >= n) return static_cast<int>(cudaErrorInvalidValue);
-    sc_leaves_kernel<<<grid_for(static_cast<size_t>(rows) * n),
-                       kLevelThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        r, set, rows, n, l);
-    return static_cast<int>(cudaGetLastError());
-}
-
-OFDM_API int ofdm_sc_level(const float* a, float* b, int rows, int n, int w,
-                           int len_p, int len_e, void* stream) {
-    if (rows <= 0 || n <= 0) return 0;
-    if (w < 1 || len_p < 0 || len_e < 0 || len_p + w > n || len_e + w > n)
+OFDM_API int ofdm_sc_span(const float2* r, float* set, int rows, int n,
+                          int l, int w, void* stream) {
+    if (rows <= 0 || n - 2 * l + 1 <= 0) return 0;
+    scs::SpanPlan g;
+    if (!scs::plan_span(g, rows, n, l, w, kMaxSmem))
         return static_cast<int>(cudaErrorInvalidValue);
-    sc_level_kernel<<<grid_for(static_cast<size_t>(rows) * n), kLevelThreads,
-                      0, static_cast<cudaStream_t>(stream)>>>(
-        a, b, rows, n, w, len_p, len_e);
-    return static_cast<int>(cudaGetLastError());
+    return launch_span(r, set, g, static_cast<cudaStream_t>(stream));
 }
 
-OFDM_API int ofdm_sc_out(const float* set, float2* p, float* q, int rows,
-                         int n, int l, int metric, void* stream) {
-    const int nd = n - 2 * l + 1;
-    if (rows <= 0 || nd <= 0) return 0;
-    const unsigned grid = grid_for(static_cast<size_t>(rows) * nd);
+OFDM_API int ofdm_sc_stride(const float* set, float2* p, float* q, int rows,
+                            int n, int l, int w, int metric, void* stream) {
+    if (rows <= 0 || n - 2 * l + 1 <= 0) return 0;
+    scs::StridePlan g;
+    if (!scs::plan_stride(g, rows, n, l, w, kMaxSmem))
+        return static_cast<int>(cudaErrorInvalidValue);
     const auto s = static_cast<cudaStream_t>(stream);
-    if (metric)
-        sc_out_kernel<true><<<grid, kLevelThreads, 0, s>>>(set, p, q, rows, n,
-                                                           l, nd);
-    else
-        sc_out_kernel<false><<<grid, kLevelThreads, 0, s>>>(set, p, q, rows,
-                                                            n, l, nd);
-    return static_cast<int>(cudaGetLastError());
+    return metric ? launch_stride<true>(set, p, q, g, s)
+                  : launch_stride<false>(set, p, q, g, s);
 }

@@ -83,7 +83,9 @@ namespace sct {
 constexpr int kV = 8;              // positions a lane holds, 32 apart
 constexpr int kSpan = 32 * kV;     // positions a warp takes a step
 constexpr int kWarps = 4;          // warps a block, where the rings fit
-constexpr int kMaxLog2L = 12;      // l <= 4096 (kernels/sync.py TILE_MAX_L)
+constexpr int kMaxLog2L = 12;      // l <= 4096 (kernels/sync.py
+                                   // TILE_KERNEL_MAX_L; the route takes
+                                   // the tile up to TILE_MAX_L)
 
 // Registers a delay by w keeps from one step to the next, and the floats
 // of its ring in shared memory.
@@ -158,29 +160,37 @@ inline bool plan_tile(Plan& g, int n, int l, size_t max_smem) {
     return g.smem_bytes() <= max_smem;
 }
 
-// The segments of `rows` rows for `slots` warps on the card at once: a
-// warp walks seg + 2l - 1 positions an item, so of the segment lengths
-// that fill 1, 2, .. 64 waves of slots, the one with the least waves x
-// (seg + 2l - 1) (the longer on a tie).
-inline void plan_segments(Plan& g, int rows, long long slots) {
-    const long long span_nd = (g.nd + kSpan - 1) / kSpan * kSpan;
-    long long best = -1;
+// The segment length for `units` runs of `len` outputs each, walked by
+// `slots` walkers on the card at once, each segment a multiple of
+// `quantum` with a warm-up of `halo` before it: of the lengths that fill
+// 1, 2, .. 64 waves of slots, the one with the least waves x (seg + halo)
+// (the longer on a tie). The split route's passes plan with it too.
+inline long long seg_length(long long units, long long len, long long halo,
+                            long long slots, long long quantum) {
+    const long long whole = (len + quantum - 1) / quantum * quantum;
+    long long best = -1, pick = whole;
     if (slots < 1) slots = 1;
     for (long long w = 1; w <= 64; ++w) {
-        const long long s = w * slots / rows;      // segments a row
+        const long long s = w * slots / units;     // segments a run
         if (s < 1) continue;
-        long long seg = (g.nd + s - 1) / s;
-        seg = (seg + kSpan - 1) / kSpan * kSpan;
-        if (seg > span_nd) seg = span_nd;
-        const long long items = rows * ((g.nd + seg - 1) / seg);
-        const long long cost = (items + slots - 1) / slots *
-                               (seg + 2LL * g.l - 1);
-        if (best < 0 || cost < best || (cost == best && seg > g.seg)) {
+        long long seg = (len + s - 1) / s;
+        seg = (seg + quantum - 1) / quantum * quantum;
+        if (seg > whole) seg = whole;
+        const long long items = units * ((len + seg - 1) / seg);
+        const long long cost = (items + slots - 1) / slots * (seg + halo);
+        if (best < 0 || cost < best || (cost == best && seg > pick)) {
             best = cost;
-            g.seg = static_cast<int>(seg);
+            pick = seg;
         }
     }
-    if (best < 0) g.seg = static_cast<int>(span_nd);
+    return pick;
+}
+
+// The segments of `rows` rows for `slots` warps on the card at once: a
+// warp walks seg + 2l - 1 positions an item (seg_length).
+inline void plan_segments(Plan& g, int rows, long long slots) {
+    g.seg = static_cast<int>(seg_length(rows, g.nd, 2LL * g.l - 1, slots,
+                                        kSpan));
     g.segs = (g.nd + g.seg - 1) / g.seg;
     g.items = static_cast<long long>(rows) * g.segs;
 }

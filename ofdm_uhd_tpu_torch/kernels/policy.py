@@ -42,8 +42,8 @@ import torch
 # K13, on the same kernel source; "ilv_*_bf16" at the reference's DEFAULT
 # precision, on the bf16 tier's) or "deframe" (research/deframe.py, K12);
 # "fft_columns" and "fft_rows_t" count the two passes of K3's route above
-# one launch, "sc_leaves", "sc_level" and "sc_out" the S&C levels route
-# (l > 4096), "viterbi_windowed_warp" K4w's previous body, the A/B
+# one launch, "sc_span" and "sc_stride" the two passes of the S&C split
+# route (l > 4096), "viterbi_windowed_warp" K4w's previous body, the A/B
 # baseline no path runs
 KERNELS = ("localize", "extract", "fft", "fft_columns", "fft_rows_t",
            "viterbi", "viterbi_windowed", "viterbi_windowed_warp",
@@ -52,7 +52,7 @@ KERNELS = ("localize", "extract", "fft", "fft_columns", "fft_rows_t",
            "shift_interp", "shift_sc", "banded_fir", "banded_decim",
            "banded_interp", "banded_sc", "ilv_fir", "ilv_decim",
            "ilv_interp", "ilv_fir_bf16", "ilv_decim_bf16", "ilv_interp_bf16",
-           "deframe", "sc_leaves", "sc_level", "sc_out")
+           "deframe", "sc_span", "sc_stride")
 
 # the reference's batch crossovers between its Viterbi algorithms
 _VITERBI_FUSED_MAX_BATCH = 96

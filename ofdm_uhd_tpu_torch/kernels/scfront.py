@@ -10,7 +10,7 @@ The kernel keeps the plain version's pairwise-doubling summation order and
 unfused float32 arithmetic, so M agrees with the plain version to a few
 ulps and detection's >= comparisons fall the same way; the reference's TPU
 kernel summed in another order (agreement ~1e-5). Any power-of-two l:
-above sync.TILE_MAX_L the sums run by the levels route (sync.route).
+above sync.TILE_MAX_L the sums run by the split route (sync.route).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def sc_frontend_plain(r: torch.Tensor, l: int
 def _scfront_cuda(r: torch.Tensor, l: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """K6's launch (sync.route(l): the tile kernel, counted 'scfront', up
-    to TILE_MAX_L; the levels route above)."""
+    to TILE_MAX_L; the split route's two passes above)."""
     return sc_kernels("scfront", r, l, metric=True)
 
 

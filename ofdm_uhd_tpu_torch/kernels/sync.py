@@ -20,10 +20,11 @@ K9 sums in the plain version's order with unfused float32 arithmetic; for
 a power-of-two L the last doubling level is R = 0.5 * (S_L[d] + S_L[d+L]),
 the reference kernel's own construction of R.
 
-Both S&C kernels (K9 here, K6 in scfront.py) take any power-of-two lag;
-`route(l)` gives their launches: one tile launch up to TILE_MAX_L, the
-levels route through device memory above it (`levels_route`; its plain
-emulation `levels_plain` holds the route's bookkeeping to the plain
+Both S&C kernels (K9 here, K6 in scfront.py) take any power-of-two lag
+up to MAX_L; `route(l)` gives their launches: one tile launch up to
+TILE_MAX_L, the split route's two above it (`split_route`: a span pass
+to S_W and a stride pass over the residue chains mod W; its plain
+emulation `split_plain` holds the route's bookkeeping to the plain
 version on the CPU).
 """
 
@@ -33,10 +34,28 @@ import torch
 
 from . import build, policy
 
-# the tile kernel's lags: a block stages 4 (1024 + l) + 2 (1024 + 2l)
-# floats in shared memory, which must stay within 227 KB
-# (csrc/scfront.cu kMaxTileL)
-TILE_MAX_L = 4096
+# the tile route's lags; above, the split route. The tile kernel takes up
+# to TILE_KERNEL_MAX_L (csrc/scfront_tile.cuh kMaxLog2L), but its warm-up
+# of 2l - 1 positions a segment grows with l: in-kernel on an NVIDIA H100
+# (scripts/k6_ab.py, PERF.md) the split route was faster at l = 2048 and
+# 4096 in every run, on big_nsc's captures (0.015-0.018 against 0.043 ms
+# at 2048) and on rows of C4's length (0.090 against 0.143); at l = 1024
+# it was faster on short rows (0.014 against 0.020) but slower on C4's
+# (0.101 against 0.083), and at l = 512 no faster
+TILE_MAX_L = 1024
+TILE_KERNEL_MAX_L = 4096
+# the split route's width W (split_width): l / SPLIT_D up to SPAN_W, then
+# SPAN_W while the stride pass's D = l / W stays within STRIDE_MAX_D, then
+# l / STRIDE_MAX_D up to SPAN_MAX_W (the span pass's rings in shared
+# memory, csrc/scfront_split.cuh kMaxLog2W). scripts/k6_ab.py timed W =
+# 128 .. 4096 at l = 1024 .. 16384: l / 8 up to 1024 was the fastest or
+# within 10% of it at each lag and row length (PERF.md)
+SPLIT_D = 8
+SPAN_W = 1024
+STRIDE_MAX_D = 64
+SPAN_MAX_W = 16384
+# the largest lag: n_sc / 2 at the FFT route's largest n (kernels/fft.py)
+MAX_L = 1 << 23
 
 
 def _moving_sum(x: torch.Tensor, win: int) -> torch.Tensor:
@@ -71,25 +90,24 @@ def sc_correlate_plain(r: torch.Tensor, l: int
     return torch.complex(p_re, p_im), rr
 
 
+def split_width(l: int) -> int:
+    """The split route's width W for a power-of-two lag l (at least 1)."""
+    return max(1, min(SPAN_MAX_W, max(min(l // SPLIT_D, SPAN_W),
+                                      l // STRIDE_MAX_D)))
+
+
 def route(l: int) -> list[tuple]:
     """The S&C kernels' launches for a lag l: [("tile",)] up to
-    TILE_MAX_L; above, ("leaves",) (the lag product's planes and the
-    energy), one ("level", w) per doubling width w = 1, 2, .., l/2 (all
-    three planes), and ("out",) (the energy's last level and the
-    epilogue)."""
-    if l < 1 or l & (l - 1):
-        raise ValueError(f"the S&C lag must be a power of two, got {l}")
+    TILE_MAX_L; above, ("span", W) (the leaves and the levels below W: S_W
+    of the lag product's planes and the energy) and ("stride", W) (the
+    levels from W up on each residue chain mod W, and the epilogue)."""
+    if l < 1 or l & (l - 1) or l > MAX_L:
+        raise ValueError(f"the S&C lag must be a power of two up to {MAX_L}, "
+                         f"got {l}")
     if l <= TILE_MAX_L:
         return [("tile",)]
-    return levels_plan(l)
-
-
-def levels_plan(l: int) -> list[tuple]:
-    """The levels route's launches for a power-of-two lag l (route(l)
-    above TILE_MAX_L; any l for the plain emulation and the tests)."""
-    return ([("leaves",)] + [("level", 1 << k)
-                             for k in range(l.bit_length() - 1)]
-            + [("out",)])
+    w = split_width(l)
+    return [("span", w), ("stride", w)]
 
 
 def sc_rows(kernel: str, r: torch.Tensor, l: int
@@ -111,96 +129,89 @@ def sc_rows(kernel: str, r: torch.Tensor, l: int
     return flat, nd
 
 
-def leaves_plain(flat: torch.Tensor, l: int) -> torch.Tensor:
-    """The levels route's first planes of rows [B, n]: [3, B, n] float32,
-    the lag product's re and im over n - l (zeros past it) and |r|^2."""
+def span_plain(flat: torch.Tensor, l: int, w: int) -> torch.Tensor:
+    """The span pass of rows [B, n] at width w: [3, B, n] float32, S_w of
+    the lag product's re and im over n - l - w + 1 and of |r|^2 over n - w
+    + 1 (zeros past them), by the doubling's levels 1 .. w/2."""
     rows, n = flat.shape
-    out = flat.new_zeros((3, rows, n), dtype=torch.float32)
     prod = torch.conj(flat[:, :-l]) * flat[:, l:]
-    out[0, :, :n - l] = prod.real
-    out[1, :, :n - l] = prod.imag
-    out[2] = flat.abs() ** 2
+    p = torch.stack((prod.real, prod.imag))
+    e = flat.abs() ** 2
+    s = 1
+    while s < w:
+        p = p[..., :-s] + p[..., s:]
+        e = e[..., :-s] + e[..., s:]
+        s *= 2
+    out = flat.new_zeros((3, rows, n), dtype=torch.float32)
+    out[:2, :, :p.shape[-1]] = p
+    out[2, :, :e.shape[-1]] = e
     return out
 
 
-def level_plain(a: torch.Tensor, w: int, len_p: int, len_e: int
-                ) -> torch.Tensor:
-    """One doubling level of the planes a [3, B, n]: the sums S_2w[j] =
-    S_w[j] + S_w[j + w] for j < len_p (P's planes) and j < len_e (the
-    energy), in a new set (zeros past them)."""
-    b = torch.zeros_like(a)
-    b[:2, :, :len_p] = a[:2, :, :len_p] + a[:2, :, w:w + len_p]
-    b[2, :, :len_e] = a[2, :, :len_e] + a[2, :, w:w + len_e]
-    return b
-
-
-def out_plain(a: torch.Tensor, l: int, nd: int, metric: bool
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """P [B, nd] and M or R from the planes after log2 l levels: R = 0.5
-    (S_l[i] + S_l[i + l]), the energy's last level."""
-    p = torch.complex(a[0, :, :nd], a[1, :, :nd])
-    rr = 0.5 * (a[2, :, :nd] + a[2, :, l:l + nd])
-    return p, (sc_metric(p, rr) if metric else rr)
-
-
-def levels_route(flat: torch.Tensor, l: int, metric: bool, leaves, level,
-                 out) -> tuple[torch.Tensor, torch.Tensor]:
-    """levels_plan(l) over rows [B, n], each step by the given functions
-    (the kernels' or the plain versions above)."""
-    n = flat.shape[1]
-    nd = n - 2 * l + 1
-    a = leaves(flat, l)
-    len_p, len_e = n - l, n
-    for step in levels_plan(l):
-        if step[0] == "level":
-            w = step[1]
-            len_p, len_e = len_p - w, len_e - w
-            a = level(a, w, len_p, len_e)
-    return out(a, l, nd, metric)
-
-
-def levels_plain(r: torch.Tensor, l: int, metric: bool
+def stride_plain(a: torch.Tensor, l: int, w: int, metric: bool
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The levels route through the plain versions of its steps:
+    """The stride pass on the span pass's set a [3, B, n] at width w: the
+    levels above w on the residue chains y[t, rho] = S_w[rho + t w] (w' =
+    1 .. D/2 for P, 1 .. D for the energy, D = l / w), then P [B, nd] and
+    M (metric) or R = 0.5 S_2l."""
+    _, rows, n = a.shape
+    nd = n - 2 * l + 1
+    d = l // w
+    t = -(-n // w)
+    y = torch.nn.functional.pad(a, (0, t * w - n)).reshape(3, rows, t, w)
+    p, e = y[:2], y[2]
+    s = 1
+    while s < 2 * d:
+        e = e[..., :-s, :] + e[..., s:, :]
+        if s < d:
+            p = p[..., :-s, :] + p[..., s:, :]
+        s *= 2
+    p = p.reshape(2, rows, -1)[..., :nd]
+    pc = torch.complex(p[0], p[1])
+    rr = 0.5 * e.reshape(rows, -1)[:, :nd]
+    return pc, (sc_metric(pc, rr) if metric else rr)
+
+
+def split_route(flat: torch.Tensor, l: int, metric: bool, span, stride,
+                w: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split route over rows [B, n] at width w (split_width(l) if
+    None; any power of two w <= l), each pass by the given function (the
+    kernels' or the plain versions above)."""
+    w = split_width(l) if w is None else w
+    return stride(span(flat, l, w), l, w, metric)
+
+
+def split_plain(r: torch.Tensor, l: int, metric: bool, w: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split route through the plain versions of its passes:
     sc_correlate_plain's function (metric=False) or sc_frontend's."""
     flat = r.reshape(-1, r.shape[-1])
-    p, q = levels_route(flat, l, metric, leaves_plain, level_plain,
-                        out_plain)
+    p, q = split_route(flat, l, metric, span_plain, stride_plain, w)
     return p.reshape(r.shape[:-1] + (-1,)), q.reshape(r.shape[:-1] + (-1,))
 
 
-def _leaves_cuda(flat: torch.Tensor, l: int) -> torch.Tensor:
+def _span_cuda(flat: torch.Tensor, l: int, w: int) -> torch.Tensor:
     rows, n = flat.shape
     a = torch.empty((3, rows, n), dtype=torch.float32, device=flat.device)
-    err = build.library().ofdm_sc_leaves(flat.data_ptr(), a.data_ptr(), rows,
-                                         n, l, build.stream_ptr(flat.device))
-    build.check(err, "sc_leaves")
-    policy.count_launch("sc_leaves")
+    err = build.library().ofdm_sc_span(flat.data_ptr(), a.data_ptr(), rows,
+                                       n, l, w, build.stream_ptr(flat.device))
+    build.check(err, "sc_span")
+    policy.count_launch("sc_span")
     return a
 
 
-def _level_cuda(a: torch.Tensor, w: int, len_p: int, len_e: int
-                ) -> torch.Tensor:
+def _stride_cuda(a: torch.Tensor, l: int, w: int, metric: bool
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     _, rows, n = a.shape
-    b = torch.empty_like(a)
-    err = build.library().ofdm_sc_level(a.data_ptr(), b.data_ptr(), rows, n,
-                                        w, len_p, len_e,
-                                        build.stream_ptr(a.device))
-    build.check(err, "sc_level")
-    policy.count_launch("sc_level")
-    return b
-
-
-def _out_cuda(a: torch.Tensor, l: int, nd: int, metric: bool
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    _, rows, n = a.shape
+    nd = n - 2 * l + 1
     p = torch.empty((rows, nd), dtype=torch.complex64, device=a.device)
     q = torch.empty((rows, nd), dtype=torch.float32, device=a.device)
-    err = build.library().ofdm_sc_out(a.data_ptr(), p.data_ptr(),
-                                      q.data_ptr(), rows, n, l, int(metric),
-                                      build.stream_ptr(a.device))
-    build.check(err, "sc_out")
-    policy.count_launch("sc_out")
+    err = build.library().ofdm_sc_stride(a.data_ptr(), p.data_ptr(),
+                                         q.data_ptr(), rows, n, l, w,
+                                         int(metric),
+                                         build.stream_ptr(a.device))
+    build.check(err, "sc_stride")
+    policy.count_launch("sc_stride")
     return p, q
 
 
@@ -208,13 +219,12 @@ def sc_kernels(kernel: str, r: torch.Tensor, l: int, metric: bool
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The S&C kernels on r [..., n]: (P, M) (metric, K6) or (P, R) (K9),
     [..., nd], by route(l). The tile launch is counted under `kernel`,
-    the levels route's under sc_leaves, sc_level and sc_out."""
+    the split route's under sc_span and sc_stride."""
     flat, nd = sc_rows(kernel, r, l)
     if route(l)[0][0] == "tile":
         p, q = _tile_cuda(kernel, flat, nd, l, metric)
     else:
-        p, q = levels_route(flat, l, metric, _leaves_cuda, _level_cuda,
-                            _out_cuda)
+        p, q = split_route(flat, l, metric, _span_cuda, _stride_cuda)
     lead = r.shape[:-1]
     return p.reshape(lead + (nd,)), q.reshape(lead + (nd,))
 

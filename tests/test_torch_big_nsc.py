@@ -3,15 +3,15 @@ the reference's WaveformSpec accepts runs through the port's kernels.
 
 K3 transforms up to 8192 points in one launch and larger ones by the
 two-pass route (kernels/fft.py route: a column pass that applies the
-twiddles, then a row pass that stores in natural order); the S&C kernels K6 and K9 sum up to lag 4096
-in one tile launch and above it by the levels route (kernels/sync.py
-route: leaves, log2 l doubling levels, the epilogue). Here on the CPU:
-the route plans for every power of two from 2 to 2^20; each route's
-arithmetic through the plain versions of its steps against torch.fft and
-the plain S&C; and the RX chain against the JAX package at n_sc = 4096
-and 16384, once through the plain versions and once with the routes'
-plain emulations in place of the FFT and S&C calls.
-"""
+twiddles, then a row pass that stores in natural order); the S&C kernels
+K6 and K9 sum up to lag 1024 in one tile launch and above it by the
+split route (kernels/sync.py route: a span pass to S_W, a stride pass
+over the residue chains mod W, the epilogue). Here on the CPU: the route
+plans for every power of two from 2 to 2^20; each route's arithmetic
+through the plain versions of its steps against torch.fft and the plain
+S&C; and the RX chain against the JAX package at n_sc = 4096 and 16384,
+once through the plain versions and once with the routes' plain
+emulations in place of the FFT and S&C calls."""
 
 import dataclasses
 import os
@@ -66,19 +66,24 @@ def test_fft_route_refuses_what_it_cannot_take(n):
 
 @pytest.mark.parametrize("l", POWERS)
 def test_sc_route_plans_every_power_of_two(l):
-    """One tile launch up to lag 4096; above, the leaves, one doubling
-    level at each width 1, 2, .., l/2, and the epilogue, which takes the
-    energy's last level (width l)."""
+    """One tile launch up to lag 1024; above, two launches, the span pass
+    and the stride pass at one width W, a power of two: l / 8 up to 1024,
+    then 1024 while the stride pass's D = l / W stays within 64, then l /
+    64 (at most 16384)."""
     plan = ksync.route(l)
+    assert ksync.TILE_MAX_L == 1024
     if l <= ksync.TILE_MAX_L:
         assert plan == [("tile",)]
         return
-    assert plan[0] == ("leaves",) and plan[-1] == ("out",)
-    assert [s[1] for s in plan[1:-1]] == [1 << k
-                                         for k in range(l.bit_length() - 1)]
+    (span, w), (stride, w2) = plan
+    assert (span, stride) == ("span", "stride") and w == w2
+    assert w & (w - 1) == 0 and l % w == 0
+    assert w == (l // 8 if l <= 8192 else
+                 1024 if l <= 65536 else l // 64)
+    assert l // w <= 64 and w <= 16384
 
 
-@pytest.mark.parametrize("l", [3, 6000])
+@pytest.mark.parametrize("l", [3, 6000, 1 << 24])
 def test_sc_route_refuses_other_lags(l):
     with pytest.raises(ValueError):
         ksync.route(l)
@@ -121,17 +126,21 @@ def test_four_step_twiddles_are_the_route_factors():
 
 
 @pytest.mark.parametrize("metric", [False, True])
-@pytest.mark.parametrize("l", [8192, 64])
-def test_levels_route_equals_plain_sc(l, metric):
-    """The levels route's plain emulation gives sc_correlate_plain's (P, R)
-    and sc_frontend_plain's (P, M) bit for bit: the same adds in the same
+@pytest.mark.parametrize("l,w", [(16384, None), (8192, None), (8192, 256),
+                                 (8192, 8192), (4096, 16), (2048, None),
+                                 (64, 1), (64, 8), (64, 64), (1, None)])
+def test_split_route_equals_plain_sc(l, w, metric):
+    """The split route's plain emulation (span_plain, then stride_plain on
+    the residue chains mod W) gives sc_correlate_plain's (P, R) and
+    sc_frontend_plain's (P, M) bit for bit at the route's width (None)
+    and at others, W = 1 and W = l included: the same adds in the same
     order, an idle stretch (M = 0) included."""
     rng = np.random.default_rng(l)
     n = 2 * l + 5001
     r = torch.from_numpy((rng.normal(size=(2, n))
                           + 1j * rng.normal(size=(2, n))).astype(np.complex64))
     r[1, 1000:4000] = 0
-    got = ksync.levels_plain(r, l, metric)
+    got = ksync.split_plain(r, l, metric, w)
     want = (scfront.sc_frontend_plain(r, l) if metric
             else ksync.sc_correlate_plain(r, l))
     for a, b in zip(got, want):
@@ -169,7 +178,7 @@ def _route_emulations(monkeypatch):
     monkeypatch.setattr(frame.K1, "ifft",
                         lambda x: fft.two_pass_plain(x, True))
     monkeypatch.setattr(psync, "sc_frontend",
-                        lambda r, l: ksync.levels_plain(r, l, True))
+                        lambda r, l: ksync.split_plain(r, l, True))
 
 
 @pytest.mark.parametrize("routes", ["plain", "route_emulation"])

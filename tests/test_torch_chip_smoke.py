@@ -489,12 +489,13 @@ def test_kernel_registers_reads_ptxas_output():
 def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
     """run_big_nsc at tiny sizes, the routes' thresholds lowered so that
     n_sc = 64 takes one K3 launch and the S&C tile kernel and n_sc = 256
-    the two-pass route and the levels route, the wrappers patched to
+    K3's two-pass route and the S&C split route, the wrappers patched to
     their plain versions with a launch count: every frame decodes, the
     path's kernels launch (the TX's inverse FFT too) and the other
-    route's never, each levels kernel and each pass is held against its
-    plain step, every split of the route is timed beside one launch, and
-    the kernels line gets entries for them."""
+    route's never, each pass of both routes is held against its plain
+    step and the split route against the tile kernel's bits, every split
+    of K3's route is timed beside one launch, and the kernels line gets
+    entries for them."""
     from ofdm_uhd_tpu_torch.kernels import build, localize, scfront, viterbi
 
     def tile(kernel, flat, nd, l, metric):
@@ -508,9 +509,8 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
             (fft, "_fft_launch", "fft", fft.fft_plain),
             (fft, "_columns_cuda", "fft_columns", fft.columns_plain),
             (fft, "_rows_t_cuda", "fft_rows_t", fft.rows_t_plain),
-            (sync, "_leaves_cuda", "sc_leaves", sync.leaves_plain),
-            (sync, "_level_cuda", "sc_level", sync.level_plain),
-            (sync, "_out_cuda", "sc_out", sync.out_plain),
+            (sync, "_span_cuda", "sc_span", sync.span_plain),
+            (sync, "_stride_cuda", "sc_stride", sync.stride_plain),
             (localize, "_localize_cuda", "localize",
              lambda m, p, c, s, cp, rel: localize.localize_plain(m, p, c, s,
                                                                  cp)),
@@ -534,7 +534,7 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
                                             "traced_wall_ms": 0.0})
     out = chip_smoke.run_big_nsc(torch, torch.device("cpu"))
     launches, tx = out["launches"], out["tx_launches"]
-    for k in ("scfront", "sc_leaves", "sc_level", "sc_out", "localize",
+    for k in ("scfront", "sc_span", "sc_stride", "localize",
               "extract", "fft", "fft_columns", "fft_rows_t", "viterbi"):
         assert launches[k] > 0, k
     for k in ("fft", "fft_columns", "fft_rows_t"):
@@ -543,11 +543,17 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
         got = out["slices"][n]["launches"]
         assert {k for k in ("fft", "fft_columns", "fft_rows_t")
                 if got[k]} == set(ran)
-    assert launches["sc_level"] == 7              # one counted run, l = 128
-    assert {f"{k}_256" for k in ("sc_leaves", "sc_level", "sc_out",
-                                 "sc_out_route", "fft_columns_4x64",
-                                 "fft_rows_t_4x64", "fft")} <= set(
-        out["kernels"])
+    # one counted run at l = 128: two launches, no tile
+    assert launches["sc_span"] == launches["sc_stride"] == 1
+    assert out["slices"][256]["launches"]["scfront"] == 0
+    assert {f"{k}_256" for k in ("sc_span", "sc_stride", "sc_stride_route",
+                                 "fft_columns_4x64", "fft_rows_t_4x64",
+                                 "fft")} <= set(out["kernels"])
+    route = out["kernels"]["sc_stride_route_256"]
+    assert route["width"] == sync.split_width(128) and route["bits"]
+    for k in ("sc_span", "sc_stride", "sc_stride_route"):
+        assert out["kernels"][f"{k}_256"]["max_abs_err"] == 0.0
+        assert "device_ms" in out["kernels"][f"{k}_256"]
     assert "scfront_64" in out["kernels"] and "fft_n256" in out["kernels"]
     assert set(out["kernels"]["fft_n128"]["splits"]) == {
         "16x8", "8x16", "4x32", "2x64", "one_launch"}
@@ -556,8 +562,7 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
     for n in (64, 256):
         assert out["slices"][n]["frames_ok"] == 4
     by_path = chip_smoke.path_launches({"big_nsc": out})
-    for name in ("fft_columns", "fft_rows_t", "sc_leaves", "sc_level",
-                 "sc_out"):
+    for name in ("fft_columns", "fft_rows_t", "sc_span", "sc_stride"):
         entry = chip_smoke.kernel_entry(name, {"big_nsc": out}, by_path)
         assert entry["launches"] > 0 and entry["bound_ms"] > 0
 

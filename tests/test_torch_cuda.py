@@ -223,8 +223,9 @@ def test_sc_correlate_kernel_close(dev, l, n):
 
 @pytest.mark.parametrize("metric", [False, True])
 def test_sc_levels_route_close(dev, metric):
-    """K6 and K9 at l = 8192 (n_sc = 16384), the levels route: 2 + 13
-    launches, within the S&C gates of the plain version."""
+    """K6 and K9 at l = 8192 (n_sc = 16384), the split route: 2 launches
+    (the span pass and the stride pass), within the S&C gates of the plain
+    version."""
     l = 8192
     x = torch.randn((2, 50001), dtype=torch.complex64, generator=_gen(l),
                     device=dev)
@@ -233,7 +234,7 @@ def test_sc_levels_route_close(dev, metric):
     f = scfront.sc_frontend if metric else sync.sc_correlate
     p, q = f(x, l)
     got = policy.launches()
-    assert (got["sc_leaves"], got["sc_level"], got["sc_out"]) == (1, 13, 1)
+    assert (got["sc_span"], got["sc_stride"]) == (1, 1)
     assert got["scfront"] == got["sccorr"] == 0
     p0, q0 = (scfront.sc_frontend_plain if metric
               else sync.sc_correlate_plain)(x, l)
@@ -250,17 +251,19 @@ def test_sc_levels_route_close(dev, metric):
                                       (2048, 3, 20001), (4096, 3, 20001),
                                       (128, 1, 4_436_068)])
 def test_sc_levels_route_equals_tile_route(dev, l, rows, n):
-    """Both routes sum in the same order: the levels kernels give the tile
-    kernels' bits at a lag both take, up to the tile route's largest lag
-    and on a row of C3's width."""
+    """Both routes sum in the same order: the split route's two passes
+    give the tile kernels' bits at a lag both take, at the route's width
+    and at the widths 1 and l, up to the tile kernel's largest lag (the
+    route takes the split route from 2048) and on a row of C3's width."""
     x = torch.randn((rows, n), dtype=torch.complex64, generator=_gen(l),
                     device=dev)
     for metric in (False, True):
-        tile = sync.sc_kernels("sccorr", x, l, metric)
-        levels = sync.levels_route(x, l, metric, sync._leaves_cuda,
-                                   sync._level_cuda, sync._out_cuda)
-        for a, b in zip(tile, levels):
-            assert torch.equal(a, b)
+        tile = sync._tile_cuda("sccorr", x, n - 2 * l + 1, l, metric)
+        for w in sorted({sync.split_width(l), 1, l}):
+            split = sync.split_route(x, l, metric, sync._span_cuda,
+                                     sync._stride_cuda, w)
+            for a, b in zip(tile, split):
+                assert torch.equal(a, b)
 
 
 def test_localize_kernel_exact(dev):
@@ -522,7 +525,12 @@ def test_scfront_kernel_close(dev, l):
     x[1, 10000:30000] = 0                        # idle stretch: M = 0
     policy.reset_launches()
     p, m = scfront.sc_frontend(x, l)
-    assert policy.launches()["scfront"] == 1
+    got = policy.launches()
+    if l <= sync.TILE_MAX_L:
+        assert got["scfront"] == 1 and got["sc_span"] == 0
+    else:                                        # the split route
+        assert got["scfront"] == 0
+        assert got["sc_span"] == got["sc_stride"] == 1
     p0, m0 = scfront.sc_frontend_plain(x, l)
     assert (m - m0).abs().max() <= 1e-5
     _within(p, p0)

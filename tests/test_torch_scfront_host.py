@@ -1,5 +1,6 @@
 """The S&C tile route's body, csrc/scfront_tile.cuh (K6's ofdm_scfront and
-K9's ofdm_sc_correlate), built for the host with g++ and run on the CPU:
+K9's ofdm_sc_correlate), and the split route's two passes above it,
+csrc/scfront_split.cuh, built for the host with g++ and run on the CPU:
 bit for bit equal to a plain C++ pairwise doubling over whole arrays with
 the same leaf arithmetic (the previous tile body's algorithm), and within
 chip_smoke.py's tolerances of kernels/scfront.py sc_frontend_plain (P
@@ -16,6 +17,15 @@ warp's ring is its part of a host array filled with NaN before each block
 -ffp-contract=off, so no add or multiply is fused. Grids of one or a few
 blocks put several work items on each warp, and many segments in a row,
 so segments start from warm-up with stale rings. Says nothing of speed.
+
+The split route's passes run the same way: the span pass a warp of
+std::threads, the stride pass one CUDA thread after another (its threads
+share nothing but their block's shared memory, a column each), its ring
+columns NaN-filled before each block. The span pass's set is held bit for
+bit against a plain C++ doubling to S_W (kernels/sync.py span_plain's
+function), and the stride pass's P and M or R against the whole plain
+doubling, at the widths W the route takes at l = 8192 and 16384 and at
+small lags and widths (down to W = 1), with ring levels in both passes.
 """
 
 import ctypes
@@ -34,7 +44,7 @@ _HARNESS = r"""
 #include <limits>
 #include <thread>
 #include <vector>
-#include "scfront_tile.cuh"
+#include "scfront_split.cuh"
 
 // A warp's shuffle: every lane stores its value, all wait, each reads its
 // source lane's, all wait again before the array is reused.
@@ -55,29 +65,41 @@ struct HostWarp {
     }
 };
 
-template <int LG, bool kMetric>
-static void run_blocks(const float2* r, float2* p, float* q,
-                       const sct::Plan& g, long long grid) {
+// `grid` blocks of `warps` warps, one after another, each warp 32 lanes
+// walking work items item, item + grid * warps, .. < items by
+// walk(item, ring, wp); a warp's ring is `ring` floats of its block's
+// shared memory, NaN before each block.
+template <class Walk>
+static void run_warps(long long grid, int warps, int ring, long long items,
+                      Walk walk) {
     const float nan = std::numeric_limits<float>::quiet_NaN();
-    std::vector<float> smem(g.smem_bytes() / sizeof(float) + 1);
-    const long long stride = grid * g.warps;
+    std::vector<float> smem(static_cast<size_t>(ring) * warps + 1);
+    const long long stride = grid * warps;
     for (long long b = 0; b < grid; ++b) {
         std::fill(smem.begin(), smem.end(), nan);
-        for (int w = 0; w < g.warps; ++w) {
+        for (int w = 0; w < warps; ++w) {
             Exchange x;
             std::vector<std::thread> lanes;
             for (int lane = 0; lane < 32; ++lane)
                 lanes.emplace_back([&, lane, w] {
                     const HostWarp wp{lane, &x};
-                    float* ring =
-                        smem.data() + static_cast<size_t>(w) * g.ring;
-                    for (long long item = b * g.warps + w; item < g.items;
+                    float* own = smem.data() + static_cast<size_t>(w) * ring;
+                    for (long long item = b * warps + w; item < items;
                          item += stride)
-                        sct::walk<LG, kMetric>(r, p, q, g, item, ring, wp);
+                        walk(item, own, wp);
                 });
             for (auto& t : lanes) t.join();
         }
     }
+}
+
+template <int LG, bool kMetric>
+static void run_blocks(const float2* r, float2* p, float* q,
+                       const sct::Plan& g, long long grid) {
+    run_warps(grid, g.warps, g.ring, g.items,
+              [&](long long item, float* ring, const HostWarp& wp) {
+                  sct::walk<LG, kMetric>(r, p, q, g, item, ring, wp);
+              });
 }
 
 template <bool kMetric, int LG = 0>
@@ -175,6 +197,160 @@ extern "C" void sc_plain_host(const float* r, float* p, float* q, int rows,
     else
         plain_rows<false>(rs, ps, q, rows, n, l);
 }
+// ---- the split route ----
+
+template <int LGW = 0>
+static int run_span_lg(const float2* r, float* set, const scs::SpanPlan& g,
+                       long long grid) {
+    if constexpr (LGW > scs::kMaxLog2W) {
+        return 1;
+    } else {
+        if (g.lgw != LGW) return run_span_lg<LGW + 1>(r, set, g, grid);
+        run_warps(grid, g.warps, g.ring, g.items,
+                  [&](long long item, float* ring, const HostWarp& wp) {
+                      scs::span_walk<LGW>(r, set, g, item, ring, wp);
+                  });
+        return 0;
+    }
+}
+
+// plan: seg, segs, items, ring floats, warps a block, grid
+extern "C" int sc_span_host(const float* r, float* set, int rows, int n,
+                            int l, int w, long long slots, long long max_smem,
+                            int warps, long long grid, long long* plan) {
+    scs::SpanPlan g;
+    if (!scs::plan_span(g, rows, n, l, w, static_cast<size_t>(max_smem)))
+        return 1;
+    if (warps > 0 && warps < g.warps) g.warps = warps;
+    scs::plan_span_segments(g, slots);
+    if (grid <= 0) grid = (g.items + g.warps - 1) / g.warps;
+    plan[0] = g.seg;
+    plan[1] = g.segs;
+    plan[2] = g.items;
+    plan[3] = g.ring;
+    plan[4] = g.warps;
+    plan[5] = grid;
+    return run_span_lg(reinterpret_cast<const float2*>(r), set, g, grid);
+}
+
+template <int NR, bool kMetric>
+static void run_stride_blocks(const float* set, float2* p, float* q,
+                              const scs::StridePlan& g, long long grid) {
+    const float nan = std::numeric_limits<float>::quiet_NaN();
+    std::vector<float> smem(static_cast<size_t>(g.ring) * g.block + 1);
+    const long long stride = grid * g.block;
+    for (long long b = 0; b < grid; ++b) {
+        std::fill(smem.begin(), smem.end(), nan);
+        for (int tid = 0; tid < g.block; ++tid)
+            for (long long th = b * g.block + tid; th < g.threads;
+                 th += stride)
+                scs::stride_walk<NR, kMetric>(set, p, q, g, th,
+                                              smem.data() + tid, g.block);
+    }
+}
+
+template <bool kMetric, int NR = 0>
+static int run_stride_nr(const float* set, float2* p, float* q,
+                         const scs::StridePlan& g, long long grid) {
+    if constexpr (NR > scs::kRegLg + 1) {
+        return 1;
+    } else {
+        if (scs::reg_levels(g.lgd) != NR)
+            return run_stride_nr<kMetric, NR + 1>(set, p, q, g, grid);
+        run_stride_blocks<NR, kMetric>(set, p, q, g, grid);
+        return 0;
+    }
+}
+
+// plan: seg, segs, threads, ring floats, threads a block, grid
+extern "C" int sc_stride_host(const float* set, float* p, float* q, int rows,
+                              int n, int l, int w, int metric,
+                              long long slots, long long max_smem, int block,
+                              long long grid, long long* plan) {
+    scs::StridePlan g;
+    if (!scs::plan_stride(g, rows, n, l, w, static_cast<size_t>(max_smem)))
+        return 1;
+    if (block > 0 && block < g.block) g.block = block;
+    scs::plan_stride_segments(g, slots);
+    if (grid <= 0) grid = (g.threads + g.block - 1) / g.block;
+    plan[0] = g.seg;
+    plan[1] = g.segs;
+    plan[2] = g.threads;
+    plan[3] = g.ring;
+    plan[4] = g.block;
+    plan[5] = grid;
+    auto* ps = reinterpret_cast<float2*>(p);
+    return metric ? run_stride_nr<true>(set, ps, q, g, grid)
+                  : run_stride_nr<false>(set, ps, q, g, grid);
+}
+
+// The plan of the stride pass (span = 0: seg, segs, threads, ring floats,
+// threads a block) or of the span pass (span = 1: seg, segs, items, ring
+// floats, warps a block) for `slots` walkers, without a run.
+extern "C" int sc_split_plan_host(int rows, int n, int l, int w,
+                                  long long slots, long long max_smem,
+                                  int span, long long* plan) {
+    if (span) {
+        scs::SpanPlan g;
+        if (!scs::plan_span(g, rows, n, l, w, static_cast<size_t>(max_smem)))
+            return 1;
+        scs::plan_span_segments(g, slots);
+        plan[0] = g.seg;
+        plan[1] = g.segs;
+        plan[2] = g.items;
+        plan[3] = g.ring;
+        plan[4] = g.warps;
+        return 0;
+    }
+    scs::StridePlan g;
+    if (!scs::plan_stride(g, rows, n, l, w, static_cast<size_t>(max_smem)))
+        return 1;
+    scs::plan_stride_segments(g, slots);
+    plan[0] = g.seg;
+    plan[1] = g.segs;
+    plan[2] = g.threads;
+    plan[3] = g.ring;
+    plan[4] = g.block;
+    return 0;
+}
+
+// The span pass's set by a plain doubling over whole rows: the leaves,
+// then S_2v[i] = S_v[i] + S_v[i + v] for v = 1 .. w/2; the valid parts
+// written, the rest of `set` left as it was.
+extern "C" void sc_span_plain_host(const float* r, float* set, int rows,
+                                   int n, int l, int w) {
+    const size_t plane = static_cast<size_t>(rows) * n;
+    std::vector<float> e(n), pr(n), pi(n);
+    for (int row = 0; row < rows; ++row) {
+        const auto* rr = reinterpret_cast<const float2*>(r) +
+                         static_cast<size_t>(row) * n;
+        for (int j = 0; j < n; ++j) {
+            const float mag = hypotf(rr[j].x, rr[j].y);
+            e[j] = __fmul_rn(mag, mag);
+        }
+        for (int j = 0; j < n - l; ++j) {
+            const float2 a = rr[j], b = rr[j + l];
+            pr[j] = __fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
+            pi[j] = __fsub_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x));
+        }
+        int len_e = n, len_p = n - l;
+        for (int v = 1; v < w; v *= 2) {
+            len_e -= v;
+            len_p -= v;
+            for (int j = 0; j < len_e; ++j) e[j] = __fadd_rn(e[j], e[j + v]);
+            for (int j = 0; j < len_p; ++j) {
+                pr[j] = __fadd_rn(pr[j], pr[j + v]);
+                pi[j] = __fadd_rn(pi[j], pi[j + v]);
+            }
+        }
+        const size_t at = static_cast<size_t>(row) * n;
+        for (int j = 0; j < len_e; ++j) set[2 * plane + at + j] = e[j];
+        for (int j = 0; j < len_p; ++j) {
+            set[at + j] = pr[j];
+            set[plane + at + j] = pi[j];
+        }
+    }
+}
 """
 
 SMEM = 227 * 1024          # shared memory a block may use on the card
@@ -205,6 +381,10 @@ def sc_host(tmp_path_factory):
                                  p]
     dll.sc_plain_host.argtypes = [p, p, p, i, i, i, i]
     dll.sc_plan_host.argtypes = [i, i, i, ll, ll, p]
+    dll.sc_span_host.argtypes = [p, p, i, i, i, i, ll, ll, i, ll, p]
+    dll.sc_stride_host.argtypes = [p, p, p, i, i, i, i, i, ll, ll, i, ll, p]
+    dll.sc_span_plain_host.argtypes = [p, p, i, i, i, i]
+    dll.sc_split_plan_host.argtypes = [i, i, i, i, ll, ll, i, p]
     return dll
 
 
@@ -388,3 +568,174 @@ def test_plan_segments(sc_host, rows, n, l, slots):
     assert seg % 256 == 0 and segs == -(-nd // seg) and items == rows * segs
     assert (segs - 1) * seg < nd <= segs * seg
     assert seg == _segments(rows, nd, l, slots)
+
+
+# ---- the split route -------------------------------------------------
+
+CARD_THREADS = 132 * 1024      # the stride pass's threads on the card
+
+
+def _span(dll, x, l, w, slots=CARD_SLOTS, warps=0, grid=0, smem=SMEM):
+    """(set [3, rows, n] NaN where not written, plan) of the span pass."""
+    rows, n = x.shape
+    x = np.ascontiguousarray(x)
+    a = np.full((3, rows, n), np.nan, np.float32)
+    plan = np.zeros(6, np.int64)
+    err = dll.sc_span_host(x.ctypes.data, a.ctypes.data, rows, n, l, w,
+                           slots, smem, warps, grid, plan.ctypes.data)
+    assert err == 0
+    return a, plan
+
+
+def _stride(dll, a, l, w, metric, slots=CARD_THREADS, block=0, grid=0,
+            smem=SMEM):
+    """(P, M or R, plan) of the stride pass on the set a."""
+    _, rows, n = a.shape
+    nd = n - 2 * l + 1
+    p = np.full((rows, nd), np.nan, np.complex64)
+    q = np.full((rows, nd), np.nan, np.float32)
+    plan = np.zeros(6, np.int64)
+    err = dll.sc_stride_host(a.ctypes.data, p.ctypes.data, q.ctypes.data,
+                             rows, n, l, w, int(metric), slots, smem, block,
+                             grid, plan.ctypes.data)
+    assert err == 0
+    return p, q, plan
+
+
+def _span_plain(dll, x, l, w):
+    rows, n = x.shape
+    a = np.full((3, rows, n), np.nan, np.float32)
+    dll.sc_span_plain_host(np.ascontiguousarray(x).ctypes.data, a.ctypes.data,
+                           rows, n, l, w)
+    return a
+
+
+def _hold_split(dll, x, l, w, span_kw=None, stride_kw=None, torch_too=True):
+    """Both passes on x against the plain doublings, both outputs (M and
+    R), bit for bit; the span pass's set over its valid parts (NaN, never
+    written, elsewhere)."""
+    rows, n = x.shape
+    a, _ = _span(dll, x, l, w, **(span_kw or {}))
+    a0 = _span_plain(dll, x, l, w)
+    assert np.array_equal(np.isnan(a), np.isnan(a0))
+    _same_bits(a, a0)
+    for metric in (True, False):
+        p, q, _ = _stride(dll, a, l, w, metric, **(stride_kw or {}))
+        p0, q0 = _plain(dll, x, l, metric)
+        _same_bits(p.view(np.float32), p0.view(np.float32))
+        _same_bits(q, q0)
+        if torch_too:
+            _close_to_torch(x, l, metric, p, q)
+
+
+# (l, w, rows, n): the route's widths at big_nsc's lags (rows of 2l + 777),
+# then small lags and widths: W = 1 (a stride pass of every level), W = l
+# (a span pass of every level but R's), ring levels in the stride pass (D
+# >= 16) and in the span pass (W >= 512)
+SPLIT_CASES = [(8192, 256, 2, 2 * 8192 + 777), (8192, 1024, 2, 2 * 8192 + 777),
+               (16384, 256, 1, 2 * 16384 + 777),
+               (16384, 1024, 1, 2 * 16384 + 777),
+               (1, 1, 2, 40), (2, 1, 3, 301), (2, 2, 2, 2500), (8, 2, 2, 200),
+               (32, 4, 3, 1003), (64, 64, 2, 900), (128, 16, 2, 3001),
+               (256, 8, 2, 2000), (512, 32, 1, 5000), (1024, 512, 1, 4100),
+               (2048, 8, 1, 4500)]
+
+
+@pytest.mark.parametrize("l,w,rows,n", SPLIT_CASES)
+def test_split_passes_equal_plain_doubling(sc_host, l, w, rows, n):
+    """The span pass's S_W and the stride pass's P and M or R: the plain
+    doubling's bits, within tolerance of the PyTorch plain version, every
+    output written."""
+    x = _rows(rows, n, seed=l * 5 + w + n)
+    _hold_split(sc_host, x, l, w, torch_too=n < 20000)
+
+
+@pytest.mark.parametrize("l,w,warps,block,grid", [
+    (64, 16, 1, 3, 1), (512, 32, 2, 5, 2), (1024, 512, 1, 7, 1),
+    (256, 256, 2, 1, 1), (4096, 16, 1, 2, 1)])
+def test_split_segments_walked_by_few_walkers(sc_host, l, w, warps, block,
+                                              grid):
+    """The shortest segments (a step of 256 positions, a batch of 8 chain
+    steps) walked by a few warps and a few threads in all: each walker
+    takes several work items of several rows, its registers and ring
+    columns left stale by the item before (NaN before the first); a zero
+    stretch gives M = 0."""
+    n = 2 * l + 3 * 256 + 41
+    z0, z1 = n // 3, n // 3 + 2 * l + 300
+    x = _rows(3, n, seed=l + w, zero=(z0, z1))
+    a, plan = _span(sc_host, x, l, w, slots=1 << 40, warps=warps, grid=grid)
+    assert plan[0] == 256 and plan[4] == warps and plan[5] == grid
+    assert plan[2] == 3 * -(-(n - w + 1) // 256)
+    _same_bits(np.nan_to_num(a, nan=7.0),
+               np.nan_to_num(_span_plain(sc_host, x, l, w), nan=7.0))
+    p, q, splan = _stride(sc_host, a, l, w, True, slots=1 << 40, block=block,
+                          grid=grid)
+    assert splan[0] == 8 and splan[4] == block and splan[5] == grid
+    p0, q0 = _plain(sc_host, x, l, True)
+    _same_bits(p.view(np.float32), p0.view(np.float32))
+    _same_bits(q, q0)
+    assert not q[:, z0:z1 - 2 * l + 1].any()
+
+
+@pytest.mark.parametrize("l,w", [(8, 2), (512, 16), (1024, 512)])
+def test_split_rows_do_not_leak(sc_host, l, w):
+    """Each row alone gives the bits it gets among others, through both
+    passes."""
+    x = _rows(4, 3 * l + 1500, seed=l + w + 1)
+    a, _ = _span(sc_host, x, l, w, slots=1 << 40, warps=2, grid=1)
+    p, q, _ = _stride(sc_host, a, l, w, True, slots=1 << 40, block=3,
+                      grid=1)
+    for k in range(4):
+        ak, _ = _span(sc_host, x[k:k + 1], l, w)
+        _same_bits(np.nan_to_num(a[:, k:k + 1], nan=7.0),
+                   np.nan_to_num(ak, nan=7.0))
+        pk, qk, _ = _stride(sc_host, ak, l, w, True)
+        _same_bits(p[k:k + 1].view(np.float32), pk.view(np.float32))
+        _same_bits(q[k:k + 1], qk)
+
+
+def _chain_ring(lgd):
+    """The stride pass's ring floats a thread, mirrored: the levels above
+    8 steps, w' floats each, of the energy (up to D) and of both planes
+    of the lag product (up to D/2)."""
+    e = sum(1 << b for b in range(4, lgd + 1))
+    p = sum(1 << b for b in range(4, lgd))
+    return e + 2 * p
+
+
+@pytest.mark.parametrize("l,w,ring,block", [
+    (8192, 1024, 0, 256), (16384, 1024, 16, 256), (8192, 256, 80, 256),
+    (16384, 256, 208, 256), (1 << 20, 16384, 208, 256),
+    (1 << 21, 16384, 464, 64), (1 << 23, 16384, 2000, 16)])
+def test_split_plan_rings_and_blocks(sc_host, l, w, ring, block):
+    """The stride pass's ring column and threads a block (a power of two,
+    as many up to 256 as 227 KB holds columns for), and the span pass's
+    rings (the tile body's levels from 256 up, three planes) and warps a
+    block, planned for rows of 2l + 1000 samples."""
+    lgd = (l // w).bit_length() - 1
+    assert _chain_ring(lgd) == ring
+    plan = np.zeros(6, np.int64)
+    assert sc_host.sc_split_plan_host(2, 2 * l + 1000, l, w, CARD_THREADS,
+                                      SMEM, 0, plan.ctypes.data) == 0
+    assert plan[3] == ring and plan[4] == block
+    assert plan[3] * 4 * plan[4] <= SMEM < plan[3] * 4 * plan[4] * 2 or \
+        block == 256
+    assert sc_host.sc_split_plan_host(2, 2 * l + 1000, l, w, 132 * 16, SMEM,
+                                      1, plan.ctypes.data) == 0
+    span_ring = 3 * sum(1 << b for b in range(8, (w.bit_length() - 1)))
+    assert plan[3] == span_ring
+    assert plan[4] == max(k for k in (1, 2, 3, 4)
+                          if k * span_ring * 4 <= SMEM)
+    assert plan[1] == -(-(2 * l + 1000 - w + 1) // plan[0])
+
+
+@pytest.mark.parametrize("l,w", [(8192, 3), (8192, 16384), (8192, 1 << 15),
+                                 (8, 16), (4, 2), (3, 1)])
+def test_split_plan_refuses_what_the_passes_do_not_take(sc_host, l, w):
+    """Widths that are no power of two, above l or above 16384, lags that
+    are no power of two, rows with no output."""
+    n = 2 * l - 1 if (l, w) == (4, 2) else 2 * l + 100
+    plan = np.zeros(6, np.int64)
+    for span in (0, 1):
+        assert sc_host.sc_split_plan_host(1, n, l, w, 1, SMEM, span,
+                                          plan.ctypes.data) == 1
