@@ -761,6 +761,7 @@ def log_kernels(label, res) -> None:
                if "ms_contiguous" in v else "")
             + (f"  in-kernel {v['device_ms']:.4f} ms"
                if v.get("device_ms") is not None else "")
+            + (f"  found {v['found']}" if "found" in v else "")
             + (f"  library in-kernel {v['library_device_ms']:.4f} ms"
                if v.get("library_device_ms") is not None else "")
             + (f"  unscaled {v['library_unscaled_ms']:.4f} ms"
@@ -835,13 +836,18 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
         def close(k, p):
             err = float((k[1] - p[1]).abs().max())
             return bool(torch.equal(k[0], p[0])) and err <= 1e-6, err
-        return held(torch, "localize",
-                    lambda: localize._localize_cuda(*args, 0.9),
-                    lambda: localize.localize_plain(*args), close,
-                    ins["cand"].shape,
-                    (12.0 * ins["cand"].numel()
-                     + found * (4.0 * spec.sym_len + 8),
-                     3.0 * found * spec.sym_len))
+        res = held(torch, "localize",
+                   lambda: localize._localize_cuda(*args, 0.9),
+                   lambda: localize.localize_plain(*args), close,
+                   ins["cand"].shape,
+                   (12.0 * ins["cand"].numel()
+                    + found * (4.0 * spec.sym_len + 8),
+                    3.0 * found * spec.sym_len))
+        # events around one call read the launch: the in-kernel time too
+        res["device_ms"] = device_ms(
+            torch, lambda: localize._localize_cuda(*args, 0.9))
+        res["found"] = found
+        return res
 
     def hold_extract():
         # bit-exact copy; reads the in-capture part of each frame
@@ -2596,7 +2602,8 @@ def kernel_entry(name, paths, by_path) -> dict:
             "launches_by_path": counts,
             "paths": {p: {k: v[k] for k in ("shape", "max_abs_err", "ms",
                                              "plain_ms", "bound_ms",
-                                             "library_ms")}
+                                             "library_ms", "device_ms")
+                          if k in v}
                       for p, v in held_on.items()}}
 
 

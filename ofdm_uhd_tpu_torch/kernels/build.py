@@ -29,7 +29,8 @@ SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
            "fir.cu", "fir_bf16.cu", "scfront.cu", "halo.cu", "shift.cu",
            "banded.cu", "deframe.cu")
 HEADERS = ("ofdm_kernels.h", "viterbi_group.cuh", "viterbi_window.cuh",
-           "fir_strided.cuh", "scfront_tile.cuh", "scfront_split.cuh")
+           "fir_strided.cuh", "fir_interp.cuh", "scfront_tile.cuh",
+           "scfront_split.cuh", "localize_warp.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -29,18 +29,20 @@
 // requests in flight), the sums issue FMAs at about a third of the
 // float32 rate (scripts/k7_ablation.py).
 //
-// The interpolation kernel stages its tile's inputs and its branch matrix
-// in shared memory, and consecutive threads sum consecutive outputs.
+// The interpolation kernel (ofdm_fir_interp; its body is fir_interp.cuh,
+// which sets out the design) is bound by bytes at C4's TX ([32, 16128] by
+// 8, 193 taps: 4 MB in, 33 MB out, 0.011 ms); a thread sums 12 inputs
+// of one branch from its taps and a window of samples in registers, and a
+// persistent grid stages the next tile by cp.async while it sums.
 //
 // Rows never leak: each row is filtered on its own, with zeros read before
 // its start and past its end. Offsets into the rows are size_t.
 #include "ofdm_kernels.h"
 #include "fir_strided.cuh"
+#include "fir_interp.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;     // interp kernel: threads per block
-constexpr int kTileIn = 256;      // interp kernel: input samples per block
 constexpr size_t kMaxSmem = 227 * 1024;   // shared memory a block may use
 
 // The strided FIR: one block's share of the persistent grid, S stages.
@@ -64,46 +66,16 @@ fir_strided_kernel(const float2* __restrict__ x, const float* __restrict__ w,
         });
 }
 
-// out[r, k] = sum_{d=d_min}^{d_max} g[k mod l, d - d_min] * x[r, k/l - d],
-// zeros outside the row; outputs written in sample order (k < n * l).
-__global__ void __launch_bounds__(kThreads)
+// The interpolation: a persistent grid walking the rows' tiles
+// (fir_interp.cuh), ND taps a chunk.
+template <int ND>
+__global__ void __launch_bounds__(fii::kThreads)
 fir_interp_kernel(const float2* __restrict__ x, const float* __restrict__ g,
-                  float2* __restrict__ y, int n, int l, int nd, int d_max,
-                  int tiles) {
-    extern __shared__ float smem[];
-    float* gs = smem;                      // [l, nd], each branch reversed
-    float2* xs = reinterpret_cast<float2*>(smem + ((l * nd + 1) & ~1));
-    const int row = blockIdx.x / tiles;
-    const int q0 = (blockIdx.x - row * tiles) * kTileIn;
-    const int span = kTileIn + nd - 1;
-    const float2* xr = x + static_cast<size_t>(row) * n;
-    for (int j = threadIdx.x; j < l * nd; j += kThreads) {
-        const int p = j / nd, t = j - p * nd;
-        gs[j] = g[p * nd + (nd - 1 - t)];
-    }
-    for (int j = threadIdx.x; j < span; j += kThreads) {
-        const int s = q0 - d_max + j;      // xs[j] = x[q0 - d_max + j]
-        xs[j] = (s >= 0 && s < n) ? xr[s] : make_float2(0.0f, 0.0f);
-    }
-    __syncthreads();
-    const size_t n_out = static_cast<size_t>(n) * l;
-    const size_t k0 = static_cast<size_t>(q0) * l;
-    float2* yr = y + static_cast<size_t>(row) * n_out;
-    // consecutive threads take consecutive outputs: coalesced stores
-    for (int kl = threadIdx.x; kl < kTileIn * l; kl += kThreads) {
-        if (k0 + kl >= n_out) break;
-        const int q = kl / l, p = kl - q * l;
-        const float* gp = gs + p * nd;
-        const float2* xq = xs + q;
-        float re = 0.0f, im = 0.0f;
-        for (int t = 0; t < nd; ++t) {
-            const float c = gp[t];
-            const float2 v = xq[t];
-            re = fmaf(c, v.x, re);
-            im = fmaf(c, v.y, im);
-        }
-        yr[k0 + kl] = make_float2(re, im);
-    }
+                  float2* __restrict__ y, const fii::Plan p) {
+    extern __shared__ float4 interp_smem[];
+    fii::interp_block<ND>(x, g, y, p, reinterpret_cast<float*>(interp_smem),
+                          blockIdx.x, gridDim.x, threadIdx.x,
+                          [] { __syncthreads(); });
 }
 
 // Dynamic shared memory above the default 48 KB needs the opt-in.
@@ -139,6 +111,29 @@ int launch_strided(const float2* x, const float* w, float2* y,
     return static_cast<int>(cudaGetLastError());
 }
 
+// As many blocks as fit on the card at once, at most one a work item.
+template <int ND>
+int launch_interp(const float2* x, const float* g, float2* y,
+                  const fii::Plan& p, void* stream) {
+    const size_t smem = p.smem_bytes();
+    cudaError_t err = allow_smem(fir_interp_kernel<ND>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, fir_interp_kernel<ND>, fii::kThreads, smem)) !=
+            cudaSuccess)
+        return static_cast<int>(err);
+    const long long fit =
+        static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+    const long long grid = p.work < fit ? p.work : fit;
+    fir_interp_kernel<ND><<<static_cast<unsigned>(grid), fii::kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(x, g, y, p);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 OFDM_API int ofdm_fir_strided(const float2* x, const float* w, float2* y,
@@ -161,13 +156,13 @@ OFDM_API int ofdm_fir_interp(const float2* x, const float* g, float2* y,
                              int rows, int n, int l, int nd, int d_max,
                              void* stream) {
     if (rows <= 0 || n <= 0) return 0;
-    const int tiles = (n + kTileIn - 1) / kTileIn;
-    const size_t smem = sizeof(float) * ((l * nd + 1) & ~1)
-        + sizeof(float2) * static_cast<size_t>(kTileIn + nd - 1);
-    cudaError_t err = allow_smem(fir_interp_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fir_interp_kernel<<<rows * tiles, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        x, g, y, n, l, nd, d_max, tiles);
-    return static_cast<int>(cudaGetLastError());
+    fii::Plan p;
+    if (!fii::plan_interp(p, rows, n, l, nd, d_max, fii::kThreads, kMaxSmem))
+        return static_cast<int>(cudaErrorInvalidValue);
+    switch (p.taps) {
+        case 8: return launch_interp<8>(x, g, y, p, stream);
+        case 16: return launch_interp<16>(x, g, y, p, stream);
+        case 25: return launch_interp<25>(x, g, y, p, stream);
+        default: return launch_interp<fii::kMaxTaps>(x, g, y, p, stream);
+    }
 }

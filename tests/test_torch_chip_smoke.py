@@ -555,6 +555,14 @@ def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
         assert out["kernels"][f"{k}_256"]["max_abs_err"] == 0.0
         assert "device_ms" in out["kernels"][f"{k}_256"]
     assert "scfront_64" in out["kernels"] and "fft_n256" in out["kernels"]
+    for n in (64, 256):                 # K1's hold, timed in-kernel too
+        loc = out["kernels"][f"localize_{n}"]
+        assert "device_ms" in loc and loc["found"] >= 4
+    entry = chip_smoke.kernel_entry("localize", {"big_nsc": out},
+                                    chip_smoke.path_launches(
+                                        {"big_nsc": out}))
+    assert {"big_nsc_64", "big_nsc_256"} <= set(entry["paths"])
+    assert all("device_ms" in v for v in entry["paths"].values())
     assert set(out["kernels"]["fft_n128"]["splits"]) == {
         "16x8", "8x16", "4x32", "2x64", "one_launch"}
     assert set(out["kernels"]["fft_n256"]["splits"]) == {

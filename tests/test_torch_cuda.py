@@ -266,21 +266,39 @@ def test_sc_levels_route_equals_tile_route(dev, l, rows, n):
                 assert torch.equal(a, b)
 
 
-def test_localize_kernel_exact(dev):
-    spec = config("c3")
+@pytest.mark.parametrize("cfg,span_of", [("c3", None), ("c4", None),
+                                         ("c2", None), ("c3", 4608),
+                                         ("c3", 1500)])
+def test_localize_kernel_exact(dev, cfg, span_of):
+    """K1 against its plain version, one launch a call: C3's, C4's and
+    C2's spans (the 9-, 36- and 3-load templates) and two above 1152 (the
+    block body: big_nsc 4096's 4608, and 1500); rows of mixed candidates
+    (a plateau, a window past nd, the sentinel nd, offsets past nd and
+    below 0) and rows that are mostly or only sentinels."""
+    spec = config(cfg)
+    span = span_of or spec.sym_len
     g = _gen(3)
-    nd = 50000
-    m = torch.rand((3, nd), generator=g, device=dev) ** 4
+    nd = max(50000, 4 * span)
+    m = torch.rand((4, nd), generator=g, device=dev) ** 4
     m[:, 1000:1300] = 0.9
-    p = torch.randn((3, nd), dtype=torch.complex64, generator=g, device=dev)
-    cand = torch.sort(torch.randint(0, nd, (3, 60), generator=g,
+    p = torch.randn((4, nd), dtype=torch.complex64, generator=g, device=dev)
+    cand = torch.sort(torch.randint(0, nd, (4, 60), generator=g,
                                     device=dev)).values
     cand[:, -3:] = torch.tensor([990, nd - 50, nd], device=dev)
+    cand[1, 5:] = nd                                # mostly sentinels
+    cand[2, :] = nd                                 # only sentinels
+    cand[3, ::7] = nd + 11
+    cand[3, 1] = -4
     cand = cand.to(torch.int32)
-    d, eps = localize.localize(m, p, cand, spec.sym_len, spec.cp)
-    d_p, eps_p = localize.localize_plain(m, p, cand, spec.sym_len, spec.cp)
+    policy.reset_launches()
+    d, eps = localize.localize(m, p, cand, span, spec.cp)
+    assert policy.launches()["localize"] == 1
+    d_p, eps_p = localize.localize_plain(m, p, cand, span, spec.cp)
     assert torch.equal(d, d_p)
     assert (eps - eps_p).abs().max() <= 1e-6
+    sentinel = (nd + (span - 1) // 2 - spec.cp // 2)
+    assert torch.equal(d[2], torch.full_like(d[2], sentinel))
+    assert torch.equal(eps[2], torch.zeros_like(eps[2]))
 
 
 def test_extract_kernel_exact(dev):
@@ -409,9 +427,17 @@ def test_fir_stream_valid_kernel_close(dev, stride, ntaps):
     assert torch.equal(one[0], got[1])
 
 
-@pytest.mark.parametrize("l", [2, 8])
-def test_interp_kernel_close(dev, l):
-    taps = resample_filter(l, 1)
+@pytest.mark.parametrize("l,nt", [(2, None), (8, None), (3, None),
+                                  (1, None), (8, 33), (2, 63), (8, 321),
+                                  (3, 210), (40, 2000)])
+def test_interp_kernel_close(dev, l, nt):
+    """The exact interpolation against its plain version, one launch a
+    call: the resampler's filters (nd = 25 branch taps) and seeded taps
+    of nd 5, 32, and 41, 71, 51 (above the register limit: the taps in
+    chunks of 32; l = 40 above the block's threads' q-blocks); rows do
+    not leak."""
+    taps = resample_filter(l, 1) if nt is None else np.random.default_rng(
+        nt).normal(size=nt).astype(np.float32)
     x = torch.randn((2, 5003), dtype=torch.complex64, generator=_gen(l),
                     device=dev)
     policy.reset_launches()
@@ -420,6 +446,18 @@ def test_interp_kernel_close(dev, l):
     _within(got, fir.interp_plain(x, l, taps))
     one = fir.polyphase_interp(x[1:2].contiguous(), l, taps)
     assert torch.equal(one[0], got[1])
+
+
+def test_interp_kernel_at_c4_tx(dev):
+    """C4's TX interpolation of its [32, 16128] frames by 8 (193 taps),
+    one launch."""
+    taps = resample_filter(8, 1)
+    base = torch.randn((32, 16128), dtype=torch.complex64,
+                       generator=_gen(18), device=dev)
+    policy.reset_launches()
+    got = fir.polyphase_interp(base, 8, taps)
+    assert policy.launches()["interp"] == 1
+    _within(got, fir.interp_plain(base, 8, taps))
 
 
 @pytest.mark.parametrize("stride", [1, 2, 8])
