@@ -9,6 +9,23 @@ findings on a line of its own:
       captures x 1024 frames, gap 300, sc16), and once more with
       `sync_threshold_mode="cfar"`, which must give its plain-forced run's
       slots (its slots that differ from the fixed run's are counted);
+  files, the file-to-bits tools: one C3 capture of 1024 frames (gap 300,
+      SNR 28 dB, CFO 0.8, seed 0) written by io.write_capture as an sc16
+      .iq file with its sidecar and decoded bit-exact by `python -m
+      ofdm_uhd_tpu_torch.cli.rx` in a subprocess, then by `cli.rx.main`
+      in this process under the launch counters (K6, K1, K2, K3, K4w: the
+      windowed decoder is the reference's choice at 1032 slots); the
+      native sc16 deframer built by g++ and equal to NumPy's conversion;
+      those five kernels held against their plain versions on the file's
+      samples (one fc32 row, 1032 slots); the golden chain
+      (`GoldenModem.rx_capture`) on bench.py's 5-frame slice, equal to
+      the card's slots that lie wholly inside it (every one of them) and
+      timed on the host CPU (the yardstick a benchmark divides by); a
+      tool's start-up timed in a subprocess; the pinned fixtures
+      tests/fixtures/golden_c{1,2,3}.npz decoded to their payloads and
+      starts; C4's `cli.tx` (32 frames, the TX's K3 inverse and K7
+      interpolation on the card) to a file and `cli.rx` on it; C2's
+      `cli.loopback --sync` over multipath (64 frames);
   C4, the resampled chain: `TxPipeline(config("c4"))` builds 8 captures x
       32 frames on the card (the reference's C4 row: gap 300, timing offset
       100, SNR 28 dB, CFO 0.8 / 8 at the radio rate, no phase noise, fc32)
@@ -154,12 +171,14 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 N_CAPS, GAP = 8, 300
 C3_FRAMES = 1024
 C4_FRAMES = 32
@@ -167,6 +186,20 @@ C5_FRAMES, C5_OFFSET = 4096, 100
 C5_RESIDENT = (4_128_768, 4)     # (chunk, steps per dispatch), fc32
 C5_HOSTFED = (129_024, 16)       # sc16
 C2_CAPS, C2_FRAMES = 32, 128
+# the files phase: one C3 capture of FILES_FRAMES frames through an sc16
+# file, C4's TX of FILES_C4_FRAMES frames through a file, C2's loopback
+FILES_FRAMES = 1024
+FILES_C4_FRAMES, FILES_C2_FRAMES = 32, 64
+FIXTURES = ("c1", "c2", "c3")      # tests/fixtures/golden_<name>.npz
+# the kernels the files phase's C3 RX launches: one capture's 1032 slots
+# are a decode batch of at most 2048, where the reference's policy (and
+# the port's, kernels/policy.py viterbi_impl) picks the windowed decoder
+FILES_PATH = ("scfront", "localize", "extract", "fft", "viterbi_windowed")
+# the golden chain's eps against the card's: both estimate one CFO from
+# differently chosen plateau samples (the reference's own pipeline lies
+# up to 1.1e-3 from its golden chain on C3 captures), 25x tighter than the
+# 0.05 to which the reference's tests hold either to the true CFO
+GOLDEN_EPS_TOL = 2e-3
 C5_SHARDS = 4                    # the virtual mesh's time axis, on one card
 ROUNDS_SHARDED = 5               # interleaved timing rounds of c5_sharded
 AXES_FRAMES, AXES_SNR = 4096, 28.0   # the frame and stage axes' C3 batch
@@ -460,6 +493,7 @@ def phase_build() -> dict:
         if "error" in line:
             print(line, file=sys.stderr)
     regs = kernel_registers(build.build_log())
+    check(bool(regs), "build: the ptxas report names no kernel's registers")
     for name, (n, spill) in regs.items():
         log(f"build: {name} {n} registers, {spill} bytes spilled")
     log(f"phase build: ok  {secs:.1f} s into {build.build_dir()}")
@@ -1286,6 +1320,268 @@ def run_c3(torch, config, device) -> dict:
     cfar = phase_cfar(torch, spec, "c3", iq, pays, max_frames, m)
     return {"stages_ms": stages, "kernels": kernels, "slice": sl,
             "cfar": cfar, "tier_inputs": tier_inputs}
+
+
+def run_cli(tool, *args) -> str:
+    """`python -m ofdm_uhd_tpu_torch.cli.<tool> args` from the checkout's
+    root, as a user runs it; its stderr, after a zero exit."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", f"ofdm_uhd_tpu_torch.cli.{tool}", *args],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    check(res.returncode == 0, f"files: cli.{tool} exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    log(f"files: cli.{tool} {' '.join(args)}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(
+            line for line in res.stderr.splitlines() if line.strip()))
+    return res.stderr
+
+
+STARTUP = """import sys, time
+t0 = time.perf_counter()
+import torch
+from ofdm_uhd_tpu_torch.cli import rx
+t1 = time.perf_counter()
+if torch.device(sys.argv[1]).type == "cuda":
+    from ofdm_uhd_tpu_torch.kernels import build
+    build.library()
+t2 = time.perf_counter()
+torch.zeros(1, device=sys.argv[1]).cpu()
+t3 = time.perf_counter()
+print(t1 - t0, t2 - t1, t3 - t2)
+"""
+
+
+def tool_startup(dev) -> dict:
+    """What a tool's subprocess spends before its work: one process that
+    imports cli.rx (torch with it), loads the kernel library (as built by
+    phase_build) and makes the device's context, then exits. Its wall time
+    from spawn to exit, and the three steps on its own clock."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", STARTUP, dev], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"files: the start-up probe exited "
+          f"{res.returncode}: {res.stderr[-2000:]}")
+    imports, library, context = map(float, res.stdout.split())
+    log(f"files: a tool's start-up on {dev}: {wall:.2f} s from spawn to "
+        f"exit; imports (cli.rx, torch) {imports:.2f} s, kernel library "
+        f"load {library:.2f} s, device context {context:.2f} s (host clock)")
+    return {"wall_s": wall, "imports_s": imports, "library_s": library,
+            "context_s": context}
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo's first processor gives it (model
+    name, vendor, family, model, clock), and the core count."""
+    import platform
+    keys = ("model name", "vendor_id", "cpu family", "model", "cpu MHz")
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                k, _, v = line.partition(":")
+                if k.strip() in keys:
+                    info[k.strip()] = v.strip()
+    except OSError:
+        pass
+    name = info.pop("model name", None) or platform.processor() or \
+        platform.machine()
+    rest = ", ".join(f"{k} {info[k]}" for k in keys if k in info)
+    return f"{name} ({rest}), {os.cpu_count()} cores" if rest else \
+        f"{name}, {os.cpu_count()} cores"
+
+
+def run_files(torch, config, device) -> dict:
+    """The file-to-bits tools on the card: (a) one C3 capture of 1024
+    frames (bench_lib.build_capture: gap 300, SNR 28 dB, CFO 0.8, seed 0),
+    scaled to full scale and written by io.write_capture as an sc16 .iq
+    file with its sidecar, decoded by `cli.rx` in a subprocess and once in
+    this process under the launch counters (the path's RX kernels, no
+    other: K4w decodes, as the reference's policy picks at 1032 slots);
+    (b) the native deframer built and used by read_capture, equal
+    to NumPy's conversion of that file, and the path's kernels held
+    against their plain versions on the samples it read (the row cli.rx
+    decodes); (c) the golden chain (GoldenModem.rx_capture) on bench.py's
+    slice of it, the first 5 * frame_len samples as complex128: as many
+    frames as the card's valid slots that lie wholly inside the slice,
+    with their starts and payloads, and eps within GOLDEN_EPS_TOL, timed
+    on the host CPU; (d) the pinned fixtures through
+    RxPipeline.rx_capture on the card; (e) C4 through `cli.tx` and
+    `cli.rx` (.npy); (f) C2's `cli.loopback --sync` with multipath; then
+    a tool's start-up alone (tool_startup)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture
+    from ofdm_uhd_tpu_torch.cli import rx as cli_rx
+    from ofdm_uhd_tpu_torch.golden import GoldenModem
+    from ofdm_uhd_tpu_torch.io import native, read_capture, write_capture
+    from ofdm_uhd_tpu_torch.cli.config import load_spec
+    from ofdm_uhd_tpu_torch.kernels import policy, viterbi
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline
+
+    t_phase = time.perf_counter()
+    spec, tool_spec = config("c3"), load_spec("c3")
+    dev = str(device)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) C3 from an sc16 file
+        cap, pays = build_capture(spec, FILES_FRAMES, GAP, seed=0,
+                                  device=device)
+        # full scale without clipping: the AGC takes the level out
+        scale = 1.0 / float(np.abs(np.stack([cap.real, cap.imag])).max())
+        path = os.path.join(tmp, "c3.iq")
+        bits = os.path.join(tmp, "c3_bits.npy")
+        write_capture(path, cap * scale, fmt="sc16",
+                      meta={"config": "c3", "frames": FILES_FRAMES,
+                            "gap": GAP})
+        np.save(bits, pays)
+        rx_args = ["--config", "c3", "--capture", path, "--expect-bits",
+                   bits, "--max-frames", str(FILES_FRAMES + 8),
+                   "--device", dev]
+        err = run_cli("rx", *rx_args)
+        check("(bit-exact)" in err and f"{FILES_FRAMES} crc-ok" in err,
+              f"files: cli.rx at c3 was not bit-exact: {err[-500:]}")
+        torch.cuda.synchronize()
+        policy.reset_launches()
+        said = io.StringIO()
+        with contextlib.redirect_stderr(said):
+            cli_rx.main(rx_args)
+        torch.cuda.synchronize()
+        launches = policy.launches()
+        for k in FILES_PATH:
+            check(launches[k] > 0, f"files: cli.rx never launched the {k} "
+                  "kernel")
+        for k in OFF_PATH:
+            check(launches[k] == 0, f"files: cli.rx launched the {k} "
+                  f"kernel {launches[k]} times")
+        check("(bit-exact)" in said.getvalue(), "files: cli.rx in process "
+              f"was not bit-exact: {said.getvalue()}")
+        log(f"files: c3 sc16 file {os.path.getsize(path)} bytes, "
+            f"{len(cap)} samples; cli.rx in process: "
+            f"{said.getvalue().strip()}; launches {launches}")
+        res["launches"] = launches
+
+        # (b) the native deframer
+        check(native.available(), "files: the native deframer did not "
+              "build; read_capture fell back to NumPy")
+        t0 = time.perf_counter()
+        samples, meta = read_capture(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw = np.fromfile(path, dtype=np.int16).astype(np.float32)
+        ref = ((raw[0::2] + 1j * raw[1::2]) / 32767.0).astype(np.complex64)
+        numpy_s = time.perf_counter() - t0
+        check(np.array_equal(samples.view(np.float32), ref.view(np.float32)),
+              "files: the native deframer differs from NumPy's conversion")
+        res["native"] = {"library": str(native.library_path()),
+                         "read_s": native_s, "numpy_s": numpy_s}
+        log(f"files: native deframer {native.library_path()} used, equal "
+            f"to NumPy's conversion bit for bit; read_capture {native_s:.3f}"
+            f" s, NumPy's conversion {numpy_s:.3f} s (host clock)")
+
+        # the path's kernels held against their plain versions on the
+        # file's samples, one fc32 row, under the spec cli.rx loads
+        # (configs/c3.json: kernel_backend 'auto', where config("c3") has
+        # 'xla'); K4w at the windows the algorithm chosen at its slots
+        # decodes with ('windowed' 512/96 at 1032, 'fused' 256/64 at <= 96)
+        ins, res["stages_ms"] = phase_stages(
+            torch, tool_spec, "files",
+            torch.from_numpy(samples)[None].to(device), FILES_FRAMES + 8,
+            path=FILES_PATH)
+        res["kernels"] = phase_kernels(torch, tool_spec, "files", ins,
+                                       names=FILES_PATH[:-1])
+        algorithm = policy.viterbi_impl(0, ins["llr"].shape[0],
+                                        tool_spec.kernel_backend,
+                                        tool_spec.viterbi_mode)
+        check(algorithm in ("windowed", "fused"), f"files: cli.rx's spec "
+              f"decodes its slots by {algorithm}, not K4w")
+        geometry = (viterbi.XLA_WINDOW if algorithm == "windowed"
+                    else viterbi.FUSED_WINDOW)
+        vit = {f"{k}_{geometry[0]}": v for k, v in hold_windowed(
+            torch, ins["llr"], geometry, "files").items()}
+        log_kernels("files", vit)
+        res["kernels"].update(vit)
+        del ins
+
+        # (c) the golden yardstick on bench.py's slice
+        n = min(len(samples), 5 * spec.frame_len)
+        gm = GoldenModem(spec)
+        t0 = time.perf_counter()
+        gold = gm.rx_capture(samples[:n].astype(np.complex128))
+        gold_s = time.perf_counter() - t0
+        out = RxPipeline(tool_spec).rx_capture(
+            torch.from_numpy(samples).to(device),
+            max_frames=FILES_FRAMES + 8)
+        valid = out["valid"].cpu().numpy()
+        d_card = out["d"].cpu().numpy()[valid]
+        pay_card = out["payload"].cpu().numpy()[valid]
+        eps_card = out["eps"].cpu().numpy()[valid]
+        inside = int((d_card + spec.frame_len <= n).sum())
+        check(inside > 0 and len(gold) == inside,
+              f"files: golden found {len(gold)} frames in the slice, the "
+              f"card {inside} wholly inside it")
+        for i, (d, eps, r) in enumerate(gold):
+            check(r.crc_ok and d == d_card[i]
+                  and abs(eps - eps_card[i]) <= GOLDEN_EPS_TOL
+                  and np.array_equal(r.payload, pay_card[i])
+                  and np.array_equal(r.payload, pays[i]),
+                  f"files: golden frame {i} (start {d}, eps {eps}, crc "
+                  f"{r.crc_ok}) differs from the card's slot (start "
+                  f"{d_card[i]}, eps {eps_card[i]})")
+        cpu = host_cpu()
+        res["golden"] = {"samples": n, "frames": len(gold), "s": gold_s,
+                         "msps": n / gold_s / 1e6, "host_cpu": cpu}
+        log(f"files: GoldenModem.rx_capture on bench.py's slice ({n} "
+            f"samples, {len(gold)} frames): starts and payloads equal to the "
+            f"first slots on {dev}; {gold_s:.3f} s, {n / gold_s / 1e6:.4f} "
+            f"Msamples/s on the host CPU ({cpu})")
+
+        # (d) the pinned fixtures
+        for name in FIXTURES:
+            z = np.load(os.path.join(ROOT, "tests", "fixtures",
+                                     f"golden_{name}.npz"))
+            k = len(z["payloads"])
+            out = RxPipeline(config(name)).rx_capture(
+                torch.from_numpy(z["capture"]).to(device), max_frames=6)
+            valid = out["valid"].cpu().numpy()
+            check(int(valid.sum()) == k and valid[:k].all()
+                  and bool(out["crc_ok"][:k].all())
+                  and np.array_equal(out["payload"][:k].cpu().numpy(),
+                                     z["payloads"])
+                  and np.array_equal(out["d"][:k].cpu().numpy(), z["starts"]),
+                  f"files: fixture golden_{name} did not decode to its "
+                  "pinned payloads and starts")
+        log(f"files: fixtures {', '.join(FIXTURES)} decoded on {dev} to "
+            "their pinned payloads and starts")
+
+        # (e) C4 through the files
+        c4 = os.path.join(tmp, "c4.npy")
+        c4_bits = os.path.join(tmp, "c4_bits.npy")
+        run_cli("tx", "--config", "c4", "--frames", str(FILES_C4_FRAMES),
+                "--gap", str(GAP), "--out", c4, "--bits-out", c4_bits,
+                "--device", dev)
+        err = run_cli("rx", "--config", "c4", "--capture", c4,
+                      "--expect-bits", c4_bits, "--max-frames",
+                      str(FILES_C4_FRAMES + 8), "--device", dev)
+        check("(bit-exact)" in err, f"files: c4 tx -> rx: {err[-500:]}")
+
+        # (f) C2 loopback
+        err = run_cli("loopback", "--config", "c2", "--frames",
+                      str(FILES_C2_FRAMES), "--snr", "25", "--multipath",
+                      "1,0.3-0.2j", "--sync", "--device", dev)
+        check("post-FEC BIT-EXACT" in err, f"files: c2 loopback: {err}")
+    res["startup"] = tool_startup(dev)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase files: ok  in {res['phase_s']:.1f} s")
+    return res
 
 
 def phase_cfar(torch, spec, label, iq, pays, max_frames, m) -> dict:
@@ -2556,7 +2852,8 @@ def run_big_nsc(torch, device) -> dict:
 def path_launches(paths) -> dict:
     """Launches per kernel of every counted main-path run: each path's RX
     slice (C5: its two operating points; c5_sharded: its halo-kernel run;
-    shift, tiers, k4w_ab: their counted runs) and the TX input builds of
+    files: its in-process cli.rx; shift, tiers, k4w_ab: their counted
+    runs) and the TX input builds of
     C4, c4_bf16, the 'pallas' paths and big_nsc."""
     out = {}
     for p, r in paths.items():
@@ -2583,10 +2880,11 @@ def kernel_entry(name, paths, by_path) -> dict:
     c2_pallas's for sccorr, c5_sharded's for halo, c4_bf16's for fir_bf16
     and interp_bf16, the shift and tiers phases' for their kernels: the
     first check, C4's shape for the decimation and interpolation, C3's for
-    banded_sc and deframe), as are bound_ms, bound_by and library_ms.
-    launches sums the counted main-path runs (every path's RX, the TX input
-    builds of C4, c4_bf16 and the 'pallas' paths, and the shift and tiers
-    phases' counted runs), and
+    banded_sc and deframe; the files phase's checks come last), as are
+    bound_ms, bound_by and library_ms.
+    launches sums the counted main-path runs (every path's RX, the files
+    phase's in-process cli.rx, the TX input builds of C4, c4_bf16 and the
+    'pallas' paths, and the shift and tiers phases' counted runs), and
     launches_by_path splits them."""
     src, rep = KERNEL_INFO[name]
     held_on = {p + k[len(name):]: v for p, r in paths.items()
@@ -2624,6 +2922,7 @@ def main() -> int:
         torch.cuda.set_device(device)
         build_info = phase_build()
         c3 = run_c3(torch, config, device)
+        files = run_files(torch, config, device)
         c4 = run_c4(torch, config, device)
         c4_bf16 = run_c4_bf16(torch, config, device, c4)
         c5, c5_sharded = run_c5(torch, config, device)
@@ -2638,10 +2937,12 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # files last: its checks join each kernel's `paths`, and the first
+    # path's check stays the one kernel_entry names
     paths = {"c3": c3, "c4": c4, "c5": c5, "c5_sharded": c5_sharded,
              "c3_pallas": c3_pallas, "c2_pallas": c2_pallas,
              "c4_bf16": c4_bf16, "shift": shift, "tiers": tiers,
-             "big_nsc": big_nsc, "k4w_ab": k4w_ab}
+             "big_nsc": big_nsc, "k4w_ab": k4w_ab, "files": files}
     by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)
                         for k in KERNEL_INFO]}

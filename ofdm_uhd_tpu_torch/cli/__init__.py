@@ -1,0 +1,11 @@
+"""Command-line tools on the port, as python -m modules (the counterparts
+of ofdm_uhd_tpu/cli/tx, rx and loopback):
+
+    python -m ofdm_uhd_tpu_torch.cli.tx       --config c2 --out tx.npy --frames 10
+    python -m ofdm_uhd_tpu_torch.cli.rx       --config c3 --capture rx.iq
+    python -m ofdm_uhd_tpu_torch.cli.loopback --config c1 --frames 100 --snr 12
+
+Each runs the pipelines on --device, the CUDA card unless asked otherwise
+(`--device cpu` takes every kernel's plain version); without a card they
+fail rather than run on the CPU.
+"""

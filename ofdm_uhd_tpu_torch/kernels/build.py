@@ -126,19 +126,30 @@ def library(verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library; built from csrc/ on the first call.
 
     verbose=True adds `-Xptxas -v` to a build, so `build_log()` shows each
-    kernel's registers, shared memory and spills.
+    kernel's registers, shared memory and spills. A verbose build keeps
+    that report beside the library, and a verbose call loads it from
+    there; a library built without it is built again, verbose.
     """
     if _LOADED.lib is not None:
         return _LOADED.lib
     flags = FLAGS + (("-Xptxas", "-v") if verbose else ())
-    h = hashlib.sha256(" ".join(flags).encode())
+    # `-Xptxas -v` only reports, so it stays out of the name: a verbose
+    # build is the library that another process (the tools of cli/) loads
+    h = hashlib.sha256(" ".join(FLAGS).encode())
     for name in HEADERS + SOURCES:
         h.update((CSRC / name).read_bytes())
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     so = out_dir / f"libofdm_kernels_{h.hexdigest()[:16]}.so"
-    if not so.exists():
+    report = so.with_suffix(".ptxas.log")
+    if not so.exists() or (verbose and not report.exists()):
         _compile_and_link(flags, so)
+        if verbose:
+            tmp = report.with_suffix(f".{os.getpid()}.tmp")
+            tmp.write_text(_LOADED.log)
+            os.replace(tmp, report)
+    elif verbose:
+        _LOADED.log = report.read_text()
     lib = ctypes.CDLL(str(so))
     for fn, argtypes in _SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes

@@ -7,6 +7,7 @@ power before thresholds and CSI.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,11 @@ def agc_normalize(x: torch.Tensor, target: float = 1.0, eps: float = 1e-20
     gain = torch.where(p > eps, torch.sqrt(target / p.clamp_min(eps)),
                        torch.ones_like(p))
     return x * gain.to(x.dtype), gain[..., 0]
+
+
+def agc_normalize_np(x: np.ndarray, target: float = 1.0) -> np.ndarray:
+    """The float64 golden twin: the whole block to mean power `target`."""
+    p = np.mean(np.abs(x) ** 2)
+    if p <= 1e-20:
+        return x.copy()
+    return x * np.sqrt(target / p)

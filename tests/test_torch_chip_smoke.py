@@ -141,6 +141,10 @@ def test_kernels_line_names_every_kernel():
     assert chip_smoke.held_kernel("deframe_offsets") == "deframe"
     assert chip_smoke.held_kernel("ilv_decim_bf16_c4") == "ilv_decim_bf16"
     assert chip_smoke.held_kernel("ilv_decim_c4") == "ilv_decim"
+    # the files path's counted run launches kernels the line names, none
+    # of them off the user paths
+    assert set(chip_smoke.FILES_PATH) <= set(chip_smoke.KERNEL_INFO)
+    assert not set(chip_smoke.FILES_PATH) & set(chip_smoke.OFF_PATH)
 
 
 def test_bound_takes_the_larger_time():
@@ -486,6 +490,39 @@ def test_kernel_registers_reads_ptxas_output():
         "fft_cp_kernel<10>": [122, 12], "viterbi_kernel": [40, 0]}
 
 
+def test_verbose_build_keeps_its_ptxas_report(tmp_path, monkeypatch):
+    """The library's name leaves `-Xptxas -v` out, so a verbose call finds
+    a plain build's library: it builds it again, verbose, once, and keeps
+    the report beside it; a later process's verbose call reads that report
+    back without building, and a plain call loads the library as it is."""
+    from unittest import mock
+
+    from ofdm_uhd_tpu_torch.kernels import build
+    builds = []
+
+    def compile_and_link(flags, so):
+        builds.append("-v" in flags)
+        build._LOADED.log += "ptxas info : Used 40 registers\n" \
+            if "-v" in flags else ""
+        so.write_bytes(b"")
+    monkeypatch.setattr(build, "build_dir", lambda: tmp_path)
+    monkeypatch.setattr(build, "_compile_and_link", compile_and_link)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: mock.MagicMock())
+    monkeypatch.setattr(build, "_LOADED", build._Loaded())
+
+    def new_process(verbose):
+        build._LOADED = build._Loaded()
+        build.library(verbose=verbose)
+        return build.build_log()
+    assert new_process(False) == "" and builds == [False]
+    assert "Used 40 registers" in new_process(True)
+    assert builds == [False, True]
+    assert "Used 40 registers" in new_process(True)
+    assert new_process(False) == "" and builds == [False, True]
+    reports = list(tmp_path.glob("*.ptxas.log"))
+    assert len(reports) == 1 and len(list(tmp_path.glob("*.so"))) == 1
+
+
 def test_big_nsc_phase_rehearsal(on_host, monkeypatch):
     """run_big_nsc at tiny sizes, the routes' thresholds lowered so that
     n_sc = 64 takes one K3 launch and the S&C tile kernel and n_sc = 256
@@ -635,3 +672,78 @@ def test_hold_windowed_rehearsal(on_host, monkeypatch):
     entry = chip_smoke.kernel_entry("viterbi_windowed_warp",
                                     {"c5": {"kernels": res}}, by_path)
     assert entry["launches"] == 1 and entry["max_abs_err"] == 0
+
+
+def test_files_phase_rehearsal(on_host, monkeypatch):
+    """run_files at a tiny size on the CPU: the tools as subprocesses with
+    --device cpu (C3 from an sc16 file bit-exact, C4 tx -> rx, C2
+    loopback), cli.rx in process launching the C3 path's (patched)
+    kernels and no other, the native deframer used, the golden chain on
+    the slice equal to the first slots, the fixtures decoded to their
+    pinned payloads and starts; the kernels line counts the launches
+    under the `files` path."""
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.kernels import build, localize, scfront, viterbi
+
+    def tile(kernel, flat, nd, l, metric):
+        policy.count_launch(kernel)
+        return (scfront.sc_frontend_plain(flat, l) if metric
+                else sync.sc_correlate_plain(flat, l))
+    monkeypatch.setattr(policy, "use_kernel",
+                        lambda x: not policy._STATE.forced_plain)
+    monkeypatch.setattr(build, "check_inputs", lambda *a: None)
+    for mod, name, count, fn in (
+            (fft, "_fft_launch", "fft", fft.fft_plain),
+            (localize, "_localize_cuda", "localize",
+             lambda m, p, c, s, cp, rel: localize.localize_plain(m, p, c, s,
+                                                                 cp)),
+            (viterbi, "_viterbi_windowed_cuda", "viterbi_windowed",
+             viterbi.viterbi_windowed_plain),
+            (viterbi, "_viterbi_windowed_warp_cuda", "viterbi_windowed_warp",
+             viterbi.viterbi_windowed_plain),
+            (sync, "_span_cuda", "sc_span", sync.span_plain),
+            (sync, "_stride_cuda", "sc_stride", sync.stride_plain),
+            (viterbi, "_viterbi_cuda", "viterbi",
+             lambda x, group=None, traceback=True: viterbi.viterbi_plain(x))):
+        monkeypatch.setattr(mod, name, _counted(count, fn))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(sync, "_tile_cuda", tile)
+    monkeypatch.setattr(chip_smoke, "REPS", 1)
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")   # the tools' subprocesses
+    # the in-process decode of 14 slots takes the windowed decoder, as
+    # 1032 slots do on the card (the subprocesses keep the fused one)
+    monkeypatch.setattr(policy, "_VITERBI_FUSED_MAX_BATCH", 8)
+    monkeypatch.setattr(chip_smoke, "FILES_FRAMES", 6)
+    monkeypatch.setattr(chip_smoke, "FILES_C4_FRAMES", 2)
+    monkeypatch.setattr(chip_smoke, "FILES_C2_FRAMES", 4)
+    out = chip_smoke.run_files(torch, config, torch.device("cpu"))
+    launches = out["launches"]
+    assert "viterbi (windowed)" in out["stages_ms"]
+    for k in chip_smoke.FILES_PATH:
+        assert launches[k] > 0, k
+    assert launches["viterbi"] == 0
+    assert all(launches[k] == 0 for k in chip_smoke.OFF_PATH)
+    assert out["golden"]["frames"] == 4 and out["golden"]["s"] > 0
+    assert out["golden"]["host_cpu"]
+    # the path's kernels held on the file's row; their checks' launches
+    # come after the counted run
+    assert set(out["kernels"]) == {"scfront", "localize", "extract", "fft",
+                                   "fft_inverse", "viterbi_windowed_512",
+                                   "viterbi_windowed_warp_512"}
+    assert out["kernels"]["scfront"]["shape"][0] == 1
+    assert all(v["max_abs_err"] <= 1e-5 for v in out["kernels"].values())
+    assert policy.launches()["scfront"] > launches["scfront"]
+    assert out["startup"]["wall_s"] >= out["startup"]["imports_s"] > 0
+    assert out["native"]["library"].startswith(
+        os.path.join(REPO, "build", "ofdm_uhd_tpu_torch"))
+    by_path = chip_smoke.path_launches({"c3": {"launches": dict(launches)},
+                                        "files": out})
+    entry = chip_smoke.kernel_entry("fft", {"c3": {"kernels": {
+        "fft": {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 1.0,
+                "bound_ms": 1.0, "bound_by": "bytes",
+                "library_ms": None}}}, "files": out}, by_path)
+    assert entry["launches_by_path"]["files"] == launches["fft"]
+    assert entry["launches"] == 2 * launches["fft"]
+    assert set(entry["paths"]) == {"c3", "files", "files_inverse"}
+    assert entry["ms"] == 1.0                # the first path's check

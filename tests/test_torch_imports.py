@@ -25,7 +25,9 @@ def test_every_module_imports_without_jax():
     for m in ("kernels.viterbi", "kernels.halo", "shard.mesh",
               "shard.frame_parallel", "shard.stage_pipeline",
               "shard.time_parallel", "research.shift", "kernels.banded",
-              "research.fir_ilv", "research.deframe"):
+              "research.fir_ilv", "research.deframe", "golden.sync",
+              "golden.chain", "metrics", "io.capture", "io.native",
+              "cli.config", "cli.tx", "cli.rx", "cli.loopback"):
         assert "ofdm_uhd_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
