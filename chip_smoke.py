@@ -68,6 +68,23 @@ findings on a line of its own:
       over 2 stages on 4096 C3 frames built by the port's TX on the card
       (SNR 28 dB), against `RxPipeline.rx_aligned`; and, with two cards or
       more, a (1, 2) mesh over two cards with the halo kernel's peer read;
+  distributed, the stream over a mesh that spans processes: the resident
+      point over (1, 4) in two worker processes of its own (chip_smoke.py
+      --worker) on the card, gloo between them (NCCL takes one process a
+      card), 2 shards each, with the halo kernel, the reshard and the
+      TRACK retry; first the path's kernels held against their plain
+      versions at one worker's shapes (its 2 rows [2, Cb + H] of the
+      window, its 2 f2 = 520 slots after the reshard's padding, K4w at
+      the windows the algorithm takes at f2, K10 over its 2 shards); each
+      worker's starts, crc_ok and payloads equal to the
+      in-process c5_sharded reshard run's, its state one replica, its
+      launches counted (K6, K1, K2, K3, K4w and K10, no other); then
+      cli.pod_rx --distributed as two processes on the capture in a .npy
+      file, its bits the in-process run's; with two cards or more, NCCL
+      on 2 and 4 cards, one process a card, timed in interleaved rounds
+      against the one-process, one-card receiver. A worker that fails,
+      hangs past DIST_TIMEOUT_S (all are then killed) or disagrees fails
+      the script;
   shift, the shifted-FMA tier (research/shift.py: fir_shift,
       polyphase_decim_shift, polyphase_interp_shift, sc_correlate_shift),
       which the reference keeps as an A/B baseline and no user path runs:
@@ -202,6 +219,13 @@ FILES_PATH = ("scfront", "localize", "extract", "fft", "viterbi_windowed")
 GOLDEN_EPS_TOL = 2e-3
 C5_SHARDS = 4                    # the virtual mesh's time axis, on one card
 ROUNDS_SHARDED = 5               # interleaved timing rounds of c5_sharded
+# the distributed phase: C5's resident point over a (1, C5_SHARDS) mesh
+# that spans DIST_WORLD processes (gloo on one card; NCCL, one process a
+# card, on 2 and 4 cards where there are that many); a worker or pod_rx
+# process still running after DIST_TIMEOUT_S is hung: all are killed
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 420
+ROUNDS_DIST = 3                  # interleaved timing rounds across cards
 AXES_FRAMES, AXES_SNR = 4096, 28.0   # the frame and stage axes' C3 batch
 REPS = 5
 REPS_STREAM = 2
@@ -618,7 +642,8 @@ def make_input_c4(torch, spec, device, label="c4"):
 
 
 def phase_stages(torch, spec, label, x, max_frames, path=C3_PATH,
-                 front=None, algo_batch=None) -> tuple[dict, dict]:
+                 front=None, algo_batch=None, slots=None
+                 ) -> tuple[dict, dict]:
     """The steps of pipeline/rx.py:_rx_capture one at a time, on the whole
     batch: each step's device time (CUDA events, median of 5, so steps do
     not overlap) and each kernel's inputs as the main path produces them.
@@ -628,7 +653,8 @@ def phase_stages(torch, spec, label, x, max_frames, path=C3_PATH,
     decimation and AGC steps (c5_sharded: the window's AGC and the halo
     exchange into the shards' rows); algo_batch: the batch the Viterbi
     algorithm is chosen at (default the decode's: c5_sharded one shard's
-    slots)."""
+    slots); slots: each row's slots zero-padded from max_frames to this
+    count before the demodulation, as the stream's reshard pads them."""
     from ofdm_uhd_tpu_torch.kernels import policy, viterbi
     from ofdm_uhd_tpu_torch.kernels.localize import localize
     from ofdm_uhd_tpu_torch.phy import agc, bits, frame, sync
@@ -679,6 +705,10 @@ def phase_stages(torch, spec, label, x, max_frames, path=C3_PATH,
         f = sync.cfo_correct(frames, eps_f, spec.n_sc)
         return sync.cfo_correct(f, sync.integer_cfo(spec, f), spec.n_sc)
     flat = step("cfo", cfo).reshape(caps * max_frames, -1)
+    if slots is not None:
+        flat = torch.nn.functional.pad(
+            flat.view(caps, max_frames, -1),
+            (0, 0, 0, slots - max_frames)).reshape(caps * slots, -1)
     grid = step("fft", lambda: frame.ofdm_demodulate(spec, flat, shift))
 
     def eq_cpe():
@@ -2290,11 +2320,12 @@ def phase_kernels_c5(torch, spec, llr_res, llr_host) -> dict:
     return res
 
 
-def run_c5(torch, config, device) -> tuple[dict, dict]:
+def run_c5(torch, config, device) -> tuple[dict, dict, dict]:
     """C5, the stream, at its two operating points: resident fc32 (chunk
     4,128,768, K = 4, chunk stacks staged on the card) and host-fed sc16
-    (chunk 129,024, K = 16, through process + flush); then c5_sharded on
-    the resident point's stacks. Returns (c5, c5_sharded)."""
+    (chunk 129,024, K = 16, through process + flush); then c5_sharded and
+    the distributed phase on the resident point's stacks. Returns (c5,
+    c5_sharded, distributed)."""
     import numpy as np
     from ofdm_uhd_tpu_torch.pipeline import StreamRx
     spec = config("c5").with_(kernel_backend="auto")
@@ -2330,6 +2361,8 @@ def run_c5(torch, config, device) -> tuple[dict, dict]:
         n_disp)
     sharded = run_c5_sharded(torch, spec, device, stacks, pays, one_shard,
                              n_disp * per, n_disp)
+    distributed = run_distributed(torch, spec, device, cap, pays, stacks,
+                                  sharded.pop("frames"))
     del stacks
 
     # host-fed sc16 from host memory, padded to whole K-step dispatches
@@ -2348,7 +2381,7 @@ def run_c5(torch, config, device) -> tuple[dict, dict]:
             "kernels": kernels, "resident": resident, "hostfed": hostfed,
             "track": track,
             "launches": {n: resident["launches"][n] + hostfed["launches"][n]
-                         for n in resident["launches"]}}, sharded
+                         for n in resident["launches"]}}, sharded, distributed
 
 
 def resident_stacks(torch, cap, device) -> list:
@@ -2459,7 +2492,8 @@ def run_c5_sharded(torch, spec, device, stacks, pays, one_shard, samples,
     return {"stages_ms": stages, "runs": runs,
             "rounds_ms_per_dispatch": rounds, "kernels": kernels,
             "launches": runs["pallas_halo"]["launches"],
-            "axes": phase_axes(torch, device), "two_cards": two}
+            "axes": phase_axes(torch, device), "two_cards": two,
+            "frames": frames["reshard"]}
 
 
 def interleaved_rounds(torch, makers, dispatches) -> dict:
@@ -2502,9 +2536,12 @@ def agc_window(window):
 
 def hold_halo(torch, spec, mesh, chunk) -> dict:
     """K10 against its plain version (shard-to-shard copies) on the first
-    window's blocks of `mesh`'s shards, exactly; library_ms: one
-    Tensor.copy_ of the heads into the halos where that is one call (the
-    shards share a card, or one pair across two cards), else None."""
+    window's blocks of `mesh`'s shards, exactly, launched as the stream
+    step launches it (its setup built once over fixed buffers); library_ms:
+    one Tensor.copy_ of the heads into the halos where that is one call
+    (the shards share a card, or one pair across two cards), else None;
+    then K10 and that call timed in turns (kernel, copy_, copy_, kernel),
+    by events (turns_ms) and in-kernel."""
     from ofdm_uhd_tpu_torch.kernels import halo
     step, window = first_sharded_window(torch, spec, mesh, chunk)
     cb, h = step.cb, step.h
@@ -2521,10 +2558,23 @@ def hold_halo(torch, spec, mesh, chunk) -> dict:
     library = ((lambda: lib[0][:-1, cb:].copy_(lib[0][1:, :h]))
                if len(lib) == 1 else
                (lambda: lib[0][0, cb:].copy_(lib[1][0, :h])) if pair else None)
-    return held(torch, "halo",
-                lambda: (halo._halo_cuda(ext_k, cb, h), ext_k)[1],
-                lambda: (halo.halo_plain(ext_p, cb, h), ext_p)[1], close,
-                (step.t, cb + h), (16.0 * h * (step.t - 1), 0.0), library)
+    exchange = halo.HaloExchange(ext_k, cb, h)
+    res = held(torch, "halo", lambda: (exchange(), ext_k)[1],
+               lambda: (halo.halo_plain(ext_p, cb, h), ext_p)[1], close,
+               (step.t, cb + h), (16.0 * h * (step.t - 1), 0.0), library)
+    if library is not None:
+        order = ("kernel", "library")
+        res["turns_ms"] = {name: [] for name in order}
+        for name in order + order[::-1]:
+            res["turns_ms"][name].append(cuda_ms(
+                torch, exchange if name == "kernel" else library))
+        library_in_turns(torch, res, exchange, library)
+        in_kernel = {"kernel": res["device_ms_turns"],
+                     "library": res["library_device_ms_turns"]}
+        log(f"halo in turns on {[str(e.device) for e in ext_k]}: events "
+            f"ms {fmt_turns(res['turns_ms'])}; in-kernel "
+            f"{fmt_turns(in_kernel)}")
+    return res
 
 
 def phase_axes(torch, device) -> dict:
@@ -2613,6 +2663,302 @@ def phase_two_cards(torch, spec, stacks, pays) -> dict | None:
         f"run {wall:.2f} s, halo launches {launches['halo']}")
     return {"frames_ok": pays.shape[0], "first_run_s": wall,
             "launches": launches, "kernels": peer}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_all(procs, label) -> list[str]:
+    """Wait for processes started together, each within DIST_TIMEOUT_S of
+    the first wait; a hung one kills them all and fails the phase, as
+    does a non-zero exit. Returns their stderr."""
+    errs = []
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    for p in procs:
+        try:
+            _, err = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1.0))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            raise SmokeFailure(f"{label}: a process hung past "
+                               f"{DIST_TIMEOUT_S} s; all killed")
+        errs.append(err)
+    for p, err in zip(procs, errs):
+        check(p.returncode == 0, f"{label}: a process exited "
+              f"{p.returncode}: {err[-3000:]}")
+    return errs
+
+
+def run_workers(label, devices, backend, feed, tmp, rounds) -> list:
+    """The distributed phase's workers (chip_smoke.py --worker), rank r on
+    devices[r], each with C5_SHARDS / world shards; -> each rank's
+    (frames .npz contents, report)."""
+    import numpy as np
+    world, port = len(devices), free_port()
+    chunk, k = C5_RESIDENT
+    procs = []
+    for r, dev in enumerate(devices):
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--worker",
+             "--rank", str(r), "--world", str(world), "--port", str(port),
+             "--device", str(dev), "--backend", backend, "--chunk",
+             str(chunk), "--k", str(k), "--shards", str(C5_SHARDS),
+             "--feed", feed, "--out", os.path.join(tmp, f"{label}_{r}"),
+             "--rounds", str(rounds)],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+    wait_all(procs, label)
+    out = []
+    for r in range(world):
+        base = os.path.join(tmp, f"{label}_{r}")
+        with np.load(base + ".npz") as z:
+            frames = {key: z[key] for key in z.files}
+        with open(base + ".json") as f:
+            out.append((frames, json.load(f)))
+    return out
+
+
+def check_workers(label, workers, want, path) -> None:
+    """Every rank's frames equal `want` (starts, crc_ok, payloads), the
+    carried state is one replica on every rank, and each rank launched
+    every kernel of `path` and no other."""
+    import numpy as np
+    for r, (fr, rep) in enumerate(workers):
+        check(fr["starts"].tolist() == [f.start for f in want]
+              and fr["crc_ok"].tolist() == [f.crc_ok for f in want]
+              and np.array_equal(fr["payloads"], np.array(
+                  [f.payload for f in want])),
+              f"{label}: rank {r}'s frames differ from the in-process "
+              "c5_sharded run's")
+        for key in fr:
+            if key.startswith("state_"):
+                check(np.array_equal(fr[key], workers[0][0][key]),
+                      f"{label}: rank {r}'s {key} differs from rank 0's")
+        for name, n in rep["launches"].items():
+            check((n > 0) == (name in path), f"{label}: rank {r} launched "
+                  f"the {name} kernel {n} times")
+
+
+def run_pod_rx(device, cap, want, tmp) -> dict:
+    """cli.pod_rx --distributed as two processes under torchrun's
+    environment set by hand (gloo: both on `device`) on C5's capture in a
+    .npy file, at the resident point's chunk over C5_SHARDS entries:
+    rank 0's bits must be the in-process run's payloads, and both ranks'
+    summary lines agree up to their throughputs."""
+    import numpy as np
+    path, bits = os.path.join(tmp, "c5.npy"), os.path.join(tmp, "bits.npy")
+    np.save(path, cap)
+    port = str(free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ofdm_uhd_tpu_torch.cli.pod_rx", "--config",
+         "c5", "--capture", path, "--chunk", str(C5_RESIDENT[0]),
+         "--devices", str(C5_SHARDS), "--device", str(device),
+         "--distributed", "--dist-backend", "gloo", "--bits-out", bits],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=ROOT,
+                            MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                            RANK=str(r), WORLD_SIZE=str(DIST_WORLD),
+                            LOCAL_RANK=str(r)))
+        for r in range(DIST_WORLD)]
+    errs = wait_all(procs, "distributed pod_rx")
+    wall = time.perf_counter() - t0
+    lines = [e.strip().splitlines()[-1] for e in errs]
+    check(len({line.split(" dB;")[0] for line in lines}) == 1,
+          f"distributed pod_rx: the ranks' summaries differ: {lines}")
+    got = np.load(bits)
+    check(np.array_equal(got, np.array([f.payload for f in want])),
+          "distributed pod_rx: the bits differ from the in-process run's")
+    log(f"distributed pod_rx: ok  2 processes (gloo, {device}), "
+        f"{got.shape[0]} frames bit-exact, {wall:.1f} s; " + " | ".join(
+            lines))
+    return {"frames": int(got.shape[0]), "wall_s": wall, "summaries": lines}
+
+
+def hold_distributed(torch, spec, device, chunk) -> dict:
+    """The distributed path's kernels against their plain versions at one
+    worker's shapes, on the first step's window of the (1, C5_SHARDS)
+    mesh at the chunk length of `chunk`: rank 0's rows [per, Cb + H] of
+    it (a worker cuts its shards' rows from the window it builds whole,
+    and exchanges halos between them), their slots zero-padded from mf to
+    the reshard's f2 a shard (the demodulation's batch: per * f2 slots),
+    K4w at the windows the algorithm takes at f2, and K10 over a mesh of
+    `per` shards at the same Cb (one process's exchange)."""
+    from ofdm_uhd_tpu_torch.kernels import policy, viterbi
+    from ofdm_uhd_tpu_torch.shard import make_mesh
+    per = C5_SHARDS // DIST_WORLD
+    step, window = first_sharded_window(
+        torch, spec, make_mesh(1, C5_SHARDS, [device] * C5_SHARDS), chunk)
+    f2 = -(-step.mf // step.t) * step.t
+    ins, stages = phase_stages(
+        torch, spec, "distributed rank 0", None, step.mf, front=(
+            "agc+halo (4 rows, 2 kept)",
+            lambda: step.extend(agc_window(window))[0][:per]),
+        algo_batch=f2, slots=f2)
+    kernels = phase_kernels(torch, spec, "distributed", ins, C5_PATH[:-1])
+    geometry = (viterbi.XLA_WINDOW if policy.viterbi_impl(
+        0, f2, spec.kernel_backend, spec.viterbi_mode) == "windowed"
+        else viterbi.FUSED_WINDOW)
+    vit = {f"{k}_{geometry[0]}": v for k, v in hold_windowed(
+        torch, ins["llr"], geometry, "distributed").items()}
+    del ins
+    kernels.update(vit)
+    if per > 1:
+        kernels["halo"] = hold_halo(
+            torch, spec, make_mesh(1, per, [device] * per),
+            chunk[:chunk.shape[0] // C5_SHARDS * per])
+    log_kernels("distributed", {k: v for k, v in kernels.items()
+                                if k in vit or k == "halo"})
+    return {"stages_ms": stages, "kernels": kernels}
+
+
+def run_distributed(torch, spec, device, cap, pays, stacks, want) -> dict:
+    """The stream over a mesh that spans processes: C5's resident point
+    (the stacks of the first feed) over (1, C5_SHARDS) in DIST_WORLD
+    worker processes on `device`, gloo between them (NCCL takes one
+    process a card), with the halo kernel, the reshard and the TRACK
+    retry, against the in-process c5_sharded run's frames `want`, its
+    kernels first held at one worker's shapes (hold_distributed); then
+    cli.pod_rx as two processes; then, with two cards or more, NCCL on 2
+    and 4 cards (one process a card), each timed in interleaved rounds
+    against the one-process, one-card receiver."""
+    import tempfile
+    import numpy as np
+    per = C5_SHARDS // DIST_WORLD
+    path = (C5_PATH + (("halo",) if per > 1 else ())
+            if device.type == "cuda" else ())
+    res = hold_distributed(torch, spec, device, stacks[0][0][0])
+    with tempfile.TemporaryDirectory() as tmp:
+        feed = os.path.join(tmp, "feed.npy")
+        np.save(feed, torch.cat([s.reshape(-1) for s in stacks[0]]).cpu()
+                .numpy())
+        t0 = time.perf_counter()
+        workers = run_workers("gloo", [device] * DIST_WORLD, "gloo", feed,
+                              tmp, 0)
+        check_workers("distributed gloo", workers, want, path)
+        res["gloo"] = [rep for _, rep in workers]
+        res["launches"] = {name: sum(rep["launches"][name]
+                                     for _, rep in workers)
+                           for name in workers[0][1]["launches"]}
+        log(f"distributed gloo: ok  {DIST_WORLD} processes on {device}, "
+            f"{per} shards each, halo kernel + reshard + TRACK: "
+            f"{len(want)} slots, starts, crc_ok and payloads equal to the "
+            "in-process c5_sharded run's on every rank, the state one "
+            f"replica; {time.perf_counter() - t0:.1f} s with start-up; "
+            f"first runs " + ", ".join(
+                f"{rep['first_run_s']:.2f}" for _, rep in workers)
+            + " s; launches " + "; ".join(
+                f"rank {r} {nonzero(rep['launches'])}" for r, (_, rep)
+                in enumerate(workers)))
+        res["pod_rx"] = run_pod_rx(device, cap, want, tmp)
+        res["nccl"] = {}
+        for n in (2, 4):
+            if device.type != "cuda" or torch.cuda.device_count() < n:
+                log(f"distributed nccl on {n} cards: not run (this machine "
+                    f"has {torch.cuda.device_count()} cards)")
+                continue
+            cards = [torch.device("cuda", i) for i in range(n)]
+            workers = run_workers(f"nccl{n}", cards, "nccl", feed, tmp,
+                                  ROUNDS_DIST)
+            check_workers(f"distributed nccl {n} cards", workers, want,
+                          C5_PATH + (("halo",) if C5_SHARDS // n > 1
+                                     else ()))
+            rounds = workers[0][1]["rounds_ms_per_step"]
+            res["nccl"][n] = {"launches": [rep["launches"]
+                                           for _, rep in workers],
+                              "rounds_ms_per_step": rounds}
+            log(f"distributed nccl on {n} cards: ok  frames equal on "
+                f"every rank; ms per step in {ROUNDS_DIST} interleaved "
+                "rounds: " + ", ".join(
+                    f"{k} {statistics.median(v):.3f} ({' / '.join(f'{x:.3f}' for x in v)})"
+                    for k, v in rounds.items()))
+    return res
+
+
+def dist_worker(args) -> int:
+    """One rank of the distributed phase (chip_smoke.py --worker): C5's
+    resident point (--feed, [dispatches * K * chunk] complex64) over a
+    (1, --shards) mesh spanning --world processes, --shards / world
+    entries of --device each, with the halo kernel, the reshard and the
+    TRACK retry, under the launch counters; its frames and state to
+    --out.npz, its counts and times to --out.json. With --rounds, the
+    receiver is timed again in that many rounds, each followed by a
+    one-process receiver (one shard, --device) on rank 0 alone."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.kernels import policy
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    from ofdm_uhd_tpu_torch.shard.mesh import init_distributed, make_mesh
+    device = init_distributed(f"127.0.0.1:{args.port}", args.world,
+                              args.rank, backend=args.backend,
+                              device=args.device)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    spec = config("c5").with_(kernel_backend="auto")
+    chunk, k = args.chunk, args.k
+    feed = np.load(args.feed)
+    per = chunk * k
+    stacks = [torch.from_numpy(feed[d * per:(d + 1) * per].reshape(
+        k, chunk)).to(device) for d in range(feed.shape[0] // per)]
+    mesh = make_mesh(1, args.shards, [device] * (args.shards // args.world))
+
+    def make():
+        return StreamRx(spec, mesh=mesh, chunk_len=chunk,
+                        steps_per_dispatch=k, pallas_halo=True,
+                        reshard=True, track_mode=True)
+    rx = make()
+    sync()
+    policy.reset_launches()
+    t0 = time.perf_counter()
+    frames = rx.process_device(stacks)
+    sync()
+    first_s = time.perf_counter() - t0
+    launches = policy.launches()
+    steps = rx._steps
+    rounds = {"distributed": [], "one_process": []}
+    for _ in range(args.rounds):
+        timed = make()
+        dist.barrier()
+        t0 = time.perf_counter()
+        timed.process_device(stacks)
+        sync()
+        rounds["distributed"].append((time.perf_counter() - t0) * 1e3
+                                     / steps)
+        dist.barrier()
+        if args.rank == 0:
+            one = StreamRx(spec, chunk_len=chunk, steps_per_dispatch=k,
+                           device=device)
+            t0 = time.perf_counter()
+            one.process_device(stacks)
+            sync()
+            rounds["one_process"].append((time.perf_counter() - t0) * 1e3
+                                         / steps)
+        dist.barrier()
+    np.savez(args.out + ".npz",
+             starts=np.array([f.start for f in frames], np.int64),
+             crc_ok=np.array([f.crc_ok for f in frames], bool),
+             payloads=np.array([f.payload for f in frames], np.uint8),
+             **{"state_" + key: v
+                for key, v in rx.state.to_numpy().items()})
+    with open(args.out + ".json", "w") as f:
+        json.dump({"rank": args.rank, "backend": dist.get_backend(),
+                   "device": str(device), "launches": launches,
+                   "first_run_s": first_s, "steps": steps,
+                   "rescued": rx.rescued, "rounds_ms_per_step": rounds}, f)
+    dist.destroy_process_group()
+    return 0
 
 
 def big_path(spec) -> tuple:
@@ -2908,6 +3254,13 @@ def kernel_entry(name, paths, by_path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
+    ap.add_argument("--worker", action="store_true",
+                    help="run as one rank of the distributed phase")
+    for name in ("rank", "world", "port", "chunk", "k", "shards",
+                 "rounds"):
+        ap.add_argument(f"--{name}", type=int, help="(--worker)")
+    for name in ("device", "backend", "feed"):
+        ap.add_argument(f"--{name}", help="(--worker)")
     args = ap.parse_args()
     try:
         import torch
@@ -2916,6 +3269,8 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port ({e}); run it from the "
               "repository's root", file=sys.stderr)
         return 2
+    if args.worker:
+        return dist_worker(args)
     try:
         dev_info = phase_device(torch)
         device = torch.device("cuda", 0)
@@ -2925,7 +3280,7 @@ def main() -> int:
         files = run_files(torch, config, device)
         c4 = run_c4(torch, config, device)
         c4_bf16 = run_c4_bf16(torch, config, device, c4)
-        c5, c5_sharded = run_c5(torch, config, device)
+        c5, c5_sharded, distributed = run_c5(torch, config, device)
         c3_pallas = run_c3_pallas(torch, config, device)
         k4w_ab = run_k4w_ab(torch, c3_pallas.pop("llr"))
         c2_pallas = run_c2_pallas(torch, config, device)
@@ -2940,7 +3295,7 @@ def main() -> int:
     # files last: its checks join each kernel's `paths`, and the first
     # path's check stays the one kernel_entry names
     paths = {"c3": c3, "c4": c4, "c5": c5, "c5_sharded": c5_sharded,
-             "c3_pallas": c3_pallas, "c2_pallas": c2_pallas,
+             "distributed": distributed, "c3_pallas": c3_pallas, "c2_pallas": c2_pallas,
              "c4_bf16": c4_bf16, "shift": shift, "tiers": tiers,
              "big_nsc": big_nsc, "k4w_ab": k4w_ab, "files": files}
     by_path = path_launches(paths)

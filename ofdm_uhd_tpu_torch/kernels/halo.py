@@ -12,6 +12,7 @@ is the caller's to fill (the fresh tail), as in the reference.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -57,14 +58,28 @@ def _enable_peer(dev: torch.device, peer: torch.device) -> None:
             "stage it through the host")
 
 
-def _halo_cuda(ext: list[torch.Tensor], cb: int, h: int) -> None:
-    """One launch per destination device, on its current stream. Where
-    shard i + 1 lies on another card the kernel reads its head by peer
-    access, after that card's stream has written it (an event), and that
-    card's stream waits for the read before it goes on."""
+@dataclasses.dataclass
+class _Launch:
+    """One destination device's launch: its (source, destination) pointer
+    pairs as the C entry takes them, and, where shard i + 1 lies on
+    another card, that card and the two events that order the two
+    cards' streams (its head written before the read; the read done
+    before that card writes again)."""
+    device: torch.device
+    src: ctypes.Array
+    dst: ctypes.Array
+    pairs: int
+    peer: torch.device | None = None
+    ready: torch.cuda.Event | None = None
+    done: torch.cuda.Event | None = None
+
+
+def _plan(ext: list[torch.Tensor], cb: int, h: int) -> list[_Launch]:
+    """The per-call setup of a launch over the buffers `ext`: pointer
+    arrays, peer access, events."""
     _check(ext, cb, h)
-    lib = build.library()
     row = 8 * (cb + h)                          # bytes per shard row
+    plan = []
     for g, e in enumerate(ext):
         base, n_rows = e.data_ptr(), e.shape[0]
         src = [base + (j + 1) * row for j in range(n_rows - 1)]
@@ -74,27 +89,59 @@ def _halo_cuda(ext: list[torch.Tensor], cb: int, h: int) -> None:
             _enable_peer(e.device, nxt.device)
             src.append(nxt.data_ptr())
             dst.append(base + (n_rows - 1) * row + 8 * cb)
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(nxt.device))
-            torch.cuda.current_stream(e.device).wait_event(ready)
         if not src:
             continue
-        err = lib.ofdm_halo_from_right((ctypes.c_void_p * len(src))(*src),
-                                       (ctypes.c_void_p * len(dst))(*dst),
-                                       len(src), h, build.stream_ptr(e.device))
+        launch = _Launch(e.device, (ctypes.c_void_p * len(src))(*src),
+                         (ctypes.c_void_p * len(dst))(*dst), len(src))
+        if nxt is not None:
+            launch.peer = nxt.device
+            launch.ready, launch.done = torch.cuda.Event(), torch.cuda.Event()
+        plan.append(launch)
+    return plan
+
+
+def _launch(plan: list[_Launch], h: int) -> None:
+    """One launch per destination device, on its current stream. Where
+    shard i + 1 lies on another card the kernel reads its head by peer
+    access, after that card's stream has written it (an event), and that
+    card's stream waits for the read before it goes on."""
+    lib = build.library()
+    for p in plan:
+        if p.peer is not None:
+            p.ready.record(torch.cuda.current_stream(p.peer))
+            torch.cuda.current_stream(p.device).wait_event(p.ready)
+        err = lib.ofdm_halo_from_right(p.src, p.dst, p.pairs, h,
+                                       build.stream_ptr(p.device))
         build.check(err, "halo")
         policy.count_launch("halo")
-        if nxt is not None:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(e.device))
-            torch.cuda.current_stream(nxt.device).wait_event(done)
+        if p.peer is not None:
+            p.done.record(torch.cuda.current_stream(p.device))
+            torch.cuda.current_stream(p.peer).wait_event(p.done)
+
+
+class HaloExchange:
+    """The exchange over fixed buffers, one tensor per device (a stream
+    step's shard rows, written anew every step): K10's per-call setup
+    (each destination device's pointer arrays, the peer check, the two
+    ordering events of a pair of cards) is built at the first launch and
+    reused by every later one. Each call takes the kernel or the plain
+    version by the buffers' device, as halo_from_right does."""
+
+    def __init__(self, ext: list[torch.Tensor], cb: int, h: int):
+        self.ext, self.cb, self.h = ext, cb, h
+        self._plan = None
+
+    def __call__(self) -> None:
+        if policy.use_kernel(self.ext[0]):
+            if self._plan is None:
+                self._plan = _plan(self.ext, self.cb, self.h)
+            _launch(self._plan, self.h)
+        else:
+            halo_plain(self.ext, self.cb, self.h)
 
 
 def halo_from_right(ext: list[torch.Tensor], cb: int, h: int) -> None:
     """Fill each shard i < T - 1's halo, ext row i [cb:cb + h], with the
-    head of row i + 1, in place: K10 on CUDA tensors, the plain version on
-    CPU tensors."""
-    if policy.use_kernel(ext[0]):
-        _halo_cuda(ext, cb, h)
-    else:
-        halo_plain(ext, cb, h)
+    head of row i + 1, in place: K10 on CUDA tensors (its setup built for
+    this call), the plain version on CPU tensors."""
+    HaloExchange(ext, cb, h)()

@@ -30,10 +30,11 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.spec import WaveformSpec
 from ..core.state import StreamState
-from ..shard.mesh import make_mesh
+from ..shard.mesh import single_mesh
 from ..shard.time_parallel import make_stream_step
 
 
@@ -61,6 +62,10 @@ class StreamRx:
     window's clip(16 * median(M), 0.05, threshold).
     A spec with filter_precision='bf16' runs, in exact float32, as the
     reference's stream runs it.
+
+    On a mesh that spans processes (shard/mesh.py init_distributed), every
+    process feeds the whole stream, runs its own shards, and returns every
+    frame; save_state writes from process 0, load_state reads in each.
     """
 
     def __init__(self, spec: WaveformSpec, mesh=None,
@@ -73,8 +78,7 @@ class StreamRx:
                  input_format: str = "fc32",
                  device: str | torch.device = "cuda"):
         self.spec = spec
-        self.mesh = (mesh if mesh is not None
-                     else make_mesh(1, 1, [torch.device(device)]))
+        self.mesh = mesh if mesh is not None else single_mesh(device)
         self.device = self.mesh.first_device
         t = self.mesh.shape["time"]
         h = StreamState.halo_len(spec)
@@ -242,9 +246,15 @@ class StreamRx:
     # ---- checkpoint / resume (the reference's .npz layout) ----
 
     def save_state(self, path: str) -> None:
-        """Checkpoint = StreamState fields + the host-side chunk buffer."""
-        np.savez(path, __buf__=self._buf, __steps__=np.int64(self._steps),
-                 **self.state.to_numpy())
+        """Checkpoint = StreamState fields + the host-side chunk buffer.
+        On a mesh that spans processes (whose states are replicas) process
+        0 writes it and the others wait for it at a barrier."""
+        if not self.mesh.distributed or dist.get_rank() == 0:
+            np.savez(path, __buf__=self._buf,
+                     __steps__=np.int64(self._steps),
+                     **self.state.to_numpy())
+        if self.mesh.distributed:
+            dist.barrier()
 
     def load_state(self, path: str) -> None:
         """Resume from a checkpoint of either package, the reference's older

@@ -19,7 +19,7 @@ import torch
 from ..core.spec import WaveformSpec
 from ..pipeline import rx as RXP
 from ..pipeline.tx import TxPipeline
-from .mesh import Mesh
+from .mesh import Mesh, single_controller
 
 
 def _frame_devices(mesh: Mesh) -> list[torch.device]:
@@ -38,6 +38,7 @@ def tx_frames_sharded(spec: WaveformSpec, mesh: Mesh
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """fn: payloads [B, bits] -> frames [B, frame_len_radio], B split over
     the frame axis, gathered on the mesh's first device."""
+    single_controller(mesh, "tx_frames_sharded")
     tx = TxPipeline(spec)
     devices = _frame_devices(mesh)
 
@@ -53,6 +54,7 @@ def rx_frames_sharded(spec: WaveformSpec, mesh: Mesh, shift: int = 0
     over the frame axis and gathered in batch order on the mesh's first
     device, plus n_ok_global (frames that passed their CRC) and
     mean_evm_global (mean EVM in dB), summed over the parts."""
+    single_controller(mesh, "rx_frames_sharded")
     devices = _frame_devices(mesh)
 
     def run(frames: torch.Tensor) -> dict:

@@ -21,7 +21,7 @@ import torch
 
 from ..core.spec import WaveformSpec
 from ..pipeline import rx as RXP
-from .mesh import Mesh
+from .mesh import Mesh, single_controller
 
 N_STAGES = 2
 
@@ -30,6 +30,7 @@ def rx_aligned_pipelined(spec: WaveformSpec, mesh: Mesh, n_micro: int,
                          shift: int = 0) -> Callable[[torch.Tensor], dict]:
     """fn: frames [B, frame_len_radio] (B divisible by n_micro) ->
     {payload, crc_ok, evm_db}, as rx_aligned's."""
+    single_controller(mesh, "rx_aligned_pipelined")
     if mesh.shape.get("stage") != N_STAGES:
         raise ValueError(f"mesh needs a 'stage' axis of size {N_STAGES}, "
                          f"got {dict(mesh.shape)}")

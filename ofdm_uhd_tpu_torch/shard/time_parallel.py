@@ -35,6 +35,23 @@ The owned first-pass successes feed an EMA of the channel and CFO (each
 estimate phase-aligned), and the TRACK retry re-demodulates failed slots
 with it.
 
+Across processes (a mesh made under init_distributed: shard/mesh.py).
+Every process holds the whole host chunk, as the reference's feed does,
+and builds the window (sc16 conversion, decimation, AGC) on its first
+device with the code above, so the window is bit-identical in every
+process, and cuts its own shards' rows [Cb + H] from it. No halo crosses
+a process boundary: the reference's ppermute carries a head every process
+already holds, so a process's last shard takes its halo from the window.
+Within a process the exchange is as above (K10 under pallas_halo). The
+per-shard terms of the sums, the TRACK predicates and the outputs are
+gathered from every process in shard order (shard/collectives.py), and
+the sums are taken with the same .sum(0) over the same rows as on one
+controller, never by all_reduce, whose order would round otherwise:
+every process keeps an identical StreamState and returns every frame.
+The reshard's slot transpose exchanges the chunks of other processes'
+shards (the all_to_all) and stays a .to() permutation within a process.
+Every process issues its collectives in one order.
+
 The TRACK retry is a `lax.cond` on each shard's device predicate in the
 reference. Here it is a host branch: one sync per step reads all T
 predicates (an owned slot failed its CRC while the tracker has history);
@@ -49,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..core.spec import WaveformSpec
 from ..core.state import StreamState
@@ -58,32 +76,48 @@ from ..phy import agc as PA
 from ..phy import sync as PS
 from ..phy import tables as T
 from ..pipeline import rx as RXP
-from .mesh import Mesh, make_mesh
+from .collectives import ProcessComm
+from .mesh import Mesh, single_mesh
 
 
 @dataclasses.dataclass
 class _Group:
-    """Shards [lo, hi) of the time axis, all on `device`."""
+    """Shards [lo, hi) of the time axis, all on `device` of process
+    `rank`."""
     device: torch.device
     lo: int
     hi: int
+    rank: int = 0
 
     @property
     def n(self) -> int:
         return self.hi - self.lo
 
 
-def _groups(devices) -> list[_Group]:
+def _groups(devices, ranks=None) -> list[_Group]:
+    """The time axis's entries as runs of one device of one process."""
     groups: list[_Group] = []
     for i, d in enumerate(devices):
-        if groups and groups[-1].device == d:
+        r = 0 if ranks is None else int(ranks[i])
+        if groups and (groups[-1].device, groups[-1].rank) == (d, r):
             groups[-1].hi = i + 1
-        elif any(g.device == d for g in groups):
+        elif any((g.device, g.rank) == (d, r) for g in groups):
             raise ValueError(f"the shards on {d} must be neighbours on the "
                              "mesh's time axis")
         else:
-            groups.append(_Group(d, i, i + 1))
+            groups.append(_Group(d, i, i + 1, r))
     return groups
+
+
+def _own_groups(groups: list[_Group]) -> list[_Group]:
+    """This process's groups of a time axis that spans processes, each of
+    which must own as many shards (neighbours, in rank order)."""
+    per = [sum(g.n for g in groups if g.rank == r)
+           for r in range(dist.get_world_size())]
+    if len(set(per)) != 1:
+        raise ValueError("every process must own as many shards of the "
+                         f"stream's time axis; got {per} by rank")
+    return [g for g in groups if g.rank == dist.get_rank()]
 
 
 @dataclasses.dataclass
@@ -111,10 +145,17 @@ class StreamStep:
                  pallas_halo: bool, reshard: bool, track_mode: bool,
                  agc: bool, input_format: str):
         self.spec = spec
-        self.groups = _groups(list(mesh.devices.reshape(
-            -1, mesh.shape["time"])[0]))
-        self.device = self.groups[0].device
         self.t = mesh.shape["time"]
+        self.groups = _groups(
+            list(mesh.devices.reshape(-1, self.t)[0]),
+            None if mesh.ranks is None else mesh.ranks.reshape(-1, self.t)[0])
+        self.comm = None
+        if mesh.distributed:
+            self.groups = _own_groups(self.groups)
+            self.comm = ProcessComm(self.groups[0].device)
+        self.device = self.groups[0].device
+        # this process's shards [lo, hi) (all of them on a single controller)
+        self.lo, self.hi = self.groups[0].lo, self.groups[-1].hi
         if chunk_len % self.t:
             raise ValueError(f"chunk {chunk_len} must divide over the "
                              f"{self.t} time shards")
@@ -130,7 +171,9 @@ class StreamStep:
             threshold if isinstance(threshold, tuple)
             else (threshold, "fixed"))
         self.ema = ema
-        self.halo = KH.halo_from_right if pallas_halo else KH.halo_plain
+        self.pallas_halo = pallas_halo
+        self._exts = None         # the shards' rows, written every step
+        self._exchange = None
         self.reshard = reshard
         self.track_mode = track_mode
         self.agc = agc
@@ -148,22 +191,31 @@ class StreamStep:
 
     def blocks(self, window: torch.Tensor) -> list[torch.Tensor]:
         """window [C + H] -> per device group [T_d, Cb + H], each row a
-        shard's block, its halo not yet filled."""
+        shard's block, its halo not yet filled. The rows are the same
+        buffers every step (each step's reads of them are queued before
+        the next step's writes), so the halo exchange's setup is built
+        once."""
+        if self._exts is None:
+            self._exts = [torch.empty((g.n, self.cb + self.h),
+                                      dtype=window.dtype, device=g.device)
+                          for g in self.groups]
+            self._exchange = (
+                KH.HaloExchange(self._exts, self.cb, self.h)
+                if self.pallas_halo else
+                lambda: KH.halo_plain(self._exts, self.cb, self.h))
         blocks = window[:self.c].view(self.t, self.cb)
-        exts = []
-        for g in self.groups:
-            e = torch.empty((g.n, self.cb + self.h), dtype=window.dtype,
-                            device=g.device)
+        for g, e in zip(self.groups, self._exts):
             e[:, :self.cb].copy_(blocks[g.lo:g.hi])
-            exts.append(e)
-        return exts
+        return self._exts
 
     def extend(self, window: torch.Tensor) -> list[torch.Tensor]:
-        """Every shard's block ++ halo: the exchange for shards < T - 1,
-        the window's last H samples for the last."""
+        """Every shard's block ++ halo: the exchange for this process's
+        shards but its last, whose halo is the window's H samples after
+        its block (the last shard's: the window's last H)."""
         exts = self.blocks(window)
-        self.halo(exts, self.cb, self.h)
-        exts[-1][-1, self.cb:].copy_(window[self.c:])
+        self._exchange()
+        end = self.hi * self.cb
+        exts[-1][-1, self.cb:].copy_(window[end:end + self.h])
         return exts
 
     # ---- the step ----
@@ -229,10 +281,20 @@ class StreamStep:
     def _slot_transpose(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
         """Per group [T_d, f2, ...] -> the same shapes with shard j's slot
         chunk i taken from shard i's chunk j (f2 = T chunks): an
-        involution, moved across devices with .to()."""
+        involution, moved across devices with .to() and, from the shards
+        of other processes, by one exchange (the all_to_all)."""
         t = self.t
         q = xs[0].shape[1] // t
         rest = xs[0].shape[2:]
+        n = self.hi - self.lo                  # this process's shards
+        got = []
+        if self.comm is not None:
+            # to process r: my shards' chunks of r's shards [n, n, q, ...]
+            mine = torch.cat([x.to(self.device) for x in xs]).view(
+                (n, t, q) + rest)
+            got = self.comm.exchange([
+                None if r == self.comm.rank else mine[:, r * n:(r + 1) * n]
+                for r in range(self.comm.world)])
         out = []
         for gd in self.groups:
             y = torch.empty((gd.n, t, q) + rest, dtype=xs[0].dtype,
@@ -240,6 +302,11 @@ class StreamStep:
             for gs, x in zip(self.groups, xs):
                 part = x.view((gs.n, t, q) + rest)[:, gd.lo:gd.hi]
                 y[:, gs.lo:gs.hi] = part.transpose(0, 1).to(gd.device)
+            for r, blk in enumerate(got):
+                if blk is not None:     # process r's shards' chunks of mine
+                    part = blk[:, gd.lo - self.lo:gd.hi - self.lo]
+                    y[:, r * n:(r + 1) * n] = part.transpose(0, 1).to(
+                        gd.device)
             out.append(y.view((gd.n, t * q) + rest))
         return out
 
@@ -252,8 +319,8 @@ class StreamStep:
         preds = [(own & ~o["crc_ok"]).view(-1, mf).any(-1)
                  for own, o in zip(fp.owned, fp.out)]
         have = state.track_wt > 0.0
-        pred = (torch.cat([p.to(self.device) for p in preds])
-                & have).tolist()                           # one host sync
+        pred = self._gather_all([preds])[0]
+        pred = (pred & have).tolist()                      # one host sync
         outs, epss, used = [], [], []
         for g, p, out, eps, frames in zip(self.groups, preds, fp.out,
                                           fp.eps, fp.frames):
@@ -284,11 +351,16 @@ class StreamStep:
             used.append(use2)
         return outs, epss, used
 
-    def _gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
-        """Per-group tensors -> one, in shard order, on the first device."""
-        if len(parts) == 1:
-            return parts[0]
-        return torch.cat([p.to(self.device) for p in parts])
+    def _gather_all(self, lists: list[list[torch.Tensor]]
+                    ) -> list[torch.Tensor]:
+        """Per-group tensors of each list -> one each, every shard's rows
+        in shard order, on the first device: a concatenation, and across
+        processes one gather for all the lists (every process gets all
+        the rows)."""
+        local = [parts[0] if len(parts) == 1
+                 else torch.cat([p.to(self.device) for p in parts])
+                 for parts in lists]
+        return local if self.comm is None else self.comm.gather(local)
 
     def finish(self, fp: _FirstPass, state: StreamState
                ) -> tuple[StreamState, dict]:
@@ -322,10 +394,19 @@ class StreamStep:
             i_parts.append(torch.stack(
                 [x.view(g.n, mf).sum(1, dtype=torch.int32)
                  for x in (own, ok, u & own)], -1))
-        h_sum = self._gather(h_parts).sum(0)
-        eps_sum, n_sum = self._gather(f_parts).sum(0).unbind()
-        n_owned, n_ok, n_rescued = self._gather(i_parts).sum(
-            0, dtype=torch.int32).unbind()
+        # start of each detection relative to the chunk's first sample (may
+        # be negative: a frame can begin in the carried tail)
+        (h_rows, f_rows, i_rows, d_rel, ok, owned, eps_all, evm,
+         payload) = self._gather_all([
+             h_parts, f_parts, i_parts,
+             [(d + off).reshape(-1) for d, off in zip(fp.ds, self.offsets)],
+             oks, fp.owned, epss, [o["evm_db"] for o in outs],
+             [_pack_bits(o["payload"]) for o in outs]])
+        # the sums over the shards (the reference's psum): the same rows
+        # added in the same order in every process, never by all_reduce
+        h_sum = h_rows.sum(0)
+        eps_sum, n_sum = f_rows.sum(0).unbind()
+        n_owned, n_ok, n_rescued = i_rows.sum(0, dtype=torch.int32).unbind()
         have = n_sum > 0
         h_new = torch.where(have, h_sum / torch.clamp_min(n_sum, 1.0),
                             state.h_track)
@@ -344,17 +425,9 @@ class StreamStep:
             frames=state.frames + n_owned,
             crc_ok=state.crc_ok + n_ok)
 
-        # start of each detection relative to the chunk's first sample (may
-        # be negative: a frame can begin in the carried tail)
-        d_rel = self._gather([(d + off).reshape(-1)
-                              for d, off in zip(fp.ds, self.offsets)])
-        ok, owned = self._gather(oks), self._gather(fp.owned)
         meta_i = torch.stack([ok.int(), owned.int(), d_rel,
                               n_rescued.expand(d_rel.shape)], dim=-1)
-        meta_f = torch.stack([self._gather(epss),
-                              self._gather([o["evm_db"] for o in outs])],
-                             dim=-1)
-        payload = self._gather([_pack_bits(o["payload"]) for o in outs])
+        meta_f = torch.stack([eps_all, evm], dim=-1)
         return new_state, {"payload": payload, "meta_i": meta_i,
                            "meta_f": meta_f}
 
@@ -412,7 +485,7 @@ def make_stream_step(spec: WaveformSpec, mesh: Mesh | None, chunk_len: int,
     detect_frames takes it per shard)."""
     if input_format not in ("fc32", "sc16"):
         raise ValueError(f"unknown input_format {input_format!r}")
-    s = StreamStep(spec, mesh if mesh is not None else make_mesh(1, 1),
+    s = StreamStep(spec, mesh if mesh is not None else single_mesh("cuda"),
                    chunk_len, max_frames_per_shard, threshold, ema,
                    pallas_halo, reshard, track_mode, agc, input_format)
     return s.step, s.multi, s.cb, s.h

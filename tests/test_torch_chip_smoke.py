@@ -4,8 +4,9 @@ the same inputs, to float32 rounding: cuDNN-style convolutions sum in
 another order than the plain versions; the bf16 tier's yardsticks to
 half a bf16 step, 2^-8 of max|y|, since they round their outputs to
 bf16), the bound it reports, the kernels its JSON line names, its
-refusal to run without a card, and a rehearsal of the shift phase and the
-CFAR run at tiny sizes, with the kernel wrappers patched to their plain
+refusal to run without a card, a rehearsal of the distributed phase
+(its own worker processes and cli.pod_rx, under gloo on the CPU), and a
+rehearsal of the shift phase and the CFAR run at tiny sizes, with the kernel wrappers patched to their plain
 versions and the card's events to host-clock stand-ins."""
 
 import os
@@ -674,15 +675,10 @@ def test_hold_windowed_rehearsal(on_host, monkeypatch):
     assert entry["launches"] == 1 and entry["max_abs_err"] == 0
 
 
-def test_files_phase_rehearsal(on_host, monkeypatch):
-    """run_files at a tiny size on the CPU: the tools as subprocesses with
-    --device cpu (C3 from an sc16 file bit-exact, C4 tx -> rx, C2
-    loopback), cli.rx in process launching the C3 path's (patched)
-    kernels and no other, the native deframer used, the golden chain on
-    the slice equal to the first slots, the fixtures decoded to their
-    pinned payloads and starts; the kernels line counts the launches
-    under the `files` path."""
-    from ofdm_uhd_tpu_torch.core.spec import config
+def _patch_rx_path(monkeypatch):
+    """The RX path's wrappers on CPU tensors as on the card (on top of
+    on_host): each takes its 'kernel', patched to its plain version with
+    a launch count, and chip_smoke times one rep."""
     from ofdm_uhd_tpu_torch.kernels import build, localize, scfront, viterbi
 
     def tile(kernel, flat, nd, l, metric):
@@ -710,6 +706,18 @@ def test_files_phase_rehearsal(on_host, monkeypatch):
                         lambda d: SimpleNamespace(multi_processor_count=132))
     monkeypatch.setattr(sync, "_tile_cuda", tile)
     monkeypatch.setattr(chip_smoke, "REPS", 1)
+
+
+def test_files_phase_rehearsal(on_host, monkeypatch):
+    """run_files at a tiny size on the CPU: the tools as subprocesses with
+    --device cpu (C3 from an sc16 file bit-exact, C4 tx -> rx, C2
+    loopback), cli.rx in process launching the C3 path's (patched)
+    kernels and no other, the native deframer used, the golden chain on
+    the slice equal to the first slots, the fixtures decoded to their
+    pinned payloads and starts; the kernels line counts the launches
+    under the `files` path."""
+    from ofdm_uhd_tpu_torch.core.spec import config
+    _patch_rx_path(monkeypatch)
     monkeypatch.setenv("OMP_NUM_THREADS", "2")   # the tools' subprocesses
     # the in-process decode of 14 slots takes the windowed decoder, as
     # 1032 slots do on the card (the subprocesses keep the fused one)
@@ -747,3 +755,72 @@ def test_files_phase_rehearsal(on_host, monkeypatch):
     assert entry["launches"] == 2 * launches["fft"]
     assert set(entry["paths"]) == {"c3", "files", "files_inverse"}
     assert entry["ms"] == 1.0                # the first path's check
+
+
+def test_distributed_phase_rehearsal(on_host, monkeypatch):
+    """run_distributed at a tiny size on the CPU: the path's (patched)
+    kernels held against their plain versions at one worker's shapes
+    (2 of the 4 shards' rows, 2 f2 slots, K10 over 2 shards), then
+    chip_smoke.py's own workers (--worker, gloo, --device cpu, the plain
+    versions: no launch) and cli.pod_rx as two processes, each giving the
+    in-process (1, 4) run's frames; the phase's keys, and its launches
+    and holds under the `distributed` path of the kernels line."""
+    from ofdm_uhd_tpu_torch.kernels import halo
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.core.state import StreamState
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    from ofdm_uhd_tpu_torch.shard import make_mesh
+    spec = config("c5").with_(kernel_backend="auto")
+    cpu = torch.device("cpu")
+    chunk = chip_smoke.C5_SHARDS * 2 * StreamState.halo_len(spec)
+    monkeypatch.setattr(chip_smoke, "C5_RESIDENT", (chunk, 2))
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cap, pays = build_capture(spec, 6, chip_smoke.GAP, seed=0, snr_db=28.0,
+                              cfo=0.8, phase_noise_std=0.0,
+                              timing_offset=chip_smoke.C5_OFFSET,
+                              device=cpu)
+    stacks = chip_smoke.resident_stacks(torch, cap, cpu)
+    want = StreamRx(spec, mesh=make_mesh(1, chip_smoke.C5_SHARDS,
+                                         ["cpu"] * chip_smoke.C5_SHARDS),
+                    chunk_len=chunk, steps_per_dispatch=2,
+                    reshard=True).process_device(stacks[0])
+    chip_smoke.check_stream("rehearsal", want, pays, spec,
+                            chunk // chip_smoke.C5_SHARDS)
+    _patch_rx_path(monkeypatch)
+    monkeypatch.setattr(halo.HaloExchange, "__call__", lambda self: (
+        policy.count_launch("halo"),
+        halo.halo_plain(self.ext, self.cb, self.h)))
+    res = chip_smoke.run_distributed(torch, spec, cpu, cap, pays, stacks,
+                                     want)
+    assert set(res) == {"stages_ms", "kernels", "gloo", "launches",
+                        "pod_rx", "nccl"}
+    assert res["nccl"] == {}
+    # one worker's shapes: 2 of the 4 rows, 2 f2 slots of the reshard,
+    # K4w at the windows the algorithm takes at f2 (here: 256/64)
+    h = StreamState.halo_len(spec)
+    cb = chunk // chip_smoke.C5_SHARDS
+    mf = cb // spec.frame_len + 2
+    f2 = -(-mf // chip_smoke.C5_SHARDS) * chip_smoke.C5_SHARDS
+    windowed = policy.viterbi_impl(0, f2, spec.kernel_backend,
+                                   spec.viterbi_mode) == "windowed"
+    w = 512 if windowed else 256
+    held = res["kernels"]
+    assert set(held) == {"scfront", "localize", "extract", "fft",
+                         "fft_inverse", "halo", f"viterbi_windowed_{w}",
+                         f"viterbi_windowed_warp_{w}"}
+    assert all(v["max_abs_err"] <= 1e-5 for v in held.values())
+    assert held["scfront"]["shape"] == [2, cb + h]
+    assert held[f"viterbi_windowed_{w}"]["shape"][0] == 2 * f2
+    assert held["halo"]["shape"] == [2, cb + h]
+    assert [r["rank"] for r in res["gloo"]] == [0, 1]
+    assert all(r["backend"] == "gloo" and r["device"] == "cpu"
+               for r in res["gloo"])
+    assert set(res["launches"]) == set(policy.KERNELS)
+    assert not any(res["launches"].values())   # plain versions on the CPU
+    assert res["pod_rx"]["frames"] == len(want)
+    by_path = chip_smoke.path_launches({"distributed": res})
+    assert by_path["distributed"] == res["launches"]
+    entry = chip_smoke.kernel_entry("halo", {"distributed": res}, by_path)
+    assert set(entry["paths"]) == {"distributed"}
+    assert entry["max_abs_err"] == 0

@@ -734,6 +734,33 @@ def test_halo_kernel_peer_exact(dev):
                            torch.view_as_real(p.cpu()))
 
 
+def test_halo_exchange_reuses_its_setup(dev):
+    """The stream step's exchange over fixed buffers: the setup built at
+    the first launch serves every later one, as the buffers are written
+    anew (one launch each, equal to the plain version every time)."""
+    from ofdm_uhd_tpu_torch.kernels import halo
+    devs = [dev] * 4
+    if torch.cuda.device_count() >= 2:
+        devs = [torch.device("cuda", 0)] * 2 + [torch.device("cuda", 1)] * 2
+    ext_k, ext_p = _halo_rows(devs, 1001, 77, seed=3)
+    exchange = halo.HaloExchange(ext_k, 1001, 77)
+    policy.reset_launches()
+    for step in range(3):
+        for k, p in zip(ext_k, ext_p):
+            fresh = torch.randn(k[:, :1001].shape, dtype=torch.complex64,
+                                device=k.device)
+            k[:, :1001].copy_(fresh)
+            p[:, :1001].copy_(fresh)
+        exchange()
+        plan = exchange._plan
+        halo.halo_plain(ext_p, 1001, 77)
+        for k, p in zip(ext_k, ext_p):
+            assert torch.equal(torch.view_as_real(k.cpu()),
+                               torch.view_as_real(p.cpu()))
+    assert exchange._plan is plan
+    assert policy.launches()["halo"] == 3 * len(plan)
+
+
 def test_halo_rejects_bad_input(dev):
     from ofdm_uhd_tpu_torch.kernels import halo
     with pytest.raises(ValueError):

@@ -27,7 +27,8 @@ def test_every_module_imports_without_jax():
               "shard.time_parallel", "research.shift", "kernels.banded",
               "research.fir_ilv", "research.deframe", "golden.sync",
               "golden.chain", "metrics", "io.capture", "io.native",
-              "cli.config", "cli.tx", "cli.rx", "cli.loopback"):
+              "cli.config", "cli.tx", "cli.rx", "cli.loopback",
+              "cli.pod_rx", "shard.collectives"):
         assert "ofdm_uhd_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"

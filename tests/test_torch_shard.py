@@ -357,7 +357,7 @@ def test_stage_pipeline_matches_reference():
         assert torch.equal(got[k], fused[k]), k
 
 
-def test_mesh_construction():
+def test_mesh_construction(monkeypatch):
     mesh = make_mesh(2, 3, ["cpu"] * 7)
     assert list(mesh.shape.items()) == [("frame", 2), ("time", 3)]
     assert mesh.devices.shape == (2, 3)
@@ -368,8 +368,13 @@ def test_mesh_construction():
         make_mesh(1, 4, ["cpu"] * 3)
     with pytest.raises(ValueError):
         make_stage_mesh(2, ["cpu"])
-    with pytest.raises(NotImplementedError):
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError):
+        # no process group to join: neither a coordinator nor torchrun's
+        # environment
         init_distributed()
+    assert mesh.ranks is None and not mesh.distributed
     with pytest.raises(ValueError):
         # the shards of one device must be neighbours on the time axis
         StreamRx(_port_spec(ref_config("c5")), mesh=make_mesh(
