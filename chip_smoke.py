@@ -26,6 +26,20 @@ findings on a line of its own:
       starts; C4's `cli.tx` (32 frames, the TX's K3 inverse and K7
       interpolation on the card) to a file and `cli.rx` on it; C2's
       `cli.loopback --sync` over multipath (64 frames);
+  bench, the bench tool (`python -m ofdm_uhd_tpu_torch.cli.bench`) at the
+      reference's r5 operating points, BENCH_ITERS timed passes each: C1
+      capture sc16 (4096 frames) as a subprocess, then in this process
+      under the launch counters C1 capture sc16 under `xla`, C1 aligned,
+      C2 capture (4096 frames each), C3 capture sc16 (8 x 1024) and C5's
+      stream host-fed sc16 (chunk 129,024, K = 16) and resident fc32
+      (chunk 4,128,768, K = 4) over 4096 frames; each record must count
+      every frame (`frames_ok`), each run launch its path's kernels and
+      no other (the TX's inverse FFT counts with the path's); C1's
+      capture once more with --trace-dir, whose torch.profiler trace must
+      name every kernel of its path among its device events (its busy
+      share read from them); the path's kernels held against their
+      plain versions at C1's and C2's capture shapes (the C3 and C5
+      shapes are held in their own phases);
   C4, the resampled chain: `TxPipeline(config("c4"))` builds 8 captures x
       32 frames on the card (the reference's C4 row: gap 300, timing offset
       100, SNR 28 dB, CFO 0.8 / 8 at the radio rate, no phase noise, fc32)
@@ -208,6 +222,12 @@ C2_CAPS, C2_FRAMES = 32, 128
 FILES_FRAMES = 1024
 FILES_C4_FRAMES, FILES_C2_FRAMES = 32, 64
 FIXTURES = ("c1", "c2", "c3")      # tests/fixtures/golden_<name>.npz
+# the bench phase: cli.bench's timed passes a run, the C1 and C2 runs'
+# frames, and the C3 run's captures x frames (bench.py's headline shape);
+# the C5 runs take C5_FRAMES, C5_HOSTFED and C5_RESIDENT
+BENCH_ITERS = 5
+BENCH_FRAMES = 4096
+BENCH_C3 = (N_CAPS, C3_FRAMES)
 # the kernels the files phase's C3 RX launches: one capture's 1032 slots
 # are a decode batch of at most 2048, where the reference's policy (and
 # the port's, kernels/policy.py viterbi_impl) picks the windowed decoder
@@ -753,18 +773,23 @@ def device_busy_share(torch, run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = covered(spans)
     if not spans:
         return {"busy_share": None, "traced_wall_ms": wall_us / 1e3}
     return {"busy_share": busy / wall_us, "traced_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3, "device_events": len(spans)}
+
+
+def covered(spans) -> float:
+    """The length of the union of (start, end) spans."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
 
 
 def held(torch, name, run_k, run_p, tol, shape, work,
@@ -1352,20 +1377,20 @@ def run_c3(torch, config, device) -> dict:
             "cfar": cfar, "tier_inputs": tier_inputs}
 
 
-def run_cli(tool, *args) -> str:
+def run_tool(phase, tool, *args) -> subprocess.CompletedProcess:
     """`python -m ofdm_uhd_tpu_torch.cli.<tool> args` from the checkout's
-    root, as a user runs it; its stderr, after a zero exit."""
+    root, as a user runs it; the finished process, after a zero exit."""
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", f"ofdm_uhd_tpu_torch.cli.{tool}", *args],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
         text=True, timeout=600)
-    check(res.returncode == 0, f"files: cli.{tool} exited {res.returncode}: "
-          f"{res.stderr[-2000:]}")
-    log(f"files: cli.{tool} {' '.join(args)}: exit 0 in "
+    check(res.returncode == 0, f"{phase}: cli.{tool} exited "
+          f"{res.returncode}: {res.stderr[-2000:]}")
+    log(f"{phase}: cli.{tool} {' '.join(args)}: exit 0 in "
         f"{time.perf_counter() - t0:.1f} s; " + " | ".join(
             line for line in res.stderr.splitlines() if line.strip()))
-    return res.stderr
+    return res
 
 
 STARTUP = """import sys, time
@@ -1476,7 +1501,7 @@ def run_files(torch, config, device) -> dict:
         rx_args = ["--config", "c3", "--capture", path, "--expect-bits",
                    bits, "--max-frames", str(FILES_FRAMES + 8),
                    "--device", dev]
-        err = run_cli("rx", *rx_args)
+        err = run_tool("files", "rx", *rx_args).stderr
         check("(bit-exact)" in err and f"{FILES_FRAMES} crc-ok" in err,
               f"files: cli.rx at c3 was not bit-exact: {err[-500:]}")
         torch.cuda.synchronize()
@@ -1595,23 +1620,244 @@ def run_files(torch, config, device) -> dict:
         # (e) C4 through the files
         c4 = os.path.join(tmp, "c4.npy")
         c4_bits = os.path.join(tmp, "c4_bits.npy")
-        run_cli("tx", "--config", "c4", "--frames", str(FILES_C4_FRAMES),
-                "--gap", str(GAP), "--out", c4, "--bits-out", c4_bits,
-                "--device", dev)
-        err = run_cli("rx", "--config", "c4", "--capture", c4,
-                      "--expect-bits", c4_bits, "--max-frames",
-                      str(FILES_C4_FRAMES + 8), "--device", dev)
+        run_tool("files", "tx", "--config", "c4", "--frames",
+                 str(FILES_C4_FRAMES), "--gap", str(GAP), "--out", c4,
+                 "--bits-out", c4_bits, "--device", dev)
+        err = run_tool("files", "rx", "--config", "c4", "--capture", c4,
+                       "--expect-bits", c4_bits, "--max-frames",
+                       str(FILES_C4_FRAMES + 8), "--device", dev).stderr
         check("(bit-exact)" in err, f"files: c4 tx -> rx: {err[-500:]}")
 
         # (f) C2 loopback
-        err = run_cli("loopback", "--config", "c2", "--frames",
-                      str(FILES_C2_FRAMES), "--snr", "25", "--multipath",
-                      "1,0.3-0.2j", "--sync", "--device", dev)
+        err = run_tool("files", "loopback", "--config", "c2", "--frames",
+                       str(FILES_C2_FRAMES), "--snr", "25", "--multipath",
+                       "1,0.3-0.2j", "--sync", "--device", dev).stderr
         check("post-FEC BIT-EXACT" in err, f"files: c2 loopback: {err}")
     res["startup"] = tool_startup(dev)
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"phase files: ok  in {res['phase_s']:.1f} s")
     return res
+
+
+# the device symbols by which a trace names each kernel of the bench's
+# traced run (torch.profiler's Chrome trace, demangled): any one of them;
+# K4 by its two bodies' names, which K4w's bodies do not contain
+TRACE_SYMBOLS = {"scfront": ("scfront_kernel",), "localize": ("localize",),
+                 "extract": ("extract_kernel",), "fft": ("fft_cp_kernel",),
+                 "viterbi": ("viterbi_k7_group_kernel",
+                             "viterbi_k7_butterfly_kernel"),
+                 "viterbi_windowed": ("viterbi_k7_window_kernel",)}
+# the trace's device events: kernels, copies and sets
+TRACE_DEVICE = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def bench_runs() -> list:
+    """The bench phase's runs: (label, cli.bench arguments, the kernels the
+    run launches, the frames its record must count). The first runs as a
+    subprocess, the rest in this process."""
+    f, (caps, f3) = str(BENCH_FRAMES), BENCH_C3
+    c5 = ("--config", "c5", "--mode", "stream", "--frames", str(C5_FRAMES))
+    c1 = ("--config", "c1", "--mode", "capture", "--input", "sc16",
+          "--frames", f)
+    return [
+        ("c1 capture sc16 auto", [*c1], C3_PATH, BENCH_FRAMES),
+        ("c1 capture sc16 xla", [*c1, "--backend", "xla"], C3_PATH,
+         BENCH_FRAMES),
+        ("c1 aligned", ["--config", "c1", "--mode", "aligned", "--frames",
+                        f], ("fft", "viterbi"), BENCH_FRAMES),
+        ("c2 capture", ["--config", "c2", "--mode", "capture", "--frames",
+                        f], C3_PATH, BENCH_FRAMES),
+        ("c3 capture sc16", ["--config", "c3", "--mode", "capture",
+                             "--input", "sc16", "--caps", str(caps),
+                             "--frames", str(f3)], C3_PATH, caps * f3),
+        ("c5 stream sc16", [*c5, "--input", "sc16", "--chunk",
+                            str(C5_HOSTFED[0]), "--ksteps",
+                            str(C5_HOSTFED[1])], C5_PATH,
+         C5_FRAMES * BENCH_ITERS),
+        ("c5 stream resident fc32", [*c5, "--chunk", str(C5_RESIDENT[0]),
+                                     "--ksteps", str(C5_RESIDENT[1]),
+                                     "--resident"], C5_PATH,
+         C5_FRAMES * BENCH_ITERS),
+    ]
+
+
+def bench_record(label, stdout, frames) -> dict:
+    """The record a bench run printed on its last line, which must count
+    `frames` frames, with its time a dispatch (capture and aligned: one
+    call; stream: one K-step dispatch) from its frames_ok / frames_per_s
+    and, for the stream, its Msamples/s and chunk_len x ksteps (C5's radio
+    chunk is its baseband chunk)."""
+    lines = stdout.strip().splitlines()
+    check(bool(lines), f"bench {label}: no record printed")
+    rec = json.loads(lines[-1])
+    check(rec["frames_ok"] == frames and rec.get("frames", frames) == frames,
+          f"bench {label}: {rec['frames_ok']} frames ok of "
+          f"{rec.get('frames', frames)}, sent {frames}")
+    s = rec["frames_ok"] / rec["frames_per_s"]
+    if rec["mode"].startswith("stream"):
+        n = rec["msamples_per_s"] * 1e6 * s / (rec["chunk_len"]
+                                                * rec["ksteps"])
+        s /= n
+    return {"record": rec, "ms_per_dispatch": s * 1e3}
+
+
+def bench_in_process(torch, label, argv, path, frames) -> dict:
+    """One cli.bench run through its main(argv) under the launch counters:
+    every kernel of `path` launched, no other; its record read back."""
+    import contextlib
+    import io
+    from ofdm_uhd_tpu_torch.cli import bench
+    from ofdm_uhd_tpu_torch.kernels import policy
+    torch.cuda.synchronize()
+    policy.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        bench.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = policy.launches()
+    for k, n in launches.items():
+        check((n > 0) == (k in path), f"bench {label}: the run launched the "
+              f"{k} kernel {n} times")
+    res = {**bench_record(label, out.getvalue(), frames),
+           "launches": launches, "run_s": wall}
+    log(f"bench {label}: {json.dumps(res['record'])}; "
+        f"{res['ms_per_dispatch']:.3f} ms a dispatch; launches "
+        f"{nonzero(launches)}; the run {wall:.1f} s with its input build")
+    return res
+
+
+def read_trace(trace_dir) -> tuple[list, float]:
+    """The Chrome trace torch.profiler wrote into trace_dir: its device
+    events [(category, name, start us, end us)] and the span of all its
+    timed events (us)."""
+    import glob
+    files = glob.glob(os.path.join(trace_dir, "*.json"))
+    check(len(files) == 1, f"bench: {len(files)} trace files in the trace "
+          "directory")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    check(bool(events), "bench: the trace holds no timed event")
+    dev = [(e.get("cat", ""), e.get("name", ""), float(e["ts"]),
+            float(e["ts"]) + float(e["dur"])) for e in events
+           if e.get("cat", "") in TRACE_DEVICE]
+    span = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+            - min(float(e["ts"]) for e in events))
+    return dev, span
+
+
+def check_trace(label, trace_dir, path) -> dict:
+    """Every kernel of `path` named among the trace's device kernels, and
+    the card's busy share over the trace's span (the union of its device
+    events)."""
+    dev, span = read_trace(trace_dir)
+    names = [n for c, n, _, _ in dev if c == "kernel"]
+    counts = {k: sum(any(s in n for s in TRACE_SYMBOLS[k]) for n in names)
+              for k in path}
+    for k, n in counts.items():
+        check(n > 0, f"bench {label}: the trace names no {k} kernel "
+              f"({' or '.join(TRACE_SYMBOLS[k])}) among its {len(names)} "
+              "device kernels")
+    busy = covered([(a, b) for _, _, a, b in dev])
+    res = {"kernel_events": counts, "device_events": len(dev),
+           "span_ms": span / 1e3, "device_busy_ms": busy / 1e3,
+           "busy_share": busy / span if span else None}
+    log(f"bench {label}: the trace names every kernel of the path among "
+        f"its device events {counts} ({len(dev)} device events); busy "
+        f"share {res['busy_share']:.3f} of {res['span_ms']:.1f} ms")
+    return res
+
+
+def run_bench(torch, device) -> dict:
+    """The bench tool at the reference's r5 operating points (bench_runs):
+    the first run as a `python -m` subprocess, the rest in this process,
+    each record counting every frame; C1's capture once more under
+    --trace-dir, its trace checked for the card's kernels; then the path's
+    kernels held against their plain versions at C1's and C2's capture
+    shapes, as the tool builds them (bench_lib.build_capture: seed 0, gap
+    300, SNR 28 dB, CFO 0.8, timing offset 100, no phase noise), and the
+    aligned run's kernels (fft, viterbi) on its own input
+    (cli.bench.aligned_input: C1's TX frames back to back, no CFO)."""
+    import tempfile
+
+    import numpy as np
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16
+    from ofdm_uhd_tpu_torch.cli.config import load_spec
+    t_phase = time.perf_counter()
+    dev, it = str(device), ["--iters", str(BENCH_ITERS)]
+    runs = bench_runs()
+    label, argv, _, frames = runs[0]
+    proc = run_tool("bench", "bench", *argv, *it, "--device", dev)
+    first = bench_record(label, proc.stdout, frames)
+    log(f"bench {label} (python -m): {json.dumps(first['record'])}; "
+        f"{first['ms_per_dispatch']:.3f} ms a dispatch")
+    res = {"subprocess": {label: first}, "runs": {
+        label: bench_in_process(torch, label, [*argv, *it, "--device", dev],
+                                path, frames)
+        for label, argv, path, frames in runs[1:]}}
+    label, argv, path, frames = runs[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        r = bench_in_process(torch, f"{label}, traced",
+                             [*argv, "--iters", "2", "--device", dev,
+                              "--trace-dir", tmp], path, frames)
+        r["trace"] = check_trace(f"{label}, traced", tmp, path)
+    res["traced"] = r
+    counted = [*res["runs"].values(), r]
+    res["launches"] = {k: sum(c["launches"][k] for c in counted)
+                       for k in r["launches"]}
+
+    res["kernels"] = {}
+    for name, sc16 in (("c1", True), ("c2", False)):
+        spec = load_spec(name)
+        cap, _ = build_capture(spec, BENCH_FRAMES, GAP, seed=0, snr_db=28.0,
+                               cfo=0.8, phase_noise_std=0.0,
+                               timing_offset=100, device=device)
+        x = torch.from_numpy(to_sc16(cap[None]) if sc16
+                             else cap[None].astype(np.complex64)).to(device)
+        ins, _ = phase_stages(torch, spec, f"bench {name}", x,
+                              BENCH_FRAMES + 2)
+        held_here = phase_kernels(torch, spec, f"bench {name}", ins)
+        res["kernels"].update({f"{k}_{name}": v for k, v in held_here.items()})
+        del ins, x
+    spec = load_spec("c1")
+    held_here = phase_kernels(torch, spec, "bench c1 aligned",
+                              aligned_ins(torch, spec, device),
+                              ("fft", "viterbi"))
+    res["kernels"].update({f"{k}_c1_aligned": v
+                           for k, v in held_here.items()})
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase bench: ok  in {res['phase_s']:.1f} s")
+    return res
+
+
+def aligned_ins(torch, spec, device) -> dict:
+    """The inputs RxPipeline.rx_aligned gives its kernels on the bench
+    tool's aligned input (seed 0, BENCH_FRAMES frames): the steps of
+    pipeline/rx.py:_demod_frames up to the decode, in the keys
+    phase_stages gives them (`cap`: the baseband frames)."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.cli.bench import aligned_input
+    from ofdm_uhd_tpu_torch.phy import bits, frame
+    from ofdm_uhd_tpu_torch.pipeline import TxPipeline, rx
+    pays = np.random.default_rng(0).integers(
+        0, 2, (BENCH_FRAMES, spec.payload_bits_per_frame)).astype(np.uint8)
+    fr = TxPipeline(spec)(torch.from_numpy(pays).to(device)).cpu().numpy()
+    x = rx._to_baseband(spec, torch.from_numpy(
+        aligned_input(spec, fr).astype(np.complex64)).to(device))
+    shift = min(4, spec.cp // 4)
+    grid = frame.ofdm_demodulate(spec, x, shift)
+    h = frame.estimate_channel(spec, grid)
+    data = frame.track_phase(spec, frame.equalize(spec, grid, h))[0]
+    llr = bits.deinterleave_soft(rx._demap(spec, data, h)[0],
+                                 spec.coded_bits_per_sym)
+    llr = bits.depuncture_llr(llr, spec.fec_rate,
+                              2 * spec.uncoded_bits_per_frame)
+    return {"cap": x, "syms": x.reshape(x.shape[0], spec.n_syms,
+                                        spec.sym_len),
+            "start": spec.cp - shift, "grid": grid,
+            "llr": llr.contiguous()}
 
 
 def phase_cfar(torch, spec, label, iq, pays, max_frames, m) -> dict:
@@ -2176,7 +2422,8 @@ def phase_stream_run(torch, spec, label, make_rx, feed, run, pays,
                      ) -> tuple[dict, list]:
     """One operating point of the stream: the main-path run (checked, its
     launches counted: every kernel of `path` launched, no other), `REPS_STREAM`
-    timed runs on a second, perturbed feed, a plain-forced run that must
+    timed runs on a second, perturbed feed, each by a fresh receiver, then
+    `REPS_STREAM` by the last of them carried on, a plain-forced run that must
     give the same frames, and the busy share over one
     run. run(rx, feed) -> frames; feed = (first, second); samples and
     dispatches: radio samples and K-step dispatches per run. Returns the
@@ -2219,6 +2466,18 @@ def phase_stream_run(torch, spec, label, make_rx, feed, run, pays,
         check(sum(f.crc_ok for f in got) >= pays.shape[0],
               f"{label}: a timed run lost frames")
     wall = statistics.median(walls)
+    # the last receiver carried on for REPS_STREAM more runs, the feeds in
+    # turn, as cli.bench times its passes: beside the fresh runs above,
+    # what a fresh receiver's run costs over the stream's steady state
+    carried = []
+    for i in range(REPS_STREAM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run(rx_t, feed[i % 2])
+        torch.cuda.synchronize()
+        carried.append(time.perf_counter() - t0)
+        check(sum(f.crc_ok for f in got) >= pays.shape[0],
+              f"{label}: a carried run lost frames")
     rx_p = make_rx()
     t0 = time.perf_counter()
     with policy.plain_versions():
@@ -2234,7 +2493,9 @@ def phase_stream_run(torch, spec, label, make_rx, feed, run, pays,
            "steps": rx._steps, "ms_per_dispatch": wall * 1e3 / dispatches,
            "ms_per_step": wall * 1e3 / rx._steps,
            "msps": samples / wall / 1e6, "run_s": walls,
-           "device_s": devs, "first_run_s": first_s,
+           "device_s": devs, "carried_run_s": carried,
+           "carried_msps": samples / statistics.median(carried) / 1e6,
+           "first_run_s": first_s,
            "plain_run_s": plain_s, "plain_msps": samples / plain_s / 1e6,
            "launches": launches, "profile": busy}
     share = busy["busy_share"]
@@ -2248,8 +2509,10 @@ def phase_stream_run(torch, spec, label, make_rx, feed, run, pays,
         f"dispatches ({rx._steps} steps, {res['ms_per_step']:.3f} ms/step), "
         f"{res['msps']:.1f} "
         f"Msamples/s (runs {', '.join(f'{w:.3f}' for w in walls)} s, "
-        f"device {', '.join(f'{d:.3f}' for d in devs)} s); "
-        f"plain-forced {plain_s:.2f} s, same starts and payloads"
+        f"device {', '.join(f'{d:.3f}' for d in devs)} s); carried on "
+        f"{res['carried_msps']:.1f} Msamples/s (runs "
+        f"{', '.join(f'{w:.3f}' for w in carried)} s); plain-forced "
+        f"{plain_s:.2f} s, same starts and payloads"
         "; busy share " + (
             "not measured" if share is None else
             f"{share:.3f} of {busy['traced_wall_ms']:.1f} ms") +
@@ -3198,9 +3461,9 @@ def run_big_nsc(torch, device) -> dict:
 def path_launches(paths) -> dict:
     """Launches per kernel of every counted main-path run: each path's RX
     slice (C5: its two operating points; c5_sharded: its halo-kernel run;
-    files: its in-process cli.rx; shift, tiers, k4w_ab: their counted
-    runs) and the TX input builds of
-    C4, c4_bf16, the 'pallas' paths and big_nsc."""
+    files: its in-process cli.rx; bench: its in-process cli.bench runs,
+    their TX included; shift, tiers, k4w_ab: their counted runs) and the
+    TX input builds of C4, c4_bf16, the 'pallas' paths and big_nsc."""
     out = {}
     for p, r in paths.items():
         out[p] = r["launches"] if "launches" in r else r["slice"]["launches"]
@@ -3226,11 +3489,12 @@ def kernel_entry(name, paths, by_path) -> dict:
     c2_pallas's for sccorr, c5_sharded's for halo, c4_bf16's for fir_bf16
     and interp_bf16, the shift and tiers phases' for their kernels: the
     first check, C4's shape for the decimation and interpolation, C3's for
-    banded_sc and deframe; the files phase's checks come last), as are
-    bound_ms, bound_by and library_ms.
+    banded_sc and deframe; the files and bench phases' checks come last),
+    as are bound_ms, bound_by and library_ms.
     launches sums the counted main-path runs (every path's RX, the files
-    phase's in-process cli.rx, the TX input builds of C4, c4_bf16 and the
-    'pallas' paths, and the shift and tiers phases' counted runs), and
+    phase's in-process cli.rx, the bench phase's in-process cli.bench
+    runs, the TX input builds of C4, c4_bf16 and the 'pallas' paths, and
+    the shift and tiers phases' counted runs), and
     launches_by_path splits them."""
     src, rep = KERNEL_INFO[name]
     held_on = {p + k[len(name):]: v for p, r in paths.items()
@@ -3278,6 +3542,7 @@ def main() -> int:
         build_info = phase_build()
         c3 = run_c3(torch, config, device)
         files = run_files(torch, config, device)
+        bench = run_bench(torch, device)
         c4 = run_c4(torch, config, device)
         c4_bf16 = run_c4_bf16(torch, config, device, c4)
         c5, c5_sharded, distributed = run_c5(torch, config, device)
@@ -3292,12 +3557,13 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # files last: its checks join each kernel's `paths`, and the first
-    # path's check stays the one kernel_entry names
+    # files and bench last: their checks join each kernel's `paths`, and
+    # the first path's check stays the one kernel_entry names
     paths = {"c3": c3, "c4": c4, "c5": c5, "c5_sharded": c5_sharded,
              "distributed": distributed, "c3_pallas": c3_pallas, "c2_pallas": c2_pallas,
              "c4_bf16": c4_bf16, "shift": shift, "tiers": tiers,
-             "big_nsc": big_nsc, "k4w_ab": k4w_ab, "files": files}
+             "big_nsc": big_nsc, "k4w_ab": k4w_ab, "files": files,
+             "bench": bench}
     by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)
                         for k in KERNEL_INFO]}

@@ -9,6 +9,7 @@ refusal to run without a card, a rehearsal of the distributed phase
 rehearsal of the shift phase and the CFAR run at tiny sizes, with the kernel wrappers patched to their plain
 versions and the card's events to host-clock stand-ins."""
 
+import json
 import os
 import subprocess
 import sys
@@ -824,3 +825,209 @@ def test_distributed_phase_rehearsal(on_host, monkeypatch):
     entry = chip_smoke.kernel_entry("halo", {"distributed": res}, by_path)
     assert set(entry["paths"]) == {"distributed"}
     assert entry["max_abs_err"] == 0
+
+
+def _trace_file(tmp_path, events):
+    (tmp_path / "t.pt.trace.json").write_text(json.dumps(
+        {"traceEvents": events}))
+
+
+def test_check_trace_reads_the_cards_kernels(tmp_path):
+    """check_trace on a Chrome trace in torch.profiler's layout: each
+    kernel of the path found by its device symbol among the device
+    kernels (CPU operators do not count), the busy share the union of
+    the device events (kernels, copies, sets) over the span of all timed
+    events; a path kernel missing from the trace fails the phase."""
+    ev = [{"ph": "X", "cat": "cpu_op", "name": "aten::fft_fft",
+           "ts": 0.0, "dur": 100.0},
+          {"ph": "X", "cat": "kernel", "name": "void scfront_kernel<5, "
+           "true>(float2 const*, float2*, float*, sct::Plan)",
+           "ts": 10.0, "dur": 20.0},
+          {"ph": "X", "cat": "kernel", "name": "void fft_cp_kernel<8>()",
+           "ts": 20.0, "dur": 20.0},           # overlaps the first
+          {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH",
+           "ts": 60.0, "dur": 10.0},
+          {"ph": "i", "cat": "cpu_op", "name": "marker", "ts": 500.0}]
+    _trace_file(tmp_path, ev)
+    res = chip_smoke.check_trace("t", str(tmp_path), ("scfront", "fft"))
+    assert res["kernel_events"] == {"scfront": 1, "fft": 1}
+    assert res["device_events"] == 3
+    assert res["span_ms"] == pytest.approx(0.1)
+    assert res["busy_share"] == pytest.approx(0.4)
+    with pytest.raises(chip_smoke.SmokeFailure, match="no localize"):
+        chip_smoke.check_trace("t", str(tmp_path), ("scfront", "localize"))
+    _trace_file(tmp_path, ev[:1])
+    with pytest.raises(chip_smoke.SmokeFailure, match="no scfront"):
+        chip_smoke.check_trace("t", str(tmp_path), ("scfront",))
+
+
+def test_check_trace_tells_k4_from_k4w(tmp_path):
+    """K4 is found by its own bodies' symbols: a trace that holds only
+    K4w's bodies names no viterbi kernel, and each Viterbi kernel counts
+    only its own events."""
+    def kernel(name, ts):
+        return {"ph": "X", "cat": "kernel", "name": f"void {name}(float "
+                "const*, uint2*)", "ts": ts, "dur": 1.0}
+    windowed = [kernel("viterbi_k7_window_kernel", 0.0),
+                kernel("viterbi_k7_windowed_warp_kernel", 2.0)]
+    _trace_file(tmp_path, windowed)
+    with pytest.raises(chip_smoke.SmokeFailure, match="no viterbi kernel"):
+        chip_smoke.check_trace("t", str(tmp_path), ("viterbi",))
+    _trace_file(tmp_path, windowed + [
+        kernel("viterbi_k7_group_kernel<16>", 4.0),
+        kernel("viterbi_k7_butterfly_kernel", 6.0)])
+    res = chip_smoke.check_trace("t", str(tmp_path),
+                                 ("viterbi", "viterbi_windowed"))
+    assert res["kernel_events"] == {"viterbi": 2, "viterbi_windowed": 1}
+
+
+def test_bench_record_checks_the_count():
+    rec = {"mode": "capture", "frames_ok": 8, "frames": 8,
+           "frames_per_s": 400.0, "msamples_per_s": 1.0}
+    got = chip_smoke.bench_record("c1", "noise\n" + json.dumps(rec), 8)
+    assert got["ms_per_dispatch"] == pytest.approx(20.0)
+    stream = {"mode": "stream-resident", "frames_ok": 8, "chunk_len": 1000,
+              "ksteps": 2, "frames_per_s": 4.0, "msamples_per_s": 0.004}
+    got = chip_smoke.bench_record("c5", json.dumps(stream), 8)
+    assert got["ms_per_dispatch"] == pytest.approx(500.0)   # 2 s, 4 of them
+    with pytest.raises(chip_smoke.SmokeFailure, match="7 frames ok of 8"):
+        chip_smoke.bench_record("c1", json.dumps({**rec, "frames_ok": 7}),
+                                8)
+    with pytest.raises(chip_smoke.SmokeFailure, match="no record"):
+        chip_smoke.bench_record("c1", "", 8)
+
+
+def test_bench_phase_rehearsal(on_host, monkeypatch):
+    """run_bench at tiny sizes on the CPU: cli.bench as a subprocess with
+    --device cpu, then in process at every other operating point, each
+    run launching its path's (patched) kernels and no other and its
+    record counting every frame; the traced run's trace read back (a CPU
+    trace holds no device kernel: the card's are stood in for beside its
+    own events); the path's kernels held at C1's and C2's capture shapes,
+    and the aligned run's (fft, viterbi) on its own input;
+    the kernels line counts the runs' launches and the holds under the
+    `bench` path."""
+    _patch_rx_path(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch, fn, reps=20: (fn(), 0.5)[1])
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")   # the tool's subprocess
+    monkeypatch.setattr(chip_smoke, "BENCH_ITERS", 2)
+    monkeypatch.setattr(chip_smoke, "BENCH_FRAMES", 4)
+    monkeypatch.setattr(chip_smoke, "BENCH_C3", (2, 3))
+    monkeypatch.setattr(chip_smoke, "C5_FRAMES", 4)
+    monkeypatch.setattr(chip_smoke, "C5_HOSTFED", (16384, 2))
+    monkeypatch.setattr(chip_smoke, "C5_RESIDENT", (16384, 2))
+    runs = chip_smoke.bench_runs()
+    assert [r[0] for r in runs] == [
+        "c1 capture sc16 auto", "c1 capture sc16 xla", "c1 aligned",
+        "c2 capture", "c3 capture sc16", "c5 stream sc16",
+        "c5 stream resident fc32"]
+
+    # at a few slots 'auto' decodes by the reference's fused decoder:
+    # whole sequences (K4) at C1's and C2's trellis lengths, windows (K4w)
+    # at C3's
+    def tiny():
+        return [(label, argv, path if not label.startswith("c3") else tuple(
+            "viterbi_windowed" if k == "viterbi" else k for k in path),
+            frames) for label, argv, path, frames in runs]
+    monkeypatch.setattr(chip_smoke, "bench_runs", tiny)
+    real_read = chip_smoke.read_trace
+    cpu_traces = []
+
+    def read(trace_dir):
+        dev, span = real_read(trace_dir)
+        cpu_traces.append((dev, span))
+        return dev + [("kernel", f"void {s}<1>()", 0.0, span / 4)
+                      for syms in chip_smoke.TRACE_SYMBOLS.values()
+                      for s in syms], span
+    monkeypatch.setattr(chip_smoke, "read_trace", read)
+    res = chip_smoke.run_bench(torch, torch.device("cpu"))
+
+    assert cpu_traces[0][0] == [] and cpu_traces[0][1] > 0
+    assert res["subprocess"]["c1 capture sc16 auto"]["record"][
+        "frames_ok"] == 4
+    assert list(res["runs"]) == [r[0] for r in runs[1:]]
+    for label, argv, path, frames in tiny()[1:]:
+        r = res["runs"][label]
+        assert r["record"]["frames_ok"] == frames
+        assert r["ms_per_dispatch"] > 0
+        for k, n in r["launches"].items():
+            assert (n > 0) == (k in path), (label, k)
+    assert res["runs"]["c1 capture sc16 xla"]["record"]["backend"] == "xla"
+    assert res["runs"]["c5 stream resident fc32"]["record"]["mode"] == \
+        "stream-resident"
+    assert res["traced"]["record"]["frames_ok"] == 4
+    assert res["traced"]["trace"]["busy_share"] == pytest.approx(0.25)
+    held = res["kernels"]
+    for name in ("c1", "c2"):
+        for k in ("scfront", "localize", "extract", "fft", "fft_inverse",
+                  "viterbi"):
+            assert held[f"{k}_{name}"]["max_abs_err"] <= 1e-5, (k, name)
+    assert held["scfront_c1"]["shape"][0] == 1
+    # the aligned run's kernels on its own input: 4 back-to-back frames
+    for k in ("fft", "fft_inverse", "viterbi"):
+        assert held[f"{k}_c1_aligned"]["max_abs_err"] <= 1e-5, k
+    assert held["viterbi_c1_aligned"]["shape"][0] == 4
+    assert not any(k.startswith(("scfront", "localize", "extract"))
+                   and k.endswith("aligned") for k in held)
+    want = {k: sum(r["launches"][k] for r in res["runs"].values())
+            + res["traced"]["launches"][k] for k in policy.KERNELS}
+    by_path = chip_smoke.path_launches({"bench": res})
+    assert by_path["bench"] == res["launches"] == want
+    entry = chip_smoke.kernel_entry("scfront", {"bench": res}, by_path)
+    assert set(entry["paths"]) == {"bench_c1", "bench_c2"}
+    assert entry["launches"] == want["scfront"] > 0
+    for name in ("fft", "viterbi"):
+        entry = chip_smoke.kernel_entry(name, {"bench": res}, by_path)
+        assert "bench_c1_aligned" in entry["paths"], name
+
+
+@pytest.mark.parametrize("point", ["resident", "hostfed"])
+def test_stream_run_rehearsal(on_host, monkeypatch, point):
+    """phase_stream_run at a tiny C5 point on the CPU (resident fc32
+    stacks through process_device; host-fed sc16 through process +
+    flush): the main run launching the path's (patched) kernels and no
+    other, REPS_STREAM timed runs by fresh receivers, then REPS_STREAM by
+    the last of them carried on, each counting every frame, and the
+    plain-forced run's frames equal to the main run's."""
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture, to_sc16
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    _patch_rx_path(monkeypatch)
+    spec = config("c5").with_(kernel_backend="auto")
+    cpu = torch.device("cpu")
+    chunk, k = 16384, 2
+    per = chunk * k
+    monkeypatch.setattr(chip_smoke, "C5_RESIDENT", (chunk, k))
+    cap, pays = build_capture(spec, 4, chip_smoke.GAP, seed=0, snr_db=28.0,
+                              cfo=0.8, phase_noise_std=0.0,
+                              timing_offset=chip_smoke.C5_OFFSET,
+                              device=cpu)
+    if point == "resident":
+        feed = chip_smoke.resident_stacks(torch, cap, cpu)
+        n_disp = len(feed[0])
+        fmt, samples = "fc32", n_disp * per
+
+        def run(rx, st):
+            return rx.process_device(st)
+    else:
+        iq = to_sc16(cap[None])[:, 0]
+        f = np.zeros((2, -(-iq.shape[1] // per) * per), np.int16)
+        f[:, :iq.shape[1]] = iq
+        feed = (f, f ^ 1)
+        fmt, samples = "sc16", f.shape[1] + chunk
+        n_disp = f.shape[1] // per + 1            # + the flush
+
+        def run(rx, f):
+            return rx.process(f) + rx.flush()
+    res, frames = chip_smoke.phase_stream_run(
+        torch, spec, "t", lambda: StreamRx(spec, chunk_len=chunk,
+                                           steps_per_dispatch=k,
+                                           input_format=fmt, device=cpu),
+        feed, run, pays, samples, n_disp)
+    assert res["frames_ok"] == 4 and len(frames) >= 4
+    for key in ("run_s", "device_s", "carried_run_s"):
+        assert len(res[key]) == chip_smoke.REPS_STREAM, key
+    assert res["carried_msps"] > 0 and res["msps"] > 0
+    for name, n in res["launches"].items():
+        assert (n > 0) == (name in chip_smoke.C5_PATH), name

@@ -28,7 +28,7 @@ def test_every_module_imports_without_jax():
               "research.fir_ilv", "research.deframe", "golden.sync",
               "golden.chain", "metrics", "io.capture", "io.native",
               "cli.config", "cli.tx", "cli.rx", "cli.loopback",
-              "cli.pod_rx", "shard.collectives"):
+              "cli.pod_rx", "cli.bench", "shard.collectives"):
         assert "ofdm_uhd_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
