@@ -99,6 +99,30 @@ findings on a line of its own:
       against the one-process, one-card receiver. A worker that fails,
       hangs past DIST_TIMEOUT_S (all are then killed) or disagrees fails
       the script;
+  axes_distributed, the frame and stage axes and the stream on a 2-D
+      mesh, across processes: first their kernels held at one worker's
+      shapes (K3 and K4 on a quarter of c5_sharded's 4096-frame C3 batch,
+      a frame part and a stage microbatch alike: C3's 'xla' route decodes
+      whole sequences at every batch; the (2, 2) stream's K6, K1, K2, K3,
+      K4w on one shard's row of a frame row of two, and the (2, 4)
+      stream's on two shards' rows of a frame row of four, with K10
+      between them), then AXES_WORLD worker processes (chip_smoke.py
+      --worker --steps) sharing the card under gloo, in one spawn:
+      rx_frames_sharded over (4, 1), rx_aligned_pipelined with its stages
+      on ranks 0 and 1 (ranks 2 and 3 own no entry) and C5's resident
+      stream over (2, 2) and over (2, 4) (each frame row a replica over
+      two processes, with one shard each or two, the halo kernel between
+      a process's two; reshard, TRACK); every rank's result bit-equal to
+      the in-process runs (c5_sharded's frame and stage axes, the stream
+      on a (2, 2) and a (2, 4) virtual mesh; EVM within 0.01 dB) and its
+      launches per rank logged; with two cards or more, NCCL, one process
+      a card: the frame axis (2, 1) and the stage axis on 2 cards (K3 and
+      K4 also held on a frame part of half the batch, the shapes those
+      ranks launch at), the frame batch and the stream on (2, 2) on 4,
+      checked the same way, their launches logged under the path, and
+      timed in ROUNDS_DIST interleaved rounds against one process over
+      the same cards and one process on one card, beside the card's name
+      and power limit;
   shift, the shifted-FMA tier (research/shift.py: fir_shift,
       polyphase_decim_shift, polyphase_interp_shift, sc_correlate_shift),
       which the reference keeps as an A/B baseline and no user path runs:
@@ -247,6 +271,11 @@ DIST_WORLD = 2
 DIST_TIMEOUT_S = 420
 ROUNDS_DIST = 3                  # interleaved timing rounds across cards
 AXES_FRAMES, AXES_SNR = 4096, 28.0   # the frame and stage axes' C3 batch
+AXES_MICRO = 4                   # the stage axis's microbatches
+# the distributed axes phase: AXES_WORLD processes under gloo on one card
+# (frame axis (4, 1), stage axis, the stream on (2, 2)); NCCL, one process
+# a card, on 2 and 4 cards where there are that many
+AXES_WORLD = 4
 REPS = 5
 REPS_STREAM = 2
 SLOW_S = 1.0            # a plain version slower than this is timed once
@@ -510,16 +539,21 @@ def work_viterbi(rows, n, steps) -> tuple[float, float]:
     return 4.0 * rows * 2 * n + rows * n, 256.0 * steps
 
 
-def phase_device(torch) -> dict:
-    check(torch.cuda.is_available(), "no CUDA device: the port's kernels "
-          "run only on an NVIDIA GPU")
+def card_line() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0 and smi.stdout.strip() != "",
           f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device(torch) -> dict:
+    check(torch.cuda.is_available(), "no CUDA device: the port's kernels "
+          "run only on an NVIDIA GPU")
+    card = card_line()
     log(card)
     log(f"phase device: ok  torch {torch.__version__} cuda "
         f"{torch.version.cuda}  python {sys.version.split()[0]}  "
@@ -1839,13 +1873,20 @@ def aligned_ins(torch, spec, device) -> dict:
     phase_stages gives them (`cap`: the baseband frames)."""
     import numpy as np
     from ofdm_uhd_tpu_torch.cli.bench import aligned_input
-    from ofdm_uhd_tpu_torch.phy import bits, frame
     from ofdm_uhd_tpu_torch.pipeline import TxPipeline, rx
     pays = np.random.default_rng(0).integers(
         0, 2, (BENCH_FRAMES, spec.payload_bits_per_frame)).astype(np.uint8)
     fr = TxPipeline(spec)(torch.from_numpy(pays).to(device)).cpu().numpy()
-    x = rx._to_baseband(spec, torch.from_numpy(
-        aligned_input(spec, fr).astype(np.complex64)).to(device))
+    return demod_ins(torch, spec, rx._to_baseband(spec, torch.from_numpy(
+        aligned_input(spec, fr).astype(np.complex64)).to(device)))
+
+
+def demod_ins(torch, spec, x) -> dict:
+    """The inputs pipeline/rx.py:_demod_frames gives its kernels on
+    baseband frames x [B, frame_len], up to the decode, in the keys
+    phase_stages gives them (`cap`: the frames)."""
+    from ofdm_uhd_tpu_torch.phy import bits, frame
+    from ofdm_uhd_tpu_torch.pipeline import rx
     shift = min(4, spec.cp // 4)
     grid = frame.ofdm_demodulate(spec, x, shift)
     h = frame.estimate_channel(spec, grid)
@@ -2583,12 +2624,14 @@ def phase_kernels_c5(torch, spec, llr_res, llr_host) -> dict:
     return res
 
 
-def run_c5(torch, config, device) -> tuple[dict, dict, dict]:
+def run_c5(torch, config, device) -> tuple[dict, dict, dict, dict]:
     """C5, the stream, at its two operating points: resident fc32 (chunk
     4,128,768, K = 4, chunk stacks staged on the card) and host-fed sc16
-    (chunk 129,024, K = 16, through process + flush); then c5_sharded and
-    the distributed phase on the resident point's stacks. Returns (c5,
-    c5_sharded, distributed)."""
+    (chunk 129,024, K = 16, through process + flush); then c5_sharded, the
+    distributed phase and the distributed axes phase on the resident
+    point's stacks, c5_sharded's result carrying the frame and stage axes
+    in one process (phase_axes). Returns (c5, c5_sharded, distributed,
+    axes_distributed)."""
     import numpy as np
     from ofdm_uhd_tpu_torch.pipeline import StreamRx
     spec = config("c5").with_(kernel_backend="auto")
@@ -2626,6 +2669,10 @@ def run_c5(torch, config, device) -> tuple[dict, dict, dict]:
                              n_disp * per, n_disp)
     distributed = run_distributed(torch, spec, device, cap, pays, stacks,
                                   sharded.pop("frames"))
+    sharded["axes"], batch, outs = phase_axes(torch, device)
+    axes_distributed = run_axes_distributed(torch, device, batch, outs,
+                                            stacks)
+    del batch, outs
     del stacks
 
     # host-fed sc16 from host memory, padded to whole K-step dispatches
@@ -2644,7 +2691,8 @@ def run_c5(torch, config, device) -> tuple[dict, dict, dict]:
             "kernels": kernels, "resident": resident, "hostfed": hostfed,
             "track": track,
             "launches": {n: resident["launches"][n] + hostfed["launches"][n]
-                         for n in resident["launches"]}}, sharded, distributed
+                         for n in resident["launches"]}}, sharded, \
+        distributed, axes_distributed
 
 
 def resident_stacks(torch, cap, device) -> list:
@@ -2677,10 +2725,8 @@ def run_c5_sharded(torch, spec, device, stacks, pays, one_shard, samples,
     plain version there (the Viterbi on the 1032 rows' LLRs at 512/96, the
     geometry the algorithm takes at one shard's 258 slots). Then the
     receivers' times in interleaved rounds, K10 against its plain version,
-    the frame and stage axes, and a two-card mesh where there are two
-    cards."""
+    and a two-card mesh where there are two cards."""
     import numpy as np
-    from ofdm_uhd_tpu_torch.kernels import policy, viterbi
     from ofdm_uhd_tpu_torch.pipeline import StreamRx
     from ofdm_uhd_tpu_torch.shard import make_mesh
     chunk, k = C5_RESIDENT
@@ -2695,9 +2741,7 @@ def run_c5_sharded(torch, spec, device, stacks, pays, one_shard, samples,
     kernels = phase_kernels(torch, spec, "c5_sharded", ins, C5_PATH[:-1])
     # the windows the algorithm chosen at one shard's slots decodes with
     # (C5 trellis: 'windowed' 512/96 at 258 slots, 'fused' 256/64 at <= 96)
-    geometry = (viterbi.XLA_WINDOW if policy.viterbi_impl(
-        0, step.mf, spec.kernel_backend, spec.viterbi_mode) == "windowed"
-        else viterbi.FUSED_WINDOW)
+    geometry = window_geometry(spec, step.mf)
     vit = {f"{k}_{geometry[0]}": v for k, v in hold_windowed(
         torch, ins["llr"], geometry, "c5_sharded").items()}
     log_kernels("c5_sharded", vit)
@@ -2755,8 +2799,7 @@ def run_c5_sharded(torch, spec, device, stacks, pays, one_shard, samples,
     return {"stages_ms": stages, "runs": runs,
             "rounds_ms_per_dispatch": rounds, "kernels": kernels,
             "launches": runs["pallas_halo"]["launches"],
-            "axes": phase_axes(torch, device), "two_cards": two,
-            "frames": frames["reshard"]}
+            "two_cards": two, "frames": frames["reshard"]}
 
 
 def interleaved_rounds(torch, makers, dispatches) -> dict:
@@ -2840,21 +2883,12 @@ def hold_halo(torch, spec, mesh, chunk) -> dict:
     return res
 
 
-def phase_axes(torch, device) -> dict:
-    """The frame and stage axes on the card: AXES_FRAMES C3 frames from
+def axes_batch(torch, spec, device):
+    """The frame and stage axes' batch: AXES_FRAMES frames of `spec` from
     the port's TX (payloads seed 0) with AWGN at AXES_SNR dB (torch
-    generator seed 0), through rx_frames_sharded over a (4, 1) mesh and
-    rx_aligned_pipelined over 2 stages (4 microbatches), each against
-    RxPipeline.rx_aligned on the same batch: payloads and crc_ok equal,
-    EVM within 0.01 dB, every frame bit-exact; ms of each (CUDA events,
-    median of REPS)."""
+    generator seed 0) -> (payloads, frames) on `device`."""
     import numpy as np
-    from ofdm_uhd_tpu_torch.core.spec import config
-    from ofdm_uhd_tpu_torch.pipeline import RxPipeline, TxPipeline
-    from ofdm_uhd_tpu_torch.shard import make_mesh, rx_frames_sharded
-    from ofdm_uhd_tpu_torch.shard.mesh import make_stage_mesh
-    from ofdm_uhd_tpu_torch.shard.stage_pipeline import rx_aligned_pipelined
-    spec = config("c3")
+    from ofdm_uhd_tpu_torch.pipeline import TxPipeline
     rng = np.random.default_rng(0)
     pays = torch.from_numpy(rng.integers(
         0, 2, (AXES_FRAMES, spec.payload_bits_per_frame)).astype(
@@ -2863,19 +2897,37 @@ def phase_axes(torch, device) -> dict:
     g = torch.Generator(device=device).manual_seed(0)
     sigma = torch.sqrt((frames.abs() ** 2).mean() / 10 ** (AXES_SNR / 10)
                        / 2)
-    noisy = frames + sigma * torch.complex(
+    return pays, frames + sigma * torch.complex(
         torch.randn(frames.shape, generator=g, device=device),
         torch.randn(frames.shape, generator=g, device=device))
+
+
+def phase_axes(torch, device) -> tuple[dict, object, dict]:
+    """The frame and stage axes on the card: axes_batch's C3 frames
+    through rx_frames_sharded over a (4, 1) mesh and rx_aligned_pipelined
+    over 2 stages (AXES_MICRO microbatches), each against
+    RxPipeline.rx_aligned on the same batch: payloads and crc_ok equal,
+    EVM within 0.01 dB, every frame bit-exact; ms of each (CUDA events,
+    median of REPS). -> (the results, the batch, both outputs by axis
+    name: what the distributed axes phase is held against)."""
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline
+    from ofdm_uhd_tpu_torch.shard import make_mesh, rx_frames_sharded
+    from ofdm_uhd_tpu_torch.shard.mesh import make_stage_mesh
+    from ofdm_uhd_tpu_torch.shard.stage_pipeline import rx_aligned_pipelined
+    spec = config("c3")
+    pays, noisy = axes_batch(torch, spec, device)
     fused = RxPipeline(spec).rx_aligned
     want = fused(noisy)
     check(torch.equal(want["payload"], pays), "axes: rx_aligned missed a "
           "frame of the batch")
     res = {"frames": AXES_FRAMES, "rx_aligned_ms": cuda_ms(
         torch, lambda: fused(noisy))}
+    outs = {}
     for name, fn in (
             ("frame", rx_frames_sharded(spec, make_mesh(4, 1, [device] * 4))),
             ("stage", rx_aligned_pipelined(
-                spec, make_stage_mesh(2, [device] * 2), 4))):
+                spec, make_stage_mesh(2, [device] * 2), AXES_MICRO))):
         got = fn(noisy)
         torch.cuda.synchronize()
         evm = float((got["evm_db"] - want["evm_db"]).abs().max())
@@ -2885,15 +2937,16 @@ def phase_axes(torch, device) -> dict:
         if name == "frame":
             check(int(got["n_ok_global"]) == AXES_FRAMES,
                   f"axes: n_ok_global {int(got['n_ok_global'])}")
+        outs[name] = got
         res[name] = {"ms": cuda_ms(torch, lambda: fn(noisy)),
                      "max_evm_diff_db": evm}
     log(f"c5_sharded axes: ok  {AXES_FRAMES} C3 frames at {AXES_SNR} dB, "
         f"bit-exact; rx_aligned {res['rx_aligned_ms']:.2f} ms, frame axis "
-        f"(4, 1) {res['frame']['ms']:.2f} ms, stage axis (2 stages, 4 "
-        f"microbatches) {res['stage']['ms']:.2f} ms, equal to rx_aligned "
-        "(payloads, crc_ok; EVM within "
+        f"(4, 1) {res['frame']['ms']:.2f} ms, stage axis (2 stages, "
+        f"{AXES_MICRO} microbatches) {res['stage']['ms']:.2f} ms, equal to "
+        "rx_aligned (payloads, crc_ok; EVM within "
         f"{max(res['frame']['max_evm_diff_db'], res['stage']['max_evm_diff_db']):.2g} dB)")
-    return res
+    return res, noisy, outs
 
 
 def phase_two_cards(torch, spec, stacks, pays) -> dict | None:
@@ -3048,40 +3101,49 @@ def run_pod_rx(device, cap, want, tmp) -> dict:
     return {"frames": int(got.shape[0]), "wall_s": wall, "summaries": lines}
 
 
-def hold_distributed(torch, spec, device, chunk) -> dict:
-    """The distributed path's kernels against their plain versions at one
-    worker's shapes, on the first step's window of the (1, C5_SHARDS)
-    mesh at the chunk length of `chunk`: rank 0's rows [per, Cb + H] of
-    it (a worker cuts its shards' rows from the window it builds whole,
-    and exchanges halos between them), their slots zero-padded from mf to
-    the reshard's f2 a shard (the demodulation's batch: per * f2 slots),
-    K4w at the windows the algorithm takes at f2, and K10 over a mesh of
-    `per` shards at the same Cb (one process's exchange)."""
+def window_geometry(spec, batch) -> tuple:
+    """The windows K4w decodes with at a decode batch of `batch`, as the
+    algorithm is chosen there: XLA_WINDOW for 'windowed', FUSED_WINDOW
+    for 'fused' (C5 trellis: 'windowed' 512/96 above 96 slots)."""
     from ofdm_uhd_tpu_torch.kernels import policy, viterbi
+    return (viterbi.XLA_WINDOW if policy.viterbi_impl(
+        0, batch, spec.kernel_backend, spec.viterbi_mode) == "windowed"
+        else viterbi.FUSED_WINDOW)
+
+
+def hold_distributed(torch, spec, device, chunk, shards=C5_SHARDS,
+                     per=C5_SHARDS // DIST_WORLD, label="distributed"
+                     ) -> dict:
+    """A distributed stream's kernels against their plain versions at one
+    worker's shapes, on the first step's window of a (1, shards) time
+    axis (a frame row) at the chunk length of `chunk`: rank 0's rows
+    [per, Cb + H] of it (a worker cuts its shards' rows from the window
+    it builds whole, and exchanges halos between them), their slots
+    zero-padded from mf to the reshard's f2 a shard (the demodulation's
+    batch: per * f2 slots), K4w at the windows the algorithm takes at f2,
+    and, where a worker holds more than one shard, K10 over a mesh of
+    `per` shards at the same Cb (one process's exchange)."""
     from ofdm_uhd_tpu_torch.shard import make_mesh
-    per = C5_SHARDS // DIST_WORLD
     step, window = first_sharded_window(
-        torch, spec, make_mesh(1, C5_SHARDS, [device] * C5_SHARDS), chunk)
+        torch, spec, make_mesh(1, shards, [device] * shards), chunk)
     f2 = -(-step.mf // step.t) * step.t
     ins, stages = phase_stages(
-        torch, spec, "distributed rank 0", None, step.mf, front=(
-            "agc+halo (4 rows, 2 kept)",
+        torch, spec, f"{label} rank 0", None, step.mf, front=(
+            f"agc+halo ({shards} rows, {per} kept)",
             lambda: step.extend(agc_window(window))[0][:per]),
         algo_batch=f2, slots=f2)
-    kernels = phase_kernels(torch, spec, "distributed", ins, C5_PATH[:-1])
-    geometry = (viterbi.XLA_WINDOW if policy.viterbi_impl(
-        0, f2, spec.kernel_backend, spec.viterbi_mode) == "windowed"
-        else viterbi.FUSED_WINDOW)
+    kernels = phase_kernels(torch, spec, label, ins, C5_PATH[:-1])
+    geometry = window_geometry(spec, f2)
     vit = {f"{k}_{geometry[0]}": v for k, v in hold_windowed(
-        torch, ins["llr"], geometry, "distributed").items()}
+        torch, ins["llr"], geometry, label).items()}
     del ins
     kernels.update(vit)
     if per > 1:
         kernels["halo"] = hold_halo(
             torch, spec, make_mesh(1, per, [device] * per),
-            chunk[:chunk.shape[0] // C5_SHARDS * per])
-    log_kernels("distributed", {k: v for k, v in kernels.items()
-                                if k in vit or k == "halo"})
+            chunk[:chunk.shape[0] // shards * per])
+    log_kernels(label, {k: v for k, v in kernels.items()
+                        if k in vit or k == "halo"})
     return {"stages_ms": stages, "kernels": kernels}
 
 
@@ -3222,6 +3284,410 @@ def dist_worker(args) -> int:
                    "rescued": rx.rescued, "rounds_ms_per_step": rounds}, f)
     dist.destroy_process_group()
     return 0
+
+
+# the kernels each step of the distributed axes phase launches: config
+# ("c3") routes 'xla' with viterbi_mode 'scan', so the frame axis (at the
+# whole batch) and the stage axis (at a microbatch) both decode whole
+# sequences (K4); the stream decodes as C5 does (and exchanges halos by
+# K10 between the shards of one process: axes_path)
+AXES_PATHS = {"frame": ("fft", "viterbi"), "stage": ("fft", "viterbi"),
+              "stream": C5_PATH}
+# the stream's meshes in the gloo run, (2, 2) and (2, 4): each frame row
+# over two processes, with one shard each or two
+AXES_STREAMS = ((2, 2), (2, 4))
+
+
+def axes_steps(steps: str) -> list[tuple]:
+    """'frame:4x1,stage,stream:2x2' -> [(name, (F, T) or None), ...]."""
+    out = []
+    for step in steps.split(","):
+        name, _, shape = step.partition(":")
+        out.append((name, tuple(int(v) for v in shape.split("x"))
+                    if shape else None))
+    return out
+
+
+def axes_path(name: str, world: int) -> tuple:
+    """The kernels step `name` ('stream:2x4') launches over `world`
+    processes: AXES_PATHS's, and K10 for a stream whose processes hold
+    more than one shard each."""
+    (step, shape), = axes_steps(name)
+    halo = step == "stream" and shape[0] * shape[1] > world
+    return AXES_PATHS[step] + (("halo",) if halo else ())
+
+
+def run_axes_workers(label, devices, backend, steps, files, tmp, rounds
+                     ) -> list:
+    """The distributed axes phase's workers (chip_smoke.py --worker
+    --steps ...), rank r on devices[r]; files: (the C3 batch, the C5
+    feed) .npy paths -> each rank's (arrays .npz contents, report)."""
+    import numpy as np
+    world, port = len(devices), free_port()
+    chunk, k = C5_RESIDENT
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--worker",
+         "--steps", steps, "--rank", str(r), "--world", str(world),
+         "--port", str(port), "--device", str(dev), "--backend", backend,
+         "--chunk", str(chunk), "--k", str(k), "--batch", files[0],
+         "--feed", files[1], "--out", os.path.join(tmp, f"{label}_{r}"),
+         "--rounds", str(rounds)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for r, dev in enumerate(devices)]
+    wait_all(procs, label)
+    out = []
+    for r in range(world):
+        base = os.path.join(tmp, f"{label}_{r}")
+        with np.load(base + ".npz") as z:
+            arrays = {key: z[key] for key in z.files}
+        with open(base + ".json") as f:
+            out.append((arrays, json.load(f)))
+    return out
+
+
+def batch_record(out: dict) -> dict:
+    """A batch result's keys as (dtype, shape) and the digests of its
+    payloads and crc_ok, by which a worker's result compares with this
+    process's."""
+    return {"like": {k: [str(v.dtype), list(v.shape)] for k, v in out.items()},
+            "payload": bits_digest(out["payload"]),
+            "crc_ok": bits_digest(out["crc_ok"])}
+
+
+def check_axes(label, workers, want, on_card) -> None:
+    """Every rank's every step equal to this process's run of it: `want`
+    = {step: batch dict, or the stream's frames}: payloads and crc_ok bit
+    for bit (digests), every key of the one-process dict with its dtype
+    and shape, n_ok_global equal, EVM and mean_evm_global within 0.01 dB;
+    the stream's starts, crc_ok and payloads equal, EVM within 0.01 dB,
+    its state one replica. On a card each rank launched only its step's
+    path's kernels, and the ranks together every one of them (on the CPU
+    none: the plain versions run there)."""
+    import numpy as np
+    for name, got in want.items():
+        step = name.split(":")[0]
+        for r, (arr, rep) in enumerate(workers):
+            if step == "stream":
+                check(arr[f"{name}_starts"].tolist() == [f.start for f in got]
+                      and arr[f"{name}_crc_ok"].tolist()
+                      == [f.crc_ok for f in got]
+                      and np.array_equal(arr[f"{name}_payloads"], np.array(
+                          [f.payload for f in got])),
+                      f"{label}: rank {r}'s {name} frames differ from the "
+                      "in-process run's")
+                evm = float(np.abs(arr[f"{name}_evm"] - np.array(
+                    [f.evm_db for f in got])).max())
+                for key in arr:
+                    if key.startswith(f"{name}_state_"):
+                        check(np.array_equal(arr[key], workers[0][0][key]),
+                              f"{label}: rank {r}'s {key} differs from "
+                              "rank 0's")
+            else:
+                rec, mine = batch_record(got), rep["steps"][name]
+                check(all(mine[k] == rec[k] for k in rec),
+                      f"{label}: rank {r}'s {name} result differs from the "
+                      f"in-process run's: {mine} against {rec}")
+                evm = float(np.abs(arr[f"{name}_evm_db"] - got["evm_db"].cpu()
+                                   .numpy()).max())
+                if "n_ok_global" in got:
+                    check(mine["n_ok_global"] == int(got["n_ok_global"])
+                          and abs(mine["mean_evm_global"]
+                                  - float(got["mean_evm_global"])) <= 0.01,
+                          f"{label}: rank {r}'s {name} metrics differ")
+            check(evm <= 0.01, f"{label}: rank {r}'s {name} EVM differs by "
+                  f"{evm} dB")
+            rep["steps"][name]["max_evm_diff_db"] = evm
+        path = axes_path(name, len(workers)) if on_card else ()
+        launched = {k for _, rep in workers
+                    for k, n in rep["steps"][name]["launches"].items() if n}
+        check(launched == set(path), f"{label}: {name} launched {launched}, "
+              f"its path is {path}")
+
+
+def axes_worker(args) -> int:
+    """One rank of the distributed axes phase (chip_smoke.py --worker
+    --steps ...): each step over a mesh spanning --world processes on
+    --device under --backend, under the launch counters: 'frame:FxT'
+    rx_frames_sharded over an (F, T) mesh, 'stage' rx_aligned_pipelined
+    over 2 stages (AXES_MICRO microbatches), both on the C3 batch
+    (--batch), 'stream:FxT' C5's resident point (--feed, --chunk, --k)
+    over an (F, T) mesh with the halo kernel, the reshard and the TRACK
+    retry; each process owns F * T / world entries. Its results to
+    --out.npz and --out.json. With --rounds, the steps are timed in that
+    many rounds (host clock, every card synchronized), each followed, on
+    rank 0 alone, by the one-process runs over the same cards (the same
+    mesh, driven by one process) and on one card (rx_aligned, the
+    one-shard stream)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.kernels import policy
+    from ofdm_uhd_tpu_torch.pipeline import RxPipeline, StreamRx
+    from ofdm_uhd_tpu_torch.shard import make_mesh, rx_frames_sharded
+    from ofdm_uhd_tpu_torch.shard.mesh import (Mesh, init_distributed,
+                                               make_stage_mesh)
+    from ofdm_uhd_tpu_torch.shard.stage_pipeline import rx_aligned_pipelined
+    device = init_distributed(f"127.0.0.1:{args.port}", args.world,
+                              args.rank, backend=args.backend,
+                              device=args.device)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+    c3 = config("c3")
+    c5 = config("c5").with_(kernel_backend="auto")
+    batch = torch.from_numpy(np.load(args.batch)).to(device)
+    chunk, k = args.chunk, args.k
+    feed = np.load(args.feed)
+    per = chunk * k
+    stacks = [torch.from_numpy(feed[d * per:(d + 1) * per].reshape(
+        k, chunk)).to(device) for d in range(feed.shape[0] // per)]
+    runs, one = {}, {}
+    for name, shape in axes_steps(args.steps):
+        key = name if shape is None else f"{name}:{shape[0]}x{shape[1]}"
+        if name == "stage":
+            mesh = make_stage_mesh(2, [device])
+            runs[key] = (lambda m=mesh: rx_aligned_pipelined(
+                c3, m, AXES_MICRO)(batch))
+            single = Mesh(mesh.devices, mesh.axis_names)
+            one[f"{key} one process"] = (
+                lambda m=single: rx_aligned_pipelined(c3, m, AXES_MICRO)(
+                    batch))
+            continue
+        mesh = make_mesh(*shape, [device] * (shape[0] * shape[1]
+                                             // args.world))
+        single = Mesh(mesh.devices, mesh.axis_names)
+        if name == "frame":
+            runs[key] = (lambda fn=rx_frames_sharded(c3, mesh): fn(batch))
+            one[f"{key} one process"] = (
+                lambda fn=rx_frames_sharded(c3, single): fn(batch))
+        else:
+            def stream(m, kw=dict(chunk_len=chunk, steps_per_dispatch=k,
+                                  pallas_halo=True, reshard=True)):
+                rx = StreamRx(c5, mesh=m, **kw)
+                return rx.process_device(stacks), rx
+            runs[key] = (lambda m=mesh: stream(m))
+            one[f"{key} one process"] = (lambda m=single: stream(m))
+    arrays, report = {}, {"rank": args.rank, "backend": dist.get_backend(),
+                          "device": str(device), "steps": {},
+                          "rounds_ms": {}}
+    for key, fn in runs.items():
+        sync()
+        policy.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        rec = {"first_run_s": time.perf_counter() - t0,
+               "launches": policy.launches()}
+        if key.startswith("stream"):
+            frames, rx = out
+            arrays.update({
+                f"{key}_starts": np.array([f.start for f in frames],
+                                          np.int64),
+                f"{key}_crc_ok": np.array([f.crc_ok for f in frames], bool),
+                f"{key}_payloads": np.array([f.payload for f in frames],
+                                            np.uint8),
+                f"{key}_evm": np.array([f.evm_db for f in frames]),
+                **{f"{key}_state_{n}": v
+                   for n, v in rx.state.to_numpy().items()}})
+            rec["steps"] = rx._steps
+        else:
+            rec.update(batch_record(out))
+            arrays[f"{key}_evm_db"] = out["evm_db"].cpu().numpy()
+            if "n_ok_global" in out:
+                rec["n_ok_global"] = int(out["n_ok_global"])
+                rec["mean_evm_global"] = float(out["mean_evm_global"])
+        report["steps"][key] = rec
+        del out
+    if args.rounds:
+        fused = RxPipeline(c3).rx_aligned
+        one["rx_aligned one card"] = lambda: fused(batch)
+        if any(key.startswith("stream") for key in runs):
+            one["stream one card"] = lambda: StreamRx(
+                c5, chunk_len=chunk, steps_per_dispatch=k,
+                device=device).process_device(stacks)
+        times = {key: [] for key in list(runs) + list(one)}
+        for _ in range(args.rounds):
+            for key, fn in runs.items():
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                times[key].append((time.perf_counter() - t0) * 1e3)
+            dist.barrier()
+            if args.rank == 0:
+                for key, fn in one.items():
+                    t0 = time.perf_counter()
+                    fn()
+                    sync()
+                    times[key].append((time.perf_counter() - t0) * 1e3)
+            dist.barrier()
+        report["rounds_ms"] = times
+    np.savez(args.out + ".npz", **arrays)
+    with open(args.out + ".json", "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def hold_axes(torch, spec, part, label) -> dict:
+    """The frame and stage axes' kernels against their plain versions at
+    one worker's shapes: `part`, the frames one process decodes at once
+    (a part of the frame axis's batch, or one microbatch of the stage
+    axis): K3 forward and inverse on its windows and grid, K4 on its
+    LLRs (AXES_PATHS)."""
+    return phase_kernels(torch, spec, label, demod_ins(torch, spec, part),
+                         ("fft", "viterbi"))
+
+
+def axes_inputs(torch, device, batch, outs, stacks, tmp
+                ) -> tuple[dict, tuple]:
+    """What the distributed axes' workers are held against and fed:
+    phase_axes's in-process outputs `outs` ('frame', 'stage') and this
+    process's runs of C5's resident stream (the stacks of the first feed)
+    on the AXES_STREAMS virtual meshes ('stream:2x2', 'stream:2x4'); and
+    the workers' input files under tmp (the C3 batch, the C5 feed)."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    from ofdm_uhd_tpu_torch.shard import make_mesh
+    chunk, k = C5_RESIDENT
+    outs = dict(outs)
+    for f, t in AXES_STREAMS:
+        rx = StreamRx(config("c5").with_(kernel_backend="auto"),
+                      mesh=make_mesh(f, t, [device] * (f * t)),
+                      chunk_len=chunk, steps_per_dispatch=k,
+                      pallas_halo=True, reshard=True)
+        outs[f"stream:{f}x{t}"] = rx.process_device(stacks[0])
+    files = (os.path.join(tmp, "batch.npy"), os.path.join(tmp, "feed.npy"))
+    np.save(files[0], batch.cpu().numpy())
+    np.save(files[1], torch.cat([s.reshape(-1) for s in stacks[0]])
+            .cpu().numpy())
+    return outs, files
+
+
+def wanted(outs, steps) -> dict:
+    """Each step's in-process result, by the step's name: the stream's by
+    its mesh ('stream:2x2'), the frame and stage axes' by the axis."""
+    return {s: outs[s] if s in outs else outs[s.split(":")[0]]
+            for s in steps}
+
+
+def log_launches(label, workers) -> None:
+    for r, (_, rep) in enumerate(workers):
+        log(f"{label} rank {r} launches: " + "; ".join(
+            f"{s} {nonzero(v['launches'])}"
+            for s, v in rep["steps"].items()))
+
+
+def run_axes_nccl(torch, batch, outs, files, tmp) -> tuple[dict, dict]:
+    """With two cards or more, NCCL, one process a card: the frame axis
+    (2, 1) and the stage axis on 2 cards, the frame batch and the stream
+    on (2, 2) on 4 (the stream: one process a frame row's entry, two
+    processes a row), each checked against the in-process runs `outs` as
+    the gloo workers are, and timed in ROUNDS_DIST interleaved rounds
+    against one process over the same cards and one process on one
+    card. Where they run, K3 and K4 are first held at the frame part
+    those ranks decode (half the batch; a stage microbatch and the
+    stream's row are the gloo workers' shapes). -> ({cards: reports,
+    rounds and the card's name and power limit}, the holds)."""
+    from ofdm_uhd_tpu_torch.core.spec import config
+    res, kernels = {}, {}
+    for n, steps in ((2, ("frame:2x1", "stage")),
+                     (4, ("frame:2x2", "stream:2x2"))):
+        if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+            log(f"axes_distributed nccl on {n} cards: not run (this "
+                f"machine has {torch.cuda.device_count()} cards)")
+            continue
+        if not kernels:
+            kernels = {f"{k}_nccl": v for k, v in hold_axes(
+                torch, config("c3"), batch[:AXES_FRAMES // 2],
+                "axes_distributed nccl").items()}
+        cards = [torch.device("cuda", i) for i in range(n)]
+        workers = run_axes_workers(f"axes_nccl{n}", cards, "nccl",
+                                   ",".join(steps), files, tmp, ROUNDS_DIST)
+        check_axes(f"axes_distributed nccl {n} cards", workers,
+                   wanted(outs, steps), True)
+        rounds = workers[0][1]["rounds_ms"]
+        res[n] = {"reports": [rep for _, rep in workers],
+                  "rounds_ms": rounds, "card": card_line()}
+        log(f"axes_distributed nccl on {n} cards ({res[n]['card']}): ok  "
+            "every rank equal to the in-process runs; ms a run in "
+            f"{ROUNDS_DIST} interleaved rounds: " + ", ".join(
+                f"{key} {statistics.median(v):.3f} "
+                f"({' / '.join(f'{x:.3f}' for x in v)})"
+                for key, v in rounds.items()))
+        log_launches(f"axes_distributed nccl {n} cards", workers)
+    return res, kernels
+
+
+def run_axes_distributed(torch, device, batch, outs, stacks) -> dict:
+    """The frame and stage axes, and the stream on 2-D meshes, across
+    processes. First their kernels held at one worker's shapes
+    (hold_axes; hold_distributed on a frame row of 2 shards, one a
+    worker, and of 4, two a worker with K10 between them). Then
+    AXES_WORLD worker processes sharing `device` under gloo (NCCL takes
+    one process a card), one spawn for every step: phase_axes's C3
+    `batch` over a (4, 1) frame axis and over the stage axis (ranks 0
+    and 1; ranks 2 and 3 own no entry), each equal to phase_axes's
+    in-process run (`outs`); C5's resident point (the stacks of the first
+    feed) over each of AXES_STREAMS (two frame rows, each a replica over
+    two processes), equal to this process's run on the same virtual
+    mesh; their launches per rank. Then, with two cards or more,
+    run_axes_nccl. The path's launches sum every rank of every run."""
+    import tempfile
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.kernels import policy
+    c5 = config("c5").with_(kernel_backend="auto")
+    kernels = hold_axes(torch, config("c3"),
+                        batch[:AXES_FRAMES // AXES_WORLD], "axes_distributed")
+    stages = {}
+    for f, t in AXES_STREAMS:
+        per = f * t // AXES_WORLD
+        held = hold_distributed(
+            torch, c5, device, stacks[0][0][0], shards=t, per=per,
+            label=f"axes_distributed stream {f}x{t}")
+        kernels.update({f"{k}_stream{f}x{t}": v
+                        for k, v in held["kernels"].items()})
+        stages[f"{f}x{t}"] = held["stages_ms"]
+    res = {"kernels": kernels, "stream_stages_ms": stages}
+    with tempfile.TemporaryDirectory() as tmp:
+        outs, files = axes_inputs(torch, device, batch, outs, stacks, tmp)
+        want = wanted(outs, ("frame:4x1", "stage") + tuple(
+            f"stream:{f}x{t}" for f, t in AXES_STREAMS))
+        t0 = time.perf_counter()
+        workers = run_axes_workers("axes_gloo", [device] * AXES_WORLD,
+                                   "gloo", ",".join(want), files, tmp, 0)
+        check_axes("axes_distributed gloo", workers, want,
+                   device.type == "cuda")
+        res["gloo"] = [rep for _, rep in workers]
+        log(f"axes_distributed gloo: ok  {AXES_WORLD} processes on {device}: "
+            f"{AXES_FRAMES} C3 frames over the frame axis (4, 1) and the "
+            f"stage axis (2 stages, {AXES_MICRO} microbatches; ranks 2, 3 "
+            "own no entry), every rank's result equal to the in-process "
+            "run's (payloads, crc_ok, every key's dtype and shape, "
+            "n_ok_global; EVM within 0.01 dB); C5's resident stream over "
+            + " and ".join(f"({f}, {t})" for f, t in AXES_STREAMS)
+            + f": {len(outs['stream:2x2'])} slots equal to the in-process "
+            "run's on the same mesh on every rank, the state one replica; "
+            f"{time.perf_counter() - t0:.1f} s with start-up; first runs "
+            + "; ".join(f"rank {r} " + ", ".join(
+                f"{s} {v['first_run_s']:.2f} s"
+                for s, v in rep["steps"].items())
+                for r, (_, rep) in enumerate(workers)))
+        log_launches("axes_distributed gloo", workers)
+        res["nccl"], held = run_axes_nccl(torch, batch, outs, files, tmp)
+        kernels.update(held)
+    reports = res["gloo"] + [rep for row in res["nccl"].values()
+                             for rep in row["reports"]]
+    res["launches"] = {name: sum(v["launches"][name] for rep in reports
+                                 for v in rep["steps"].values())
+                       for name in policy.KERNELS}
+    return res
 
 
 def big_path(spec) -> tuple:
@@ -3523,7 +3989,7 @@ def main() -> int:
     for name in ("rank", "world", "port", "chunk", "k", "shards",
                  "rounds"):
         ap.add_argument(f"--{name}", type=int, help="(--worker)")
-    for name in ("device", "backend", "feed"):
+    for name in ("device", "backend", "feed", "batch", "steps"):
         ap.add_argument(f"--{name}", help="(--worker)")
     args = ap.parse_args()
     try:
@@ -3534,7 +4000,7 @@ def main() -> int:
               "repository's root", file=sys.stderr)
         return 2
     if args.worker:
-        return dist_worker(args)
+        return axes_worker(args) if args.steps else dist_worker(args)
     try:
         dev_info = phase_device(torch)
         device = torch.device("cuda", 0)
@@ -3545,7 +4011,8 @@ def main() -> int:
         bench = run_bench(torch, device)
         c4 = run_c4(torch, config, device)
         c4_bf16 = run_c4_bf16(torch, config, device, c4)
-        c5, c5_sharded, distributed = run_c5(torch, config, device)
+        c5, c5_sharded, distributed, axes_distributed = run_c5(
+            torch, config, device)
         c3_pallas = run_c3_pallas(torch, config, device)
         k4w_ab = run_k4w_ab(torch, c3_pallas.pop("llr"))
         c2_pallas = run_c2_pallas(torch, config, device)
@@ -3560,7 +4027,9 @@ def main() -> int:
     # files and bench last: their checks join each kernel's `paths`, and
     # the first path's check stays the one kernel_entry names
     paths = {"c3": c3, "c4": c4, "c5": c5, "c5_sharded": c5_sharded,
-             "distributed": distributed, "c3_pallas": c3_pallas, "c2_pallas": c2_pallas,
+             "distributed": distributed,
+             "axes_distributed": axes_distributed, "c3_pallas": c3_pallas,
+             "c2_pallas": c2_pallas,
              "c4_bf16": c4_bf16, "shift": shift, "tiers": tiers,
              "big_nsc": big_nsc, "k4w_ab": k4w_ab, "files": files,
              "bench": bench}

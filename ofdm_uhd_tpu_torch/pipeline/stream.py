@@ -49,7 +49,8 @@ class StreamFrame:
 
 class StreamRx:
     """Streaming OFDM receiver over the time axis of a ('frame', 'time')
-    mesh (shard/mesh.py make_mesh; row 0 of its frame axis), or, with
+    mesh (shard/mesh.py make_mesh; row 0 of its frame axis, or across
+    processes the row each process runs, each row a replica), or, with
     mesh=None, one shard on `device` (default the first CUDA card; without
     one, torch raises: pass device='cpu' to run the plain versions on the
     CPU). The reference's mesh=None is every device; the two agree on a

@@ -4,7 +4,7 @@ time-sharded stream step with its halo exchange, summed tracker and slot
 reshard (time_parallel.py), and the 2-stage pipelined RX
 (stage_pipeline.py). One process drives every device of a mesh, or, on
 a mesh that spans processes (mesh.init_distributed), its own devices,
-the stream step moving what crosses processes with torch.distributed
+each of them moving what crosses processes with torch.distributed
 (collectives.py)."""
 
 from .mesh import make_mesh

@@ -14,11 +14,13 @@ Across processes (`init_distributed`, the reference's
 jax.distributed.initialize): each process names its own entries, and
 `make_mesh` joins them in rank order into one mesh whose `ranks` array
 gives each entry's owning process. A process drives only its own
-entries; the stream step (time_parallel.py) moves what crosses processes
-with torch.distributed (shard/collectives.py): NCCL between cards, one
-process a card, and gloo on the CPU (or, asked for by name, on CUDA
-tensors staged through host memory, which lets two processes share one
-card).
+entries (`owned`); the stream step (time_parallel.py) runs over the
+processes of one frame row (`row_ranks`, `row_group`), the frame axis
+and the stage pipeline over every process, and each moves what crosses
+processes with torch.distributed (shard/collectives.py): NCCL between
+cards, one process a card, and gloo on the CPU (or, asked for by name,
+on CUDA tensors staged through host memory, which lets processes share
+one card).
 """
 
 from __future__ import annotations
@@ -42,6 +44,9 @@ class Mesh:
     devices: np.ndarray
     axis_names: tuple[str, ...]
     ranks: np.ndarray | None = None
+    # the frame rows' process groups, made by row_group on first use
+    _row_groups: dict = dataclasses.field(default_factory=dict,
+                                          init=False, repr=False)
 
     @property
     def shape(self) -> collections.OrderedDict:
@@ -54,18 +59,55 @@ class Mesh:
         """Built under a process group: its entries belong to processes."""
         return self.ranks is not None
 
+    def owned(self) -> np.ndarray:
+        """Which entries this process drives (bool, the mesh's shape):
+        every one on a single controller."""
+        if self.ranks is None:
+            return np.ones(self.devices.shape, bool)
+        return self.ranks == dist.get_rank()
+
     @property
     def first_device(self) -> torch.device:
         """The device that holds a sharded computation's inputs, carried
         state and gathered outputs: the mesh's first entry, or across
-        processes this process's first entry."""
-        if self.ranks is None:
-            return self.devices.flat[0]
-        mine = self.ranks.reshape(-1) == dist.get_rank()
+        processes this process's first entry (where it owns none, its own
+        device, init_distributed's)."""
+        mine = self.owned().reshape(-1)
         if not mine.any():
-            raise ValueError(f"process {dist.get_rank()} owns no entry of "
-                             "the mesh")
+            return local_device()
         return self.devices.reshape(-1)[np.argmax(mine)]
+
+    def by_row(self, a: np.ndarray) -> np.ndarray:
+        """a (the mesh's shape) as [frame rows, entries a row]."""
+        return a.reshape(self.shape["frame"], -1)
+
+    def own_rows(self) -> list[int]:
+        """The frame rows that hold an entry of this process."""
+        return [int(f) for f in np.nonzero(
+            self.by_row(self.owned()).any(1))[0]]
+
+    def row_ranks(self, row: int) -> list[int]:
+        """The processes that own entries of frame row `row`, in rank
+        order ([0] on a single controller)."""
+        if self.ranks is None:
+            return [0]
+        return sorted({int(r) for r in self.by_row(self.ranks)[row]})
+
+    def row_group(self, row: int):
+        """The process group of frame row `row`'s processes: None for a
+        row of one process, which needs none; the default group where they
+        are all the processes. The first call makes every row's group of
+        two processes or more on this process, row by row: new_group is
+        collective over the default group, so every process makes them
+        all, in one order, even those it is not in."""
+        if not self._row_groups:
+            world = list(range(dist.get_world_size()))
+            for f in range(self.shape["frame"]):
+                ranks = self.row_ranks(f)
+                self._row_groups[f] = (
+                    None if len(ranks) == 1 else dist.group.WORLD
+                    if ranks == world else dist.new_group(ranks))
+        return self._row_groups[row]
 
 
 _LOCAL: list = []          # this process's default device, once joined
@@ -270,13 +312,3 @@ def make_stage_mesh(n_stage: int = 2, devices=None) -> Mesh:
         raise ValueError(f"need {n_stage} devices, have {len(devs)}")
     return Mesh(_grid(devs[:n_stage], (n_stage,)), ("stage",),
                 None if ranks is None else np.array(ranks[:n_stage]))
-
-
-def single_controller(mesh: Mesh, what: str) -> None:
-    """Raise for a mesh that spans processes, where `what` runs on a
-    single controller only."""
-    if mesh.distributed:
-        raise NotImplementedError(
-            f"{what} over a mesh that spans processes is not ported yet "
-            "(ROADMAP Queue 1 item 6); one process drives every device of "
-            "its mesh")

@@ -36,6 +36,11 @@ estimate phase-aligned), and the TRACK retry re-demodulates failed slots
 with it.
 
 Across processes (a mesh made under init_distributed: shard/mesh.py).
+Each frame row of the mesh is a replica of the stream, as the reference
+replicates it over 'frame': a process runs the time shards of the first
+row that holds an entry of its own, and the collectives below run over
+that row's processes (their group, mesh.py row_group; a row of one
+process runs as a single controller does).
 Every process holds the whole host chunk, as the reference's feed does,
 and builds the window (sc16 conversion, decimation, AGC) on its first
 device with the code above, so the window is bit-identical in every
@@ -109,15 +114,39 @@ def _groups(devices, ranks=None) -> list[_Group]:
     return groups
 
 
-def _own_groups(groups: list[_Group]) -> list[_Group]:
-    """This process's groups of a time axis that spans processes, each of
-    which must own as many shards (neighbours, in rank order)."""
-    per = [sum(g.n for g in groups if g.rank == r)
-           for r in range(dist.get_world_size())]
-    if len(set(per)) != 1:
-        raise ValueError("every process must own as many shards of the "
-                         f"stream's time axis; got {per} by rank")
-    return [g for g in groups if g.rank == dist.get_rank()]
+def _stream_row(mesh: Mesh, t: int) -> int:
+    """The frame row this process runs the stream on, a mesh that spans
+    processes being checked whole, alike on every process (so that every
+    one raises, or none, before any of them makes a group): each process
+    runs the first row holding an entry of its own (the reference
+    replicates the stream over the frame axis, each row a replica); the
+    processes that run a row own all of its entries, as many each, and
+    every process runs a row. Else ValueError, naming the layout."""
+    ranks = mesh.ranks.reshape(-1, t)
+    layout = f"(ranks by entry {ranks.tolist()})"
+    first: dict[int, int] = {}
+    for f, row in enumerate(ranks):
+        for r in row:
+            first.setdefault(int(r), f)
+    for f in sorted(set(first.values())):
+        row = [int(r) for r in ranks[f]]
+        runners = sorted(r for r in first if first[r] == f)
+        if sorted(set(row)) != runners:
+            raise ValueError(
+                f"frame row {f} of the stream's mesh {layout} holds entries "
+                "of a process that runs an earlier row")
+        per = [row.count(r) for r in runners]
+        if len(set(per)) != 1:
+            raise ValueError(
+                "every process of a frame row must own as many shards of "
+                f"the stream's time axis; row {f} of the mesh {layout} "
+                f"gives {per} to processes {runners}")
+        _groups(list(mesh.devices.reshape(-1, t)[f]), row)
+    idle = sorted(set(range(dist.get_world_size())) - set(first))
+    if idle:
+        raise ValueError(f"processes {idle} own no entry of the stream's "
+                         f"mesh {layout}")
+    return first[dist.get_rank()]
 
 
 @dataclasses.dataclass
@@ -135,8 +164,9 @@ class _FirstPass:
 
 class StreamStep:
     """The stream step of one spec at one chunk length over the 'time'
-    axis of `mesh` (row 0 of its 'frame' axis: the reference replicates
-    the stream over that axis): C = chunk_len baseband samples a step,
+    axis of `mesh` (row 0 of its 'frame' axis, or across processes the
+    row this process runs: the reference replicates the stream over that
+    axis): C = chunk_len baseband samples a step,
     radio chunks of C * L / M samples; threshold: a float, or (threshold,
     mode) as make_stream_step takes it."""
 
@@ -146,13 +176,18 @@ class StreamStep:
                  agc: bool, input_format: str):
         self.spec = spec
         self.t = mesh.shape["time"]
+        row = _stream_row(mesh, self.t) if mesh.distributed else 0
         self.groups = _groups(
-            list(mesh.devices.reshape(-1, self.t)[0]),
-            None if mesh.ranks is None else mesh.ranks.reshape(-1, self.t)[0])
+            list(mesh.devices.reshape(-1, self.t)[row]),
+            None if mesh.ranks is None
+            else mesh.ranks.reshape(-1, self.t)[row])
         self.comm = None
         if mesh.distributed:
-            self.groups = _own_groups(self.groups)
-            self.comm = ProcessComm(self.groups[0].device)
+            group = mesh.row_group(row)
+            self.groups = [g for g in self.groups
+                           if g.rank == dist.get_rank()]
+            if group is not None:
+                self.comm = ProcessComm(self.groups[0].device, group)
         self.device = self.groups[0].device
         # this process's shards [lo, hi) (all of them on a single controller)
         self.lo, self.hi = self.groups[0].lo, self.groups[-1].hi

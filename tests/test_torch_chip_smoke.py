@@ -827,6 +827,86 @@ def test_distributed_phase_rehearsal(on_host, monkeypatch):
     assert entry["max_abs_err"] == 0
 
 
+def test_axes_distributed_phase_rehearsal(on_host, monkeypatch):
+    """phase_axes and run_axes_distributed at a tiny size on the CPU:
+    8 C3 frames, the (patched) kernels of the frame and stage axes held at
+    one worker's shapes, the (2, 2) stream's at one worker's (one of a
+    row's 2 shards) and the (2, 4) stream's (two of a row's 4 shards, K10
+    between them), then chip_smoke.py's own workers (--worker --steps,
+    four processes under gloo, --device cpu, the plain versions: no
+    launch), every rank's frame axis, stage axis and both streams equal
+    to the in-process runs; the phase's keys, and its launches and holds
+    under the `axes_distributed` path of the kernels line. C3's plain
+    Viterbi (6912 steps) takes most of a second a call here, so the timed
+    runs are one call each and the in-kernel timings none (their
+    rehearsals are test_hold_k4_rehearsal's and the other phases')."""
+    from ofdm_uhd_tpu_torch.kernels import halo
+    from ofdm_uhd_tpu_torch.bench_lib import build_capture
+    from ofdm_uhd_tpu_torch.core.spec import config
+    from ofdm_uhd_tpu_torch.core.state import StreamState
+    from ofdm_uhd_tpu_torch.shard import make_mesh
+    spec = config("c5").with_(kernel_backend="auto")
+    cpu = torch.device("cpu")
+    chunk = 4 * 2 * StreamState.halo_len(spec)
+    monkeypatch.setattr(chip_smoke, "C5_RESIDENT", (chunk, 2))
+    monkeypatch.setattr(chip_smoke, "AXES_FRAMES", 8)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cap, _ = build_capture(spec, 4, chip_smoke.GAP, seed=0, snr_db=28.0,
+                           cfo=0.8, phase_noise_std=0.0,
+                           timing_offset=chip_smoke.C5_OFFSET, device=cpu)
+    stacks = chip_smoke.resident_stacks(torch, cap, cpu)
+    _patch_rx_path(monkeypatch)
+    monkeypatch.setattr(halo.HaloExchange, "__call__", lambda self: (
+        policy.count_launch("halo"),
+        halo.halo_plain(self.ext, self.cb, self.h)))
+    monkeypatch.setattr(chip_smoke, "cuda_ms",
+                        lambda torch, fn, reps=1: (fn(), 0.0)[1])
+    monkeypatch.setattr(chip_smoke, "device_ms",
+                        lambda torch, fn, reps=20: None)
+    axes, batch, outs = chip_smoke.phase_axes(torch, cpu)
+    assert set(axes) == {"frames", "rx_aligned_ms", "frame", "stage"}
+    assert set(outs) == {"frame", "stage"} and batch.shape[0] == 8
+    res = chip_smoke.run_axes_distributed(torch, cpu, batch, outs, stacks)
+    assert set(res) == {"kernels", "stream_stages_ms", "gloo", "launches",
+                        "nccl"}
+    assert res["nccl"] == {}
+    held = res["kernels"]
+    stream = {"scfront", "localize", "extract", "fft", "fft_inverse"}
+    want = {"fft", "fft_inverse", "viterbi"}
+    for mesh in ("2x2", "2x4"):
+        step = chip_smoke.first_sharded_window(
+            torch, spec, make_mesh(1, int(mesh[-1]),
+                                   ["cpu"] * int(mesh[-1])),
+            stacks[0][0][0])[0]
+        f2 = -(-step.mf // step.t) * step.t     # one worker's decode batch
+        w = chip_smoke.window_geometry(spec, f2)[0]
+        want |= {f"{k}_stream{mesh}" for k in stream | {
+            f"viterbi_windowed_{w}", f"viterbi_windowed_warp_{w}"}}
+    want.add("halo_stream2x4")                 # two shards a worker
+    assert set(held) == want
+    assert all(v["max_abs_err"] <= 1e-5 for v in held.values())
+    assert held["viterbi"]["shape"][0] == 2    # 8 frames over 4 workers
+    assert held["halo_stream2x4"]["shape"][0] == 2
+    assert [r["rank"] for r in res["gloo"]] == [0, 1, 2, 3]
+    for rep in res["gloo"]:
+        assert set(rep["steps"]) == {"frame:4x1", "stage", "stream:2x2",
+                                     "stream:2x4"}
+        assert rep["steps"]["frame:4x1"]["n_ok_global"] == 8
+        assert all(v["max_evm_diff_db"] <= 0.01
+                   for v in rep["steps"].values())
+    assert not any(res["launches"].values())   # plain versions on the CPU
+    by_path = chip_smoke.path_launches({"axes_distributed": res})
+    assert by_path["axes_distributed"] == res["launches"]
+    entry = chip_smoke.kernel_entry("fft", {"axes_distributed": res},
+                                    by_path)
+    assert set(entry["paths"]) == {
+        "axes_distributed", "axes_distributed_inverse",
+        *(f"axes_distributed{inv}_stream{m}" for inv in ("", "_inverse")
+          for m in ("2x2", "2x4"))}
+    assert chip_smoke.axes_path("stream:2x4", 4)[-1] == "halo"
+    assert "halo" not in chip_smoke.axes_path("stream:2x2", 4)
+
+
 def _trace_file(tmp_path, events):
     (tmp_path / "t.pt.trace.json").write_text(json.dumps(
         {"traceEvents": events}))

@@ -9,7 +9,11 @@ Cases, every one read from one module-scoped spawn: C1 with 5 frames
 tests/test_torch_shard.py (16 frames, a burst over one frame's data
 symbols so the TRACK retry runs) plain, with the slot reshard, with the
 halo kernel's dispatch, fed as sc16, in K = 2 dispatches, and saved on
-rank 0 after one chunk and resumed by a fresh pair of processes. Each
+rank 0 after one chunk and resumed by a fresh pair of processes; and
+the frame axis over (8, 1), the stage axis with a stage a process, and
+the stream on a (2, 4) mesh whose frame rows are one process each (C1's
+8 aligned frames, the C5 feed), each equal to the one-process run's on
+the same virtual mesh, key for key. Each
 case holds both ranks' frames against the port's one-process run on
 `make_mesh(1, 8, ["cpu"] * 8)` exactly (starts, crc_ok, payloads, eps,
 EVM: the rows are gathered and summed as the one-process run sums them)
@@ -130,23 +134,49 @@ def _save(path, frames, rx):
 def _raises(fn) -> str:
     try:
         fn()
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         return type(e).__name__
     return "none"
 
 
-def worker(args):
-    """One rank: every case on the (1, 8) mesh, then the raising paths
-    (phase 'run'); or the checkpoint case's second half (phase
-    'resume')."""
-    torch.set_num_threads(1)
-    import torch.distributed as dist
+def run_axes(meshes, root):
+    """C1's aligned frames through rx_frames_sharded on meshes['frame']
+    and rx_aligned_pipelined (2 microbatches) on meshes['stage'], and the
+    C5 case's stream on meshes['rows'] ((2, 4): one frame row a process
+    across two) -> {name: result dict, or (frames, receiver)}."""
     from ofdm_uhd_tpu_torch.core.spec import config
     from ofdm_uhd_tpu_torch.pipeline import StreamRx
-    from ofdm_uhd_tpu_torch.shard import make_mesh, rx_frames_sharded
+    from ofdm_uhd_tpu_torch.shard import rx_frames_sharded
+    from ofdm_uhd_tpu_torch.shard.stage_pipeline import rx_aligned_pipelined
+    c1 = config("c1")
+    frames = torch.from_numpy(np.load(os.path.join(root, "c1_frames.npy")))
+    spec, feed, kw, _ = _case("c5", root)
+    rx = StreamRx(spec, mesh=meshes["rows"], **kw)
+    return {"frame_parallel": rx_frames_sharded(c1, meshes["frame"])(frames),
+            "stage_pipeline": rx_aligned_pipelined(c1, meshes["stage"], 2)(
+                frames),
+            "stream_rows": (_feed(rx, feed), rx)}
+
+
+def _save_axes(root, tag, runs):
+    for name, res in runs.items():
+        if isinstance(res, dict):
+            np.savez(os.path.join(root, f"{name}_{tag}.npz"),
+                     **{k: v.numpy() for k, v in res.items()})
+        else:
+            _save(os.path.join(root, f"{name}_{tag}.npz"), *res)
+
+
+def worker(args):
+    """One rank: every case on the (1, 8) mesh, then the frame and stage
+    axes and the stream on a (2, 4) mesh, and the raising path (phase
+    'run'); or the checkpoint case's second half (phase 'resume')."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from ofdm_uhd_tpu_torch.pipeline import StreamRx
+    from ofdm_uhd_tpu_torch.shard import make_mesh
     from ofdm_uhd_tpu_torch.shard.mesh import (init_distributed,
                                                make_stage_mesh)
-    from ofdm_uhd_tpu_torch.shard.stage_pipeline import rx_aligned_pipelined
     init_distributed(f"127.0.0.1:{args.port}", WORLD, args.rank,
                      device="cpu")
     mesh = make_mesh(1, T, ["cpu"] * PER_PROCESS)
@@ -167,19 +197,16 @@ def worker(args):
         else:
             frames, rx = run_case(name, mesh, args.root, None)
             _save(out.format(name), frames, rx)
-    c1 = config("c1")
+    rows = make_mesh(2, 4, ["cpu"] * 4)
+    _save_axes(args.root, f"r{args.rank}", run_axes(
+        {"frame": make_mesh(T, 1, ["cpu"] * PER_PROCESS),
+         "stage": make_stage_mesh(2, ["cpu"]), "rows": rows}, args.root))
     checks = {
         "mesh_ranks": mesh.ranks.tolist(),
         "first_device": str(mesh.first_device),
         "unequal_counts": _raises(
             lambda: make_mesh(1, 9, ["cpu"] * (4 + args.rank))),
-        "stream_rows_unequal": _raises(lambda: StreamRx(
-            config("c5"), mesh=make_mesh(2, 4, ["cpu"] * 4),
-            chunk_len=4 * 8576)),
-        "frame_parallel": _raises(lambda: rx_frames_sharded(
-            c1, make_mesh(T, 1, ["cpu"] * PER_PROCESS))),
-        "stage_pipeline": _raises(lambda: rx_aligned_pipelined(
-            c1, make_stage_mesh(2, ["cpu"]), 2)),
+        "rows_ranks": rows.ranks.tolist(),
     }
     with open(os.path.join(args.root, f"checks_r{args.rank}.json"),
               "w") as f:
@@ -254,7 +281,7 @@ def _wait(procs, what):
 def _write_inputs(root):
     """C1: multihost_worker.py's 5 frames; C5: tests/test_torch_shard.py's
     16-frame stream with its burst, and its sc16 planes."""
-    from ofdm_uhd_tpu_torch.channel import make_capture
+    from ofdm_uhd_tpu_torch.channel import apply_channel, make_capture
     from ofdm_uhd_tpu_torch.core.spec import ChannelSpec, config
     from ofdm_uhd_tpu_torch.golden import GoldenModem
     spec = config("c1")
@@ -267,6 +294,13 @@ def _write_inputs(root):
                        spec.n_sc, gap=150, seed=5).astype(np.complex64)
     np.save(os.path.join(root, "c1.npy"), cap)
     np.save(os.path.join(root, "c1_pays.npy"), pays)
+    # 8 aligned frames for the frame and stage axes
+    pays8 = rng.integers(0, 2, (8, spec.payload_bits_per_frame)).astype(
+        np.uint8)
+    np.save(os.path.join(root, "c1_frames.npy"), np.stack([
+        apply_channel(gm.modulate_frame(p), ChannelSpec(snr_db=25.0),
+                      spec.n_sc, seed=i)
+        for i, p in enumerate(pays8)]).astype(np.complex64))
     spec = config("c5")
     gm = GoldenModem(spec)
     r = _rng("stream1")
@@ -316,6 +350,7 @@ def runs(tmp_path_factory):
     while this process runs the one-process cases and the reference; then
     the checkpoint's fresh pair."""
     from ofdm_uhd_tpu_torch.shard import make_mesh
+    from ofdm_uhd_tpu_torch.shard.mesh import make_stage_mesh
     torch.set_num_threads(2)
     root = str(tmp_path_factory.mktemp("dist"))
     _write_inputs(root)
@@ -330,6 +365,10 @@ def runs(tmp_path_factory):
             path = os.path.join(root, f"one_{name}.npz")
             _save(path, frames, rx if name != "checkpoint" else None)
             one[name] = _load(path)
+        _save_axes(root, "one", run_axes(
+            {"frame": make_mesh(T, 1, ["cpu"] * T),
+             "stage": make_stage_mesh(2, ["cpu"] * 2),
+             "rows": make_mesh(2, 4, ["cpu"] * 8)}, root))
         ref = {name: _reference(name, root) for name in CASES
                if name not in REFERENCE_RUN}
         worker_out = _wait(workers, "workers")
@@ -350,8 +389,12 @@ def runs(tmp_path_factory):
         two["checkpoint"][r] = joined
     checks = [json.load(open(os.path.join(root, f"checks_r{r}.json")))
               for r in range(WORLD)]
+    axes = {name: {tag: _load(os.path.join(root, f"{name}_{tag}.npz"))
+                   for tag in ("one", "r0", "r1")}
+            for name in ("frame_parallel", "stage_pipeline", "stream_rows")}
     return {"root": root, "one": one, "two": two, "ref": ref,
-            "checks": checks, "workers": worker_out, "pods": pod_out}
+            "checks": checks, "axes": axes, "workers": worker_out,
+            "pods": pod_out}
 
 
 def _same(got, want, exact):
@@ -423,13 +466,27 @@ def test_pod_rx_two_processes_write_the_one_process_bits(runs):
 
 
 def test_process_mesh_and_raising_paths(runs):
+    """The process mesh, unequal entry counts raising, and the frame axis,
+    the stage axis and the (2, 4) stream, which now run across the two
+    processes: each rank's result equal to the one-process run's on the
+    same virtual mesh, every key bit for bit, the stream's state too."""
     for r, c in enumerate(runs["checks"]):
         assert c["mesh_ranks"] == [[0] * PER_PROCESS + [1] * PER_PROCESS]
         assert c["first_device"] == "cpu"
         assert c["unequal_counts"] == "ValueError"
-        assert c["stream_rows_unequal"] == "ValueError"
-        assert c["frame_parallel"] == "NotImplementedError"
-        assert c["stage_pipeline"] == "NotImplementedError"
+        assert c["rows_ranks"] == [[0] * 4, [1] * 4]
+    for name, got in runs["axes"].items():
+        one = got["one"]
+        # the C5 feed's burst frame fails its CRC, as in the (1, 8) cases
+        assert list(one["crc_ok"]) == ([i != BURST for i in range(N_C5)]
+                                       if name == "stream_rows"
+                                       else [True] * 8)
+        for r in (0, 1):
+            assert set(got[f"r{r}"]) == set(one), name
+            for k in one:
+                assert got[f"r{r}"][k].dtype == one[k].dtype
+                assert torch.equal(torch.from_numpy(got[f"r{r}"][k]),
+                                   torch.from_numpy(one[k])), (name, k)
 
 
 def test_nccl_takes_one_rank_a_card():
