@@ -40,6 +40,20 @@ findings on a line of its own:
       share read from them); the path's kernels held against their
       plain versions at C1's and C2's capture shapes (the C3 and C5
       shapes are held in their own phases);
+  harness, the bench/ harnesses as tools of the port (ofdm_uhd_tpu_torch/
+      harness/): `python -m ...harness.stages` at C3's headline shape
+      (8 x 1024, 'auto'), its record's keys and frame counts checked,
+      and `harness.roofline --stages-jsonl` on it, as subprocesses; then
+      in this process under the launch counters stages under 'pallas' at
+      C2 (4 x 128 frames), sweeps (C2, 10 and 14
+      dB, flat and multipath), detect_sweep (C3, 5 and 15 dB, 2 trials),
+      evm_budget (C2, 32 frames), pod (C5 over the cards present, up to
+      two) and pp_ab (its entries sharing the card), each launching its
+      path's kernels and no other; the sweeps', detect's and EVM's records
+      equal to those of the same runs on the CPU (`--device cpu`
+      subprocesses started first): counts and FER exactly, pre-FEC
+      decisions within PRE_FEC_TOL_BITS, EVM within 0.01 dB; pod and
+      pp_ab decoding every frame;
   C4, the resampled chain: `TxPipeline(config("c4"))` builds 8 captures x
       32 frames on the card (the reference's C4 row: gap 300, timing offset
       100, SNR 28 dB, CFO 0.8 / 8 at the radio rate, no phase noise, fc32)
@@ -261,6 +275,23 @@ FILES_PATH = ("scfront", "localize", "extract", "fft", "viterbi_windowed")
 # up to 1.1e-3 from its golden chain on C3 captures), 25x tighter than the
 # 0.05 to which the reference's tests hold either to the true CFO
 GOLDEN_EPS_TOL = 2e-3
+# the harness phase: stages at C3's headline shape (N_CAPS x C3_FRAMES),
+# the sweeps at C2 (10 dB: some frames fail; 14 dB: none), detect_sweep
+# at C3 (5 dB: CFAR and the TRACK rescue; 15 dB: frames decode)
+HARNESS_STAGES_CONFIG = "c3"
+STAGES_KEYS = {"ts", "config", "backend", "device", "n_samples", "batch",
+               "frames", "cfo", "mf", "frame_len", "stages_ms", "steps_ms",
+               "frames_ok"}
+HARNESS_SNRS, HARNESS_SWEEP_FRAMES = "10,14", 30
+HARNESS_DETECT_SNRS, HARNESS_TRIALS = "5,15", 2
+HARNESS_EVM_FRAMES, HARNESS_POD_FRAMES, HARNESS_PP_BATCH = 32, 24, 64
+# the card's hard decisions against the CPU's: the FFT kernel and
+# torch.fft's CPU transform round differently (~1e-7 of |y|), so a QAM
+# decision that lies within that of a boundary can go either way; at
+# C2's SNR points a few such decisions in 30 frames' 69,120 bits are
+# possible, not expected
+PRE_FEC_TOL_BITS = 4
+EVM_TOL_DB = 0.01       # PERF.md §2: the port against the reference
 C5_SHARDS = 4                    # the virtual mesh's time axis, on one card
 ROUNDS_SHARDED = 5               # interleaved timing rounds of c5_sharded
 # the distributed phase: C5's resident point over a (1, C5_SHARDS) mesh
@@ -695,102 +726,21 @@ def make_input_c4(torch, spec, device, label="c4"):
     return caps, pays, base, launches
 
 
-def phase_stages(torch, spec, label, x, max_frames, path=C3_PATH,
-                 front=None, algo_batch=None, slots=None
-                 ) -> tuple[dict, dict]:
+def phase_stages(torch, spec, label, x, max_frames, front=None,
+                 algo_batch=None, slots=None) -> tuple[dict, dict]:
     """The steps of pipeline/rx.py:_rx_capture one at a time, on the whole
-    batch: each step's device time (CUDA events, median of 5, so steps do
-    not overlap) and each kernel's inputs as the main path produces them.
-    x: sc16 planes [2, C, n] (C3) or fc32 radio-rate captures [C, n] (C4);
-    path: the kernels the spec routes (it names the S&C step); front:
-    (name, fn) giving the rows [C, n] in place of the conversion,
-    decimation and AGC steps (c5_sharded: the window's AGC and the halo
-    exchange into the shards' rows); algo_batch: the batch the Viterbi
-    algorithm is chosen at (default the decode's: c5_sharded one shard's
-    slots); slots: each row's slots zero-padded from max_frames to this
-    count before the demodulation, as the stream's reshard pads them."""
-    from ofdm_uhd_tpu_torch.kernels import policy, viterbi
-    from ofdm_uhd_tpu_torch.kernels.localize import localize
-    from ofdm_uhd_tpu_torch.phy import agc, bits, frame, sync
-    from ofdm_uhd_tpu_torch.pipeline import rx
-    ms = {}
-    ins = {}
-
-    def step(name, fn):
-        out = fn()
-        ms[name] = cuda_ms(torch, fn)
-        return out
-
-    shift = min(4, spec.cp // 4)
-    if front is not None:
-        cap = step(*front)
-    elif x.dtype == torch.int16:
-        cap = step("sc16+agc", lambda: agc.agc_normalize(
-            rx._sc16_to_complex(x))[0])
-    elif (spec.resample_l, spec.resample_m) == (1, 1):
-        cap = step("agc", lambda: agc.agc_normalize(x)[0])
-    else:
-        dec = step("decim", lambda: rx._capture_to_baseband(spec, x))
-        cap = step("agc", lambda: agc.agc_normalize(dec)[0])
-        pad = (-x.shape[-1]) % spec.resample_l    # as _capture_to_baseband
-        ins["radio"] = torch.cat([x, x.new_zeros(x.shape[0], pad)], -1)
-        ins["dec"] = dec
-    caps, n = cap.shape
-    nd = n - spec.n_sc + 1
-    sc_step = "sccorr+metric" if "sccorr" in path else "scfront"
-    p, m = step(sc_step, lambda: sync.sc_front(spec, cap))
-
-    def candidates():
-        return sync._first_k_indices(sync._rising_edges(m, 0.5),
-                                     min(4 * max_frames + 16, nd), nd)[0]
-    cand = step("candidates", candidates)
-    ds_c, eps_c = step("localize", lambda: localize(m, p, cand, spec.sym_len,
-                                                    spec.cp))
-
-    def select():
-        found = cand < nd
-        valid = found & (ds_c + spec.frame_len <= n)
-        keeps = sync._select(spec, cand, ds_c, valid, found, spec.sym_len)
-        return sync._compact(ds_c, eps_c, keeps, max_frames)
-    ds, eps_f, _ = step("select+compact", select)
-    frames = step("extract", lambda: sync.extract_frames(spec, cap, ds))
-
-    def cfo():
-        f = sync.cfo_correct(frames, eps_f, spec.n_sc)
-        return sync.cfo_correct(f, sync.integer_cfo(spec, f), spec.n_sc)
-    flat = step("cfo", cfo).reshape(caps * max_frames, -1)
-    if slots is not None:
-        flat = torch.nn.functional.pad(
-            flat.view(caps, max_frames, -1),
-            (0, 0, 0, slots - max_frames)).reshape(caps * slots, -1)
-    grid = step("fft", lambda: frame.ofdm_demodulate(spec, flat, shift))
-
-    def eq_cpe():
-        h = frame.estimate_channel(spec, grid)
-        return h, frame.track_phase(spec, frame.equalize(spec, grid, h))[0]
-    h, data = step("chanest+eq+cpe", eq_cpe)
-
-    llr = step("llr+evm", lambda: rx._demap(spec, data, h))[0]
-    llr_d = step("deinterleave", lambda: bits.deinterleave_soft(
-        llr, spec.coded_bits_per_sym).contiguous())
-    # the spec's Viterbi algorithm at this decode batch (C3, C4: scan)
-    algorithm = policy.viterbi_impl(llr_d.shape[-1] // 2,
-                                    algo_batch or llr_d.shape[0],
-                                    spec.kernel_backend, spec.viterbi_mode)
-    dec_bits = step(f"viterbi ({algorithm})", lambda: viterbi.decode(
-        llr_d, algorithm, spec.viterbi_impl))
-
-    def crc():
-        body = bits.descramble(dec_bits[:, : dec_bits.shape[-1] - 6])
-        return bits.crc32_check(body[:, :-32], body[:, -32:])
-    step("descramble+crc", crc)
-    total = sum(ms.values())
+    batch (harness/stages.py chain_steps): each step's device time (CUDA
+    events, median of 5, so steps do not overlap) and each kernel's inputs
+    as the main path produces them. x: sc16 planes [2, C, n] (C3) or fc32
+    radio-rate captures [C, n] (C4); front, algo_batch, slots: as
+    chain_steps takes them (c5_sharded: the window's AGC and the halo
+    exchange into the shards' rows, one shard's slots, the reshard's
+    padding)."""
+    from ofdm_uhd_tpu_torch.harness.stages import chain_steps
+    ins, ms = chain_steps(spec, x, max_frames, lambda fn: cuda_ms(torch, fn),
+                          front=front, algo_batch=algo_batch, slots=slots)
     log(f"{label} stages: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-        + f" ms; sum {total:.1f} ms")
-    ins.update({"m": m, "p": p, "cand": cand, "cap": cap, "ds": ds,
-                "syms": flat.reshape(flat.shape[0], spec.n_syms,
-                                     spec.sym_len),
-                "start": spec.cp - shift, "grid": grid, "llr": llr_d})
+        + f" ms; sum {sum(ms.values()):.1f} ms")
     return ins, ms
 
 
@@ -1583,8 +1533,7 @@ def run_files(torch, config, device) -> dict:
         # decodes with ('windowed' 512/96 at 1032, 'fused' 256/64 at <= 96)
         ins, res["stages_ms"] = phase_stages(
             torch, tool_spec, "files",
-            torch.from_numpy(samples)[None].to(device), FILES_FRAMES + 8,
-            path=FILES_PATH)
+            torch.from_numpy(samples)[None].to(device), FILES_FRAMES + 8)
         res["kernels"] = phase_kernels(torch, tool_spec, "files", ins,
                                        names=FILES_PATH[:-1])
         algorithm = policy.viterbi_impl(0, ins["llr"].shape[0],
@@ -1735,26 +1684,35 @@ def bench_record(label, stdout, frames) -> dict:
     return {"record": rec, "ms_per_dispatch": s * 1e3}
 
 
-def bench_in_process(torch, label, argv, path, frames) -> dict:
-    """One cli.bench run through its main(argv) under the launch counters:
-    every kernel of `path` launched, no other; its record read back."""
+def counted_run(torch, label, main, argv, path) -> tuple[str, dict, float]:
+    """A tool's main(argv) in this process under the launch counters,
+    its standard output kept: every kernel of `path` launched, no other.
+    Returns (its output, the launches, the run's wall seconds)."""
     import contextlib
     import io
-    from ofdm_uhd_tpu_torch.cli import bench
     from ofdm_uhd_tpu_torch.kernels import policy
     torch.cuda.synchronize()
     policy.reset_launches()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        bench.main(argv)
+        main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = policy.launches()
     for k, n in launches.items():
-        check((n > 0) == (k in path), f"bench {label}: the run launched the "
+        check((n > 0) == (k in path), f"{label}: the run launched the "
               f"{k} kernel {n} times")
-    res = {**bench_record(label, out.getvalue(), frames),
+    return out.getvalue(), launches, wall
+
+
+def bench_in_process(torch, label, argv, path, frames) -> dict:
+    """One cli.bench run through its main(argv) under the launch counters:
+    every kernel of `path` launched, no other; its record read back."""
+    from ofdm_uhd_tpu_torch.cli import bench
+    out, launches, wall = counted_run(torch, f"bench {label}", bench.main,
+                                      argv, path)
+    res = {**bench_record(label, out, frames),
            "launches": launches, "run_s": wall}
     log(f"bench {label}: {json.dumps(res['record'])}; "
         f"{res['ms_per_dispatch']:.3f} ms a dispatch; launches "
@@ -1866,6 +1824,199 @@ def run_bench(torch, device) -> dict:
     return res
 
 
+def harness_runs() -> dict:
+    """The harness phase's in-process runs on the card: {label: (the
+    harness's arguments, the kernels the run launches)}, the harness
+    named by the label's first word; stages under 'pallas' at C2 (the
+    boxcar correlator K9, the CP-fused FFT K5 both ways), the detect and
+    evm runs and the sweeps' two channels also run on the CPU."""
+    return {
+        "stages pallas": (("--config", "c2", "--backend", "pallas",
+                           "--frames", "128", "--batch", "4", "--iters",
+                           "2"),
+                          ("sccorr", "localize", "extract", "cpfft",
+                           "ifftcp", "viterbi", "viterbi_windowed")),
+        "sweeps": (("--config", "c2", "--snrs", HARNESS_SNRS, "--frames",
+                    str(HARNESS_SWEEP_FRAMES)), ("fft", "viterbi")),
+        "sweeps multipath": (("--config", "c2", "--snrs", HARNESS_SNRS,
+                              "--frames", str(HARNESS_SWEEP_FRAMES),
+                              "--multipath", "c2"), ("fft", "viterbi")),
+        "detect_sweep": (("--config", "c3", "--snrs", HARNESS_DETECT_SNRS,
+                          "--trials", str(HARNESS_TRIALS)),
+                         ("scfront", "localize", "extract", "fft",
+                          "viterbi_windowed")),
+        "evm_budget": (("--config", "c2", "--frames",
+                        str(HARNESS_EVM_FRAMES)), C3_PATH),
+        "pod": (("--config", "c5", "--frames", str(HARNESS_POD_FRAMES),
+                 "--iters", "2"), C5_PATH),
+        "pp_ab": (("--batch", str(HARNESS_PP_BATCH), "--iters", "2"),
+                  ("fft", "viterbi")),
+    }
+
+
+def harness_tool(name, *args) -> subprocess.Popen:
+    """`python -m ofdm_uhd_tpu_torch.harness.<name> args` from the
+    checkout's root, started."""
+    return subprocess.Popen(
+        [sys.executable, "-m", f"ofdm_uhd_tpu_torch.harness.{name}", *args],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def harness_in_process(torch, label, name, argv, path) -> dict:
+    """One harness run through its main(argv) on the card under the launch
+    counters (counted_run); its --jsonl records read back."""
+    import importlib
+    import tempfile
+
+    from ofdm_uhd_tpu_torch.harness import read_jsonl
+    mod = importlib.import_module(f"ofdm_uhd_tpu_torch.harness.{name}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out.jsonl")
+        _, launches, wall = counted_run(torch, f"harness {label}", mod.main,
+                                        [*argv, "--jsonl", out], path)
+        recs = read_jsonl(out)
+    log(f"harness {label} (card): {len(recs)} records in {wall:.1f} s; "
+        f"launches {nonzero(launches)}")
+    return {"records": recs, "launches": launches, "run_s": wall}
+
+
+def same_records(label, card, cpu) -> dict:
+    """The card's records against the CPU's, key by key: counts, rates
+    and FER exactly; pre-FEC errors within PRE_FEC_TOL_BITS; EVM within
+    EVM_TOL_DB; the analytic columns to 1e-12. Returns the largest
+    differences."""
+    check(len(card) == len(cpu), f"harness {label}: {len(card)} card records"
+          f" against {len(cpu)} on the CPU")
+    from ofdm_uhd_tpu_torch.cli.config import load_spec
+    worst = {"pre_fec_bits": 0, "evm_db": 0.0}
+    for a, b in zip(card, cpu):
+        for k in a:
+            if k == "ts":
+                continue
+            if k == "evm_db":
+                ea = a[k] if isinstance(a[k], dict) else {"": a[k]}
+                eb = b[k] if isinstance(b[k], dict) else {"": b[k]}
+                check(ea.keys() == eb.keys(), f"harness {label}: rows")
+                d = max(abs(ea[r] - eb[r]) for r in ea)
+                worst["evm_db"] = max(worst["evm_db"], d)
+                check(d <= EVM_TOL_DB, f"harness {label}: EVM {ea} on the "
+                      f"card against {eb} on the CPU")
+            elif k == "pre_fec_ber":
+                bits = a["frames"] * load_spec(
+                    a["config"]).coded_bits_per_frame
+                d = round(abs(a[k] - b[k]) * bits)
+                worst["pre_fec_bits"] = max(worst["pre_fec_bits"], d)
+                check(d <= PRE_FEC_TOL_BITS, f"harness {label}: {d} pre-FEC "
+                      f"bit decisions differ at {a['snr_db']} dB")
+            elif k in ("theory_ber", "chain_expected_ber"):
+                check(abs(a[k] - b[k]) <= 1e-12 * abs(b[k]),
+                      f"harness {label}: {k} {a[k]} against {b[k]}")
+            else:
+                check(a[k] == b[k], f"harness {label}: {k} {a[k]} on the "
+                      f"card, {b[k]} on the CPU ({a})")
+    return worst
+
+
+def run_harness(torch, device) -> dict:
+    """The bench/ harnesses as tools of the port (ofdm_uhd_tpu_torch/
+    harness/): the CPU runs of sweeps (flat and multipath), detect_sweep
+    and evm_budget started first as `python -m` subprocesses (--device
+    cpu); stages as a `python -m` subprocess on the card at C3's headline
+    shape, its record's keys and frame counts checked, and roofline
+    --stages-jsonl on that record; then every harness in this process on
+    the card under the launch counters (pod over the cards present, up to
+    two; pp_ab's entries sharing one card where there is one), each
+    counting every frame; the card's sweep, detect and EVM records equal
+    to the CPU's (same_records)."""
+    import tempfile
+
+    from ofdm_uhd_tpu_torch.harness import read_jsonl
+    t_phase = time.perf_counter()
+    runs = harness_runs()
+    dev = str(device)
+    res = {"kernels": {}, "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = {label: (harness_tool(label.split()[0], *argv, "--device",
+                                    "cpu", "--jsonl",
+                                    os.path.join(tmp, f"{i}.jsonl")),
+                       os.path.join(tmp, f"{i}.jsonl"))
+               for i, (label, (argv, _)) in enumerate(runs.items())
+               if label.split()[0] in ("sweeps", "detect_sweep",
+                                        "evm_budget")}
+        try:
+            stages_out = os.path.join(tmp, "stages.jsonl")
+            t0 = time.perf_counter()
+            proc = harness_tool(
+                "stages", "--config", HARNESS_STAGES_CONFIG, "--backend",
+                "auto", "--frames", str(C3_FRAMES), "--batch", str(N_CAPS),
+                "--iters", str(REPS), "--device", dev, "--jsonl", stages_out)
+            _, err = proc.communicate(timeout=900)
+            check(proc.returncode == 0, f"harness stages exited "
+                  f"{proc.returncode}: {err[-2000:]}")
+            (rec,) = read_jsonl(stages_out)
+            log(f"harness stages (python -m, {time.perf_counter() - t0:.1f}"
+                f" s): {json.dumps(rec)}")
+            check(set(rec) == STAGES_KEYS, f"harness stages: the record's "
+                  f"keys {sorted(rec)}")
+            rows = {"corr", "detect", "det+ext", "frontend", "decode",
+                    "vit-win", "full"}
+            rows |= {f"{k}-x{N_CAPS}" for k in ("full", "corr", "detect",
+                                                "det+ext")}
+            check(set(rec["stages_ms"]) == rows, "harness stages: its "
+                  f"stages {sorted(rec['stages_ms'])}")
+            check(rec["frames_ok"] == {"full": C3_FRAMES, f"full-x{N_CAPS}":
+                                       N_CAPS * C3_FRAMES},
+                  f"harness stages: full decoded {rec['frames_ok']}")
+            check(rec["device"] == torch.cuda.get_device_name(device),
+                  f"harness stages: device {rec['device']}")
+            res["stages"] = rec
+            proc = harness_tool("roofline", "--config", HARNESS_STAGES_CONFIG,
+                                "--stages-jsonl", stages_out, "--device", dev)
+            out, err = proc.communicate(timeout=300)
+            check(proc.returncode == 0 and "cross-check" in out,
+                  f"harness roofline exited {proc.returncode}: {err[-2000:]}")
+            log("harness roofline: " + " | ".join(
+                line.strip() for line in out.splitlines() if line.strip()))
+            res["roofline"] = out
+            n_cards = min(torch.cuda.device_count(), 2)
+            for label, (argv, path) in runs.items():
+                name = label.split()[0]
+                if name == "pod":
+                    argv = (*argv, "--devices",
+                            ",".join(str(d) for d in range(1, n_cards + 1)))
+                res["runs"][label] = harness_in_process(
+                    torch, label, name, [*argv, "--device", dev], path)
+            for label, (proc, path) in cpu.items():
+                _, err = proc.communicate(timeout=900)
+                check(proc.returncode == 0, f"harness {label} (cpu) exited "
+                      f"{proc.returncode}: {err[-2000:]}")
+                card_recs = res["runs"][label]["records"]
+                res["runs"][label]["cpu_records"] = read_jsonl(path)
+                res["runs"][label]["worst"] = same_records(
+                    label, card_recs, res["runs"][label]["cpu_records"])
+                log(f"harness {label}: the card's records equal the CPU's "
+                    f"(largest differences {res['runs'][label]['worst']}): "
+                    + json.dumps([{k: v for k, v in r.items() if k != "ts"}
+                                  for r in card_recs]))
+        finally:
+            for proc, _ in cpu.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    for r in res["runs"]["pod"]["records"]:
+        check(r["frames_ok"] == r["frames"], f"harness pod: {r}")
+    for r in res["runs"]["pp_ab"]["records"]:
+        check(r["bit_exact"], f"harness pp_ab: {r}")
+    log("harness pod: " + json.dumps(res["runs"]["pod"]["records"]))
+    log("harness pp_ab: " + json.dumps(res["runs"]["pp_ab"]["records"]))
+    res["launches"] = {k: sum(r["launches"][k] for r in res["runs"].values())
+                       for k in next(iter(res["runs"].values()))["launches"]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase harness: ok  in {res['phase_s']:.1f} s")
+    return res
+
+
 def aligned_ins(torch, spec, device) -> dict:
     """The inputs RxPipeline.rx_aligned gives its kernels on the bench
     tool's aligned input (seed 0, BENCH_FRAMES frames): the steps of
@@ -1948,7 +2099,7 @@ def run_c4(torch, config, device, label="c4", spec=None, path=C4_PATH,
     spec = spec or config("c4")
     caps, pays, base, tx_launches = make_input_c4(torch, spec, device, label)
     max_frames = C4_FRAMES + 2
-    ins, stages = phase_stages(torch, spec, label, caps, max_frames, path)
+    ins, stages = phase_stages(torch, spec, label, caps, max_frames)
     kernels = {**phase_kernels(torch, spec, label, ins, path[1:]),
                **phase_kernels_fir(torch, spec, label, ins, base)}
     radio = ins["radio"]
@@ -1986,7 +2137,7 @@ def run_pallas(torch, config, device, name, label, n_caps, n_frames, path,
     iq, pays, tx_launches, grid = make_input_pallas(
         torch, spec, label, n_caps, n_frames, device, **channel)
     max_frames = n_frames + 2
-    ins, stages = phase_stages(torch, spec, label, iq, max_frames, path)
+    ins, stages = phase_stages(torch, spec, label, iq, max_frames)
     kernels = {**phase_kernels(torch, spec, label, ins, path),
                **phase_kernel_ifftcp(torch, spec, label, grid)}
     llr = ins["llr"] if "viterbi_windowed" in path else None
@@ -2985,11 +3136,19 @@ def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def hosted_store():
+    """A TCPStore this process serves for one spawn's workers (clients
+    under worker_env()), held until the last reference goes, after they
+    have exited."""
+    from ofdm_uhd_tpu_torch.shard import spawn
+    return spawn.hosted_store(DIST_TIMEOUT_S)
+
+
+def worker_env(agent_store: bool = True, **extra) -> dict:
+    """A worker's environment (shard/spawn.py): under agent_store a client
+    of a hosted store, else rank 0 serves the store at MASTER_PORT."""
+    from ofdm_uhd_tpu_torch.shard import spawn
+    return spawn.worker_env(ROOT, agent_store, threads=None, **extra)
 
 
 def wait_all(procs, label) -> list[str]:
@@ -3020,20 +3179,21 @@ def run_workers(label, devices, backend, feed, tmp, rounds) -> list:
     devices[r], each with C5_SHARDS / world shards; -> each rank's
     (frames .npz contents, report)."""
     import numpy as np
-    world, port = len(devices), free_port()
+    world, store = len(devices), hosted_store()
     chunk, k = C5_RESIDENT
     procs = []
     for r, dev in enumerate(devices):
         procs.append(subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--worker",
-             "--rank", str(r), "--world", str(world), "--port", str(port),
-             "--device", str(dev), "--backend", backend, "--chunk",
-             str(chunk), "--k", str(k), "--shards", str(C5_SHARDS),
-             "--feed", feed, "--out", os.path.join(tmp, f"{label}_{r}"),
-             "--rounds", str(rounds)],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+             "--rank", str(r), "--world", str(world), "--port",
+             str(store.port), "--device", str(dev), "--backend", backend,
+             "--chunk", str(chunk), "--k", str(k), "--shards",
+             str(C5_SHARDS), "--feed", feed, "--out",
+             os.path.join(tmp, f"{label}_{r}"), "--rounds", str(rounds)],
+            cwd=ROOT, env=worker_env(),
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
     wait_all(procs, label)
+    del store
     out = []
     for r in range(world):
         base = os.path.join(tmp, f"{label}_{r}")
@@ -3067,14 +3227,17 @@ def check_workers(label, workers, want, path) -> None:
 
 def run_pod_rx(device, cap, want, tmp) -> dict:
     """cli.pod_rx --distributed as two processes under torchrun's
-    environment set by hand (gloo: both on `device`) on C5's capture in a
+    environment set by hand, rank 0 serving the store at MASTER_PORT as
+    README.md's launch by hand does (gloo: both on `device`), on C5's
+    capture in a
     .npy file, at the resident point's chunk over C5_SHARDS entries:
     rank 0's bits must be the in-process run's payloads, and both ranks'
     summary lines agree up to their throughputs."""
     import numpy as np
     path, bits = os.path.join(tmp, "c5.npy"), os.path.join(tmp, "bits.npy")
     np.save(path, cap)
-    port = str(free_port())
+    from ofdm_uhd_tpu_torch.shard.spawn import rank0_port
+    port = rank0_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "ofdm_uhd_tpu_torch.cli.pod_rx", "--config",
@@ -3082,10 +3245,10 @@ def run_pod_rx(device, cap, want, tmp) -> dict:
          "--devices", str(C5_SHARDS), "--device", str(device),
          "--distributed", "--dist-backend", "gloo", "--bits-out", bits],
         cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
-        text=True, env=dict(os.environ, PYTHONPATH=ROOT,
-                            MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
-                            RANK=str(r), WORLD_SIZE=str(DIST_WORLD),
-                            LOCAL_RANK=str(r)))
+        text=True, env=worker_env(False, MASTER_ADDR="127.0.0.1",
+                                  MASTER_PORT=str(port), RANK=str(r),
+                                  WORLD_SIZE=str(DIST_WORLD),
+                                  LOCAL_RANK=str(r)))
         for r in range(DIST_WORLD)]
     errs = wait_all(procs, "distributed pod_rx")
     wall = time.perf_counter() - t0
@@ -3323,19 +3486,20 @@ def run_axes_workers(label, devices, backend, steps, files, tmp, rounds
     --steps ...), rank r on devices[r]; files: (the C3 batch, the C5
     feed) .npy paths -> each rank's (arrays .npz contents, report)."""
     import numpy as np
-    world, port = len(devices), free_port()
+    world, store = len(devices), hosted_store()
     chunk, k = C5_RESIDENT
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--worker",
          "--steps", steps, "--rank", str(r), "--world", str(world),
-         "--port", str(port), "--device", str(dev), "--backend", backend,
-         "--chunk", str(chunk), "--k", str(k), "--batch", files[0],
+         "--port", str(store.port), "--device", str(dev), "--backend",
+         backend, "--chunk", str(chunk), "--k", str(k), "--batch", files[0],
          "--feed", files[1], "--out", os.path.join(tmp, f"{label}_{r}"),
          "--rounds", str(rounds)],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        cwd=ROOT, env=worker_env(),
         stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
         for r, dev in enumerate(devices)]
     wait_all(procs, label)
+    del store
     out = []
     for r in range(world):
         base = os.path.join(tmp, f"{label}_{r}")
@@ -3902,7 +4066,7 @@ def run_big_nsc(torch, device) -> dict:
         iq, pays, tx = make_input_big(torch, spec, label, device)
         max_frames = BIG_FRAMES + 2
         ins, out["stages_ms"][n] = phase_stages(torch, spec, label, iq,
-                                                max_frames, path)
+                                                max_frames)
         kernels = phase_kernels(torch, spec, label, ins, tuple(
             k for k in path if k in ("scfront", "localize", "extract", "fft",
                                      "viterbi", "viterbi_windowed"))
@@ -4000,7 +4164,9 @@ def main() -> int:
               "repository's root", file=sys.stderr)
         return 2
     if args.worker:
-        return axes_worker(args) if args.steps else dist_worker(args)
+        rc = axes_worker(args) if args.steps else dist_worker(args)
+        from ofdm_uhd_tpu_torch.shard.spawn import exit_worker
+        exit_worker(rc)
     try:
         dev_info = phase_device(torch)
         device = torch.device("cuda", 0)
@@ -4009,6 +4175,7 @@ def main() -> int:
         c3 = run_c3(torch, config, device)
         files = run_files(torch, config, device)
         bench = run_bench(torch, device)
+        harness = run_harness(torch, device)
         c4 = run_c4(torch, config, device)
         c4_bf16 = run_c4_bf16(torch, config, device, c4)
         c5, c5_sharded, distributed, axes_distributed = run_c5(
@@ -4032,7 +4199,7 @@ def main() -> int:
              "c2_pallas": c2_pallas,
              "c4_bf16": c4_bf16, "shift": shift, "tiers": tiers,
              "big_nsc": big_nsc, "k4w_ab": k4w_ab, "files": files,
-             "bench": bench}
+             "bench": bench, "harness": harness}
     by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)
                         for k in KERNEL_INFO]}

@@ -108,3 +108,9 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    # its bits and state written and its group destroyed, the process
+    # ends without the interpreter's teardown, in which torch's C++
+    # teardown of a process that held a gloo group aborts now and then
+    # (shard/spawn.py)
+    from ofdm_uhd_tpu_torch.shard.spawn import exit_worker
+    exit_worker()

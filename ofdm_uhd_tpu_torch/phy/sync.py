@@ -48,12 +48,19 @@ def sc_front(spec: WaveformSpec, capture: torch.Tensor,
     the metric where 'sc_corr' is chosen; else the XLA compose, which K6
     computes in the same summation order."""
     l = spec.n_sc // 2
-    be = backend or spec.kernel_backend
-    fused = l % 128 == 0 and choose("sc_front", l, be) == "pallas"
-    if not fused and choose("sc_corr", l, be) == "pallas":
+    if boxcar(spec, backend):
         p, rr = sc_correlate(capture, l)
         return p, sc_metric(p, rr)
     return sc_frontend(capture, l)
+
+
+def boxcar(spec: WaveformSpec, backend: str | None = None) -> bool:
+    """True where `sc_front` takes the boxcar correlator K9 and the
+    metric, False where it takes the fused front end K6."""
+    l = spec.n_sc // 2
+    be = backend or spec.kernel_backend
+    fused = l % 128 == 0 and choose("sc_front", l, be) == "pallas"
+    return not fused and choose("sc_corr", l, be) == "pallas"
 
 
 def detect_frames(spec: WaveformSpec, capture: torch.Tensor, max_frames: int,

@@ -1111,3 +1111,108 @@ def test_stream_run_rehearsal(on_host, monkeypatch, point):
     assert res["carried_msps"] > 0 and res["msps"] > 0
     for name, n in res["launches"].items():
         assert (n > 0) == (name in chip_smoke.C5_PATH), name
+
+
+def test_harness_phase_rehearsal(on_host, monkeypatch):
+    """run_harness at tiny sizes on the CPU: the CPU runs as `python -m`
+    subprocesses, stages and roofline as subprocesses too, every harness
+    in process on the (patched) kernels, launching its path's kernels and
+    no other; the in-process records equal the subprocesses' (the card's
+    against the CPU's); the kernels line counts the runs' launches under
+    the `harness` path. Then same_records refuses a record that differs
+    in a count, an FER, a pre-FEC count beyond its tolerance or an EVM
+    beyond 0.01 dB."""
+    _patch_rx_path(monkeypatch)
+
+    def cp(kernel, x, n, start, cp, inverse):
+        policy.count_launch(kernel)
+        return (fft.ifft_cp_plain(x, cp) if inverse
+                else fft.cp_strip_fft_plain(x, start, n))
+    monkeypatch.setattr(fft, "_fft_cp_cuda", cp)
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "cpu")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(chip_smoke, "C3_FRAMES", 3)
+    monkeypatch.setattr(chip_smoke, "N_CAPS", 2)
+    monkeypatch.setattr(chip_smoke, "HARNESS_STAGES_CONFIG", "c1")
+    path = ("scfront", "localize", "extract", "fft", "viterbi")
+    tiny = {
+        "stages pallas": (("--config", "c2", "--backend", "pallas",
+                           "--frames", "4", "--batch", "2", "--iters", "1"),
+                          ("sccorr", "localize", "extract", "cpfft",
+                           "ifftcp", "viterbi", "viterbi_windowed")),
+        "sweeps": (("--config", "c1", "--snrs", "4,10", "--frames", "3"),
+                   ("fft", "viterbi")),
+        "sweeps multipath": (("--config", "c2", "--snrs", "10", "--frames",
+                              "2", "--multipath", "c2"),
+                             ("fft", "viterbi")),
+        "detect_sweep": (("--config", "c1", "--snrs", "5", "--trials", "1",
+                          "--frames", "2"), path),
+        "evm_budget": (("--config", "c1", "--frames", "3"), path),
+        "pod": (("--config", "c1", "--frames", "3", "--iters", "1"), path),
+        "pp_ab": (("--batch", "8", "--iters", "1"), ("fft", "viterbi")),
+    }
+    monkeypatch.setattr(chip_smoke, "harness_runs", lambda: tiny)
+    res = chip_smoke.run_harness(torch, torch.device("cpu"))
+
+    rec = res["stages"]
+    assert set(rec) == chip_smoke.STAGES_KEYS
+    assert rec["frames_ok"] == {"full": 3, "full-x2": 6}
+    assert "llr+evm" in rec["steps_ms"] and "scfront" in rec["steps_ms"]
+    assert "cross-check" in res["roofline"]
+    assert list(res["runs"]) == list(tiny)
+    assert res["runs"]["stages pallas"]["records"][0]["frames_ok"] == {
+        "full": 4, "full-x2": 8}
+    for label, (_, want) in tiny.items():
+        r = res["runs"][label]
+        assert r["records"], label
+        for k, n in r["launches"].items():
+            assert (n > 0) == (k in want), (label, k)
+    for label in ("sweeps", "sweeps multipath", "detect_sweep",
+                  "evm_budget"):
+        assert res["runs"][label]["worst"] == {"pre_fec_bits": 0,
+                                               "evm_db": 0.0}, label
+    assert [r["rescued"] for r in res["runs"]["detect_sweep"]["records"]
+            ] == [None, 0]
+    assert all(r["frames_ok"] == 3 for r in res["runs"]["pod"]["records"])
+    assert all(r["bit_exact"] for r in res["runs"]["pp_ab"]["records"])
+    by_path = chip_smoke.path_launches({"harness": res})
+    want = {k: sum(r["launches"][k] for r in res["runs"].values())
+            for k in policy.KERNELS}
+    assert by_path["harness"] == res["launches"] == want
+    entry = chip_smoke.kernel_entry("fft", {"harness": res, "bench": {
+        "kernels": {"fft": {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 1.0,
+                            "bound_ms": 1.0, "bound_by": "bytes",
+                            "library_ms": None}},
+        "launches": dict.fromkeys(policy.KERNELS, 0)}}, by_path)
+    assert entry["launches_by_path"]["harness"] == want["fft"] > 0
+
+    sweep = res["runs"]["sweeps"]["records"]
+    chip_smoke.same_records("sweeps", sweep, sweep)
+    for bad, what in (({"post_fec_fer": sweep[0]["post_fec_fer"] + 0.5},
+                       "post_fec_fer"),
+                      ({"frames": sweep[0]["frames"] + 1}, "frames"),
+                      ({"evm_db": sweep[0]["evm_db"] + 0.02}, "EVM"),
+                      ({"pre_fec_ber": sweep[0]["pre_fec_ber"]
+                        + 5 / (3 * 1152)}, "pre-FEC")):
+        with pytest.raises(chip_smoke.SmokeFailure, match=what):
+            chip_smoke.same_records("sweeps", [{**sweep[0], **bad}],
+                                    sweep[:1])
+    det = res["runs"]["detect_sweep"]["records"]
+    with pytest.raises(chip_smoke.SmokeFailure, match="rescued"):
+        chip_smoke.same_records("detect_sweep", [{**det[1], "rescued": 1}],
+                                det[1:])
+    evm = res["runs"]["evm_budget"]["records"]
+    with pytest.raises(chip_smoke.SmokeFailure, match="EVM"):
+        chip_smoke.same_records("evm_budget", [{**evm[0], "evm_db": {
+            **evm[0]["evm_db"], "est-H": evm[0]["evm_db"]["est-H"] + 0.05}}],
+            evm)
+
+
+def test_harness_phase_is_wired_into_main():
+    """main() runs the harness phase on the card and counts its launches
+    under the `harness` path of the kernels line."""
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    assert "harness = run_harness(torch, device)" in src
+    assert '"harness": harness' in src

@@ -1,5 +1,6 @@
 """The stream over a mesh that spans processes, on the CPU: two worker
-processes in a gloo group on 127.0.0.1, each naming 4 `cpu` entries, so
+processes in a gloo group on 127.0.0.1 (its store served by this process:
+ofdm_uhd_tpu_torch/shard/spawn.py), each naming 4 `cpu` entries, so
 the mesh is (1, 8), as tests/distributed/test_multihost.py runs the
 reference (2 processes x 4 virtual CPU devices). The workers are this
 file run as a script (`--worker`); they import the port alone.
@@ -40,6 +41,10 @@ import zlib
 import numpy as np
 import pytest
 import torch
+
+from ofdm_uhd_tpu_torch.shard.spawn import (RANK0_PORTS, exit_worker,
+                                            hosted_store, rank0_port,
+                                            worker_env)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, PER_PROCESS, WORLD = 8, 4, 2
@@ -216,32 +221,18 @@ def worker(args):
 
 # ---- the test process ----
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _env(**extra):
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
-              "LOCAL_RANK"):
-        env.pop(k, None)
-    return dict(env, **extra)
-
-
-def _spawn_workers(root, phase):
-    port = _free_port()
+def _spawn_workers(root, phase, port):
     return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker", "--port",
          str(port), "--rank", str(r), "--root", root, "--phase", phase],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=REPO, env=_env()) for r in range(WORLD)]
+        cwd=REPO, env=worker_env(REPO)) for r in range(WORLD)]
 
 
 def _pod_rx(root, distributed):
     """cli.pod_rx on C1 over 8 cpu entries: one process, or two under
-    torchrun's environment set by hand."""
+    torchrun's environment set by hand, rank 0 serving the store as
+    README.md's launch by hand does."""
     args = [sys.executable, "-m", "ofdm_uhd_tpu_torch.cli.pod_rx",
             "--config", "c1", "--capture", os.path.join(root, "c1.npy"),
             "--device", "cpu", "--devices", str(T)]
@@ -249,14 +240,15 @@ def _pod_rx(root, distributed):
         return [subprocess.Popen(
             args + ["--bits-out", os.path.join(root, "pod_one.npy")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            cwd=REPO, env=_env())]
-    port = str(_free_port())
+            cwd=REPO, env=worker_env(REPO))]
+    port = rank0_port()
     return [subprocess.Popen(
         args + ["--distributed", "--bits-out",
                 os.path.join(root, "pod_two.npy")],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
-        env=_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(r),
-                 WORLD_SIZE=str(WORLD), LOCAL_RANK=str(r)))
+        env=worker_env(REPO, False, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), RANK=str(r),
+                       WORLD_SIZE=str(WORLD), LOCAL_RANK=str(r)))
         for r in range(WORLD)]
 
 
@@ -354,7 +346,8 @@ def runs(tmp_path_factory):
     torch.set_num_threads(2)
     root = str(tmp_path_factory.mktemp("dist"))
     _write_inputs(root)
-    workers = _spawn_workers(root, "run")
+    stores = [hosted_store(TIMEOUT_S)]
+    workers = _spawn_workers(root, "run", stores[0].port)
     pods = _pod_rx(root, False) + _pod_rx(root, True)
     try:
         mesh = make_mesh(1, T, ["cpu"] * T)
@@ -377,7 +370,11 @@ def runs(tmp_path_factory):
         for p in workers + pods:
             if p.poll() is None:
                 p.kill()
-    _wait(_spawn_workers(root, "resume"), "resume workers")
+                p.communicate()
+        del stores
+    stores = [hosted_store(TIMEOUT_S)]
+    _wait(_spawn_workers(root, "resume", stores[0].port), "resume workers")
+    del stores
     two = {}
     for name in CASES:
         two[name] = [_load(os.path.join(root, f"{name}_r{r}.npz"))
@@ -552,14 +549,63 @@ def test_joining_names_a_card_or_the_cpu(monkeypatch):
     assert M._default_device("cuda:0", "nccl", 5) == torch.device("cuda", 0)
 
 
+def test_spawns_hold_their_ports_and_serve_the_store():
+    """The spawn code's port race, isolated: stores hosted at once never
+    share a port, and no other socket binds a spawn's port while it is
+    held (the spawn code used to pick a port by bind(0), release it, and
+    hand the number to workers whose rank 0 bound it seconds later, time
+    in which another process could take it). Two workers join the test
+    process's store as clients and hold a group over it."""
+    stores = [hosted_store(TIMEOUT_S) for _ in range(8)]
+    ports = [s.port for s in stores]
+    assert len(set(ports)) == len(ports)
+    for port in ports:
+        with socket.socket() as s, pytest.raises(OSError):
+            s.bind(("127.0.0.1", port))
+    code = (
+        "import sys, torch, torch.distributed as dist\n"
+        "from ofdm_uhd_tpu_torch.shard.mesh import init_distributed\n"
+        "init_distributed(f'127.0.0.1:{sys.argv[1]}', 2, int(sys.argv[2]),"
+        " device='cpu')\n"
+        "t = torch.ones(1)\n"
+        "dist.all_reduce(t)\n"
+        "assert t.item() == 2\n"
+        "dist.destroy_process_group()\n"
+        "from ofdm_uhd_tpu_torch.shard.spawn import exit_worker\n"
+        "exit_worker()\n")
+    keys = stores[0].num_keys()
+    _wait([subprocess.Popen(
+        [sys.executable, "-c", code, str(ports[0]), str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+        env=worker_env(REPO)) for r in range(WORLD)], "store clients")
+    assert stores[0].num_keys() > keys
+    del stores
+
+
+def test_rank0_port_lies_below_the_ephemeral_range(monkeypatch):
+    """A group whose rank 0 serves the store (a launch by hand) gets a
+    port that binds now, below Linux's default ephemeral range, so that
+    no bind(0) or outgoing connection is handed it before rank 0 binds
+    it; a port that is taken is passed over."""
+    assert RANK0_PORTS.stop <= 32768
+    with socket.socket() as held:
+        held.bind(("127.0.0.1", rank0_port()))
+        taken = held.getsockname()[1]
+        monkeypatch.setattr("random.randrange",
+                            lambda n: RANK0_PORTS.index(taken))
+        port = rank0_port()
+        assert port in RANK0_PORTS and port != taken
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", port))
+
+
 def test_pod_rx_distributed_needs_a_card():
     """`pod_rx --distributed` under its default --device cuda on a host
     without a card (none visible) exits non-zero before it joins a group or reads the
     capture, as the one-process tool does: the CPU only by --device cpu."""
-    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="",
-               MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()), RANK="0", WORLD_SIZE="1",
-               LOCAL_RANK="0")
+    env = worker_env(REPO, False, CUDA_VISIBLE_DEVICES="",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(rank0_port()),
+                     RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
     p = subprocess.run(
         [sys.executable, "-m", "ofdm_uhd_tpu_torch.cli.pod_rx", "--config",
          "c5", "--capture", os.path.join(REPO, "no_such_capture.npy"),
@@ -578,3 +624,4 @@ if __name__ == "__main__":
     ap.add_argument("--phase", choices=["run", "resume"], required=True)
     sys.path.insert(0, REPO)
     worker(ap.parse_args())
+    exit_worker()

@@ -1,6 +1,7 @@
 """The frame and stage axes, and the stream on a ('frame', 'time') mesh,
 over meshes that span processes, on the CPU: four worker processes in a
-gloo group on 127.0.0.1 (`device="cpu"`). The workers are this file run
+gloo group on 127.0.0.1 (`device="cpu"`; its store served by this
+process: ofdm_uhd_tpu_torch/shard/spawn.py). The workers are this file run
 as a script (`--worker`); they import the port alone. One spawn serves
 every case.
 
@@ -39,7 +40,6 @@ test fails.
 import argparse
 import json
 import os
-import socket
 import subprocess
 import sys
 import zlib
@@ -47,6 +47,9 @@ import zlib
 import numpy as np
 import pytest
 import torch
+
+from ofdm_uhd_tpu_torch.shard.spawn import (exit_worker, hosted_store,
+                                            worker_env)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
@@ -199,23 +202,12 @@ def worker(args):
 
 # ---- the test process ----
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _spawn(root):
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
-              "LOCAL_RANK"):
-        env.pop(k, None)
-    port = _free_port()
+def _spawn(root, port):
     return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker", "--port",
          str(port), "--rank", str(r), "--root", root],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
-        env=env) for r in range(WORLD)]
+        env=worker_env(REPO)) for r in range(WORLD)]
 
 
 def _wait(procs):
@@ -356,7 +348,8 @@ def runs(tmp_path_factory):
     assert all(dataclasses.asdict(rspecs[k]) == dataclasses.asdict(v)
                for k, v in _specs().items())
     _write_inputs(root, rspecs)
-    workers = _spawn(root)
+    store = hosted_store(TIMEOUT_S)
+    workers = _spawn(root, store.port)
     try:
         mesh2d = make_mesh(2, 4, ["cpu"] * 8)
         one = run_cases({"frame": make_mesh(4, 1, ["cpu"] * 4),
@@ -370,6 +363,8 @@ def runs(tmp_path_factory):
         for p in workers:
             if p.poll() is None:
                 p.kill()
+                p.communicate()
+        del store
     resumed = {"one": resume(mesh2d, root, os.path.join(root,
                                                         "one_ckpt.npz")),
                "workers": resume(mesh2d, root, os.path.join(root,
@@ -574,3 +569,4 @@ if __name__ == "__main__":
     ap.add_argument("--root", required=True)
     sys.path.insert(0, REPO)
     worker(ap.parse_args())
+    exit_worker()

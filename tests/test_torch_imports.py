@@ -13,6 +13,8 @@ import ofdm_uhd_tpu_torch
 from ofdm_uhd_tpu_torch.kernels import policy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HARNESSES = ("stages", "roofline", "sweeps", "detect_sweep", "evm_budget",
+             "pod", "pp_ab")
 
 
 def _modules():
@@ -28,7 +30,8 @@ def test_every_module_imports_without_jax():
               "research.fir_ilv", "research.deframe", "golden.sync",
               "golden.chain", "metrics", "io.capture", "io.native",
               "cli.config", "cli.tx", "cli.rx", "cli.loopback",
-              "cli.pod_rx", "cli.bench", "shard.collectives"):
+              "cli.pod_rx", "cli.bench", "shard.collectives",
+              *(f"harness.{h}" for h in HARNESSES)):
         assert "ofdm_uhd_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -75,3 +78,15 @@ def test_launch_counts_reset():
     assert policy.launches()["fft"] >= 1
     policy.reset_launches()
     assert policy.launches() == dict.fromkeys(policy.KERNELS, 0)
+
+
+@pytest.mark.parametrize("name", HARNESSES)
+def test_harness_defaults_to_the_card_and_raises_without_one(name,
+                                                             monkeypatch):
+    """Each harness's --device defaults to cuda; with no card it raises
+    before any work, never running on the CPU instead."""
+    import importlib
+    mod = importlib.import_module(f"ofdm_uhd_tpu_torch.harness.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        mod.main([])
