@@ -151,18 +151,20 @@ findings on a line of its own:
       polyphase_decim_banded with ceil(n/m) outputs,
       polyphase_interp_banded, sc_correlate_banded) and the interleaved
       tier K13 (research/fir_ilv.py), both on csrc/banded.cu (3xTF32 on
-      the tensor cores), and K13 at the reference's DEFAULT precision on
-      csrc/fir_bf16.cu (the bf16 tier), at scripts/tpu_session.py's FIR
-      rows ([16, 8192],
+      the tensor cores, complex64 rows read in place), and K13 at the
+      reference's DEFAULT precision on csrc/fir_bf16.cu (the bf16 tier),
+      at scripts/tpu_session.py's FIR rows ([16, 8192],
       193 taps, by 8) and at C4's width (the decimation input and TX
       frames the shift phase takes), K8's S&C at l = 128 on the shift
       phase's 2^20 signal and on C3's captures [8, 4,436,068], and the
       bulk-copy deframer K12 (research/deframe.py, csrc/deframe.cu) on
       C3's extraction input (8208 detected offsets) and on negative, odd,
       in-range and past-n offsets; each held against its plain version,
-      with the exact K7 and K11 beside K8 and K13 at C4 in turns (the
-      four-way A/B of exact float32 filter designs), K9 beside K8's S&C and
-      K2 beside K12 (equal on offsets in [0, n]).
+      its in-kernel time in turns with its library call's (conv1d,
+      conv_transpose1d) where there is one, with the exact K7 and K11
+      beside K8 and K13 at C4 in turns (the four-way A/B of exact float32
+      filter designs), K9 beside K8's S&C and K2 beside K12 (equal on
+      offsets in [0, n]).
   big_nsc, RxPipeline.rx_capture_sc16 at n_sc = 4096, 16384 and 32768
       (QPSK, CP n/8, 2 data symbols, 4 captures x 4 frames built by the
       port's TX on the card): K3 in one launch at 4096 and by its
@@ -2338,9 +2340,11 @@ def run_tiers(torch, device, c4_inputs, c3_inputs) -> dict:
     past n. One counted run of the eleven functions (this phase's main path:
     every tiers kernel launches, no other kernel does), then each kernel
     held against its plain version with its bound, plain, library and
-    in-kernel times; at C4 the four exact float32 designs in turns (K7,
-    K11, K8, K13, and back), and K8's kernel alone on its planes; K8's S&C
-    beside K9, and K12 beside K2 (equal on offsets in [0, n])."""
+    in-kernel times (where there is a library call, its in-kernel time
+    too, in turns with the kernel); at C4 the four exact float32 designs in
+    turns (K7, K11, K8, K13, and back); K8's S&C beside K9, and K12 beside
+    K2 (equal on offsets in [0, n]). A kernel outside its tolerance fails
+    the run (held)."""
     import numpy as np
     from ofdm_uhd_tpu_torch.core.spec import config
     from ofdm_uhd_tpu_torch.kernels import banded, extract, fir, policy, sync
@@ -2493,7 +2497,10 @@ def run_tiers(torch, device, c4_inputs, c3_inputs) -> dict:
                  if key.startswith("deframe") else rel_close)
         res[key] = held(torch, key, run_k, run_p, close, shape, work,
                         library)
-        res[key]["device_ms"] = device_ms(torch, run_k)
+        if library is None:
+            res[key]["device_ms"] = device_ms(torch, run_k)
+        else:
+            library_in_turns(torch, res[key], run_k, library)
     log_kernels("tiers", res)
     # K12 against K2: equal wherever K2's clamp does not apply (d >= 0)
     check(int(ds.min()) >= 0, "tiers: detection gave a negative offset")
@@ -2506,16 +2513,13 @@ def run_tiers(torch, device, c4_inputs, c3_inputs) -> dict:
               "tiers: K12 differs from K2 on offsets in [0, n], or gave "
               "samples at a negative offset")
     # the A/B of the exact float32 filter designs at C4, in turns
-    planes = torch.cat([radio.real, radio.imag]).contiguous()   # K8's
     ab = {
         "decim_c4": in_turns(torch, {
             "K7": lambda: fir._strided_cuda(radio, taps, m),
             "K11": lambda: shift._decim_cuda(radio, m, taps),
             "K8": lambda: banded._decim_cuda(radio, m, taps),
-            "K13": lambda: fir_ilv._decim_cuda(radio, m, taps),
-            "K8_planes": lambda: banded._strided_planes(planes, taps, m,
-                                                        "banded_decim")},
-            ("K7", "K11", "K8", "K13", "K8_planes")),
+            "K13": lambda: fir_ilv._decim_cuda(radio, m, taps)},
+            ("K7", "K11", "K8", "K13")),
         "interp_c4": in_turns(torch, {
             "K7": lambda: fir._interp_cuda(base, m, taps),
             "K11": lambda: shift._interp_cuda(base, m, taps),
@@ -2533,7 +2537,6 @@ def run_tiers(torch, device, c4_inputs, c3_inputs) -> dict:
             "K12": lambda: deframe._deframe_cuda(cap, ds, fl)},
             ("K2", "K12")),
     }
-    del planes
     for key, turns in ab.items():
         log(f"tiers a/b: {key} in-kernel ms, in turns: {fmt_turns(turns)}")
     log(f"tiers: ok  every banded_*, ilv_* kernel within tolerance of its "

@@ -1,6 +1,7 @@
 """The banded filter tier (K8): the FIR family and the Schmidl-Cox window
 sums as banded matrix products, one hand kernel (csrc/banded.cu, float32
-accuracy on the tensor cores) beside its plain versions.
+accuracy on the tensor cores, body csrc/banded_body.cuh) beside its plain
+versions.
 
 The counterpart of ofdm_uhd_tpu/kernels/pallas_fir.py (fir_pallas,
 polyphase_interp_pallas, polyphase_decim_pallas on _banded_kernel) and
@@ -21,86 +22,112 @@ n - 2l + 1), not K9's pairwise doubling. `blk`, the TPU's block of
 outputs, does not change the function; the card ignores it.
 
 Each routes by the tensor's device (kernels/policy.py): a CUDA tensor
-launches the kernel on K8's float32 planes, the rows [2B, n] of the re and
-im parts (the S&C: the lag products' planes and the energies), counted as
-banded_fir, banded_decim, banded_interp, banded_sc; a CPU tensor, or any
-inside policy.plain_versions(), takes the plain version: kernels/fir.py's
-exact float32 correlation (then [..., ::m]), interp_plain, and a direct
-window sum (conv1d with a band of ones).
+launches the kernel once, on the complex64 rows as they lie (the S&C: on r
+itself, the lag products and energies formed in the kernel), with nothing
+else on the device but the outputs' torch.empty; counted as banded_fir,
+banded_decim, banded_interp, banded_sc. A CPU tensor, or any inside
+policy.plain_versions(), takes the plain version: kernels/fir.py's exact
+float32 correlation (then [..., ::m]), interp_plain, and a direct window
+sum (conv1d with a band of ones). research/fir_ilv.py (K13) launches the
+same kernel through _strided_launch and _interp_launch.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..phy import tables as T
 from . import build, policy
 from . import fir as KF
 
 
-def _planes(x: torch.Tensor, kernel: str) -> tuple[torch.Tensor, int]:
-    """K8's plane split: complex64 [..., n] -> float32 rows [2B, n] (the re
-    rows, then the im rows), B."""
-    flat = KF._rows(x, kernel)
-    return torch.cat([flat.real, flat.imag]).contiguous(), flat.shape[0]
+@functools.lru_cache(maxsize=64)
+def _weights(key: bytes, device: torch.device) -> tuple[torch.Tensor, int]:
+    """The correlation weights of the float32 taps whose bytes are `key`,
+    on `device`, and the 'same' alignment's left pad."""
+    _, w, pad_l = KF._corr_weights(np.frombuffer(key, np.float32))
+    return torch.from_numpy(w.copy()).to(device), pad_l
 
 
-def _merge(y: torch.Tensor, b: int, x: torch.Tensor) -> torch.Tensor:
-    return torch.complex(y[:b], y[b:]).reshape(x.shape[:-1] + (y.shape[-1],))
+@functools.lru_cache(maxsize=64)
+def _branches(key: bytes, l: int, device: torch.device
+              ) -> tuple[torch.Tensor, int, int]:
+    """The branch matrix [l, nd] of the float64 taps whose bytes are `key`,
+    on `device`, with nd and d_max."""
+    taps = np.frombuffer(key, np.float64)
+    g, _, d_max = KF._branch_matrix(KF._f64_key(taps), l)
+    return torch.from_numpy(g).to(device), g.shape[1], d_max
 
 
-def _strided_planes(planes: torch.Tensor, taps, stride: int, kernel: str
-                    ) -> torch.Tensor:
-    """The kernel's launch on float32 rows [R, n]: the 'same' FIR of every
-    row, kept at outputs 0, stride, 2 stride, ...: [R, ceil(n / stride)]."""
-    key, w, pad_l = KF._corr_weights(taps)
-    rows, n = planes.shape
-    n_out = -(-n // stride)
-    y = torch.empty((rows, n_out), dtype=torch.float32, device=planes.device)
-    wt = T.on_device(KF._reversed_taps, (key,), None, planes.device)
+def _rows(x: torch.Tensor, kernel: str) -> torch.Tensor:
+    """x [..., n] as rows [B, n]: complex64, contiguous, on a card."""
+    if (x.dtype != torch.complex64 or x.dim() < 1 or not x.is_cuda
+            or not x.is_contiguous()):
+        raise ValueError(f"{kernel}: need contiguous complex64 [..., n] on "
+                         f"a CUDA device, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return x if x.dim() == 2 else x.reshape(-1, x.shape[-1])
+
+
+def _shaped(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return y if x.dim() == 2 else y.reshape(x.shape[:-1] + y.shape[-1:])
+
+
+def _strided_launch(kernel: str, x: torch.Tensor, taps, stride: int,
+                    ceil: bool) -> torch.Tensor:
+    """The 'same' FIR of every complex64 row of x [..., n], kept at outputs
+    0, stride, 2 stride, ...: [..., ceil(n / stride)] (ceil) or [...,
+    n // stride]."""
+    if stride < 1:
+        raise ValueError(f"{kernel}: need stride >= 1, got {stride}")
+    flat = _rows(x, kernel)
+    rows, n = flat.shape
+    w, pad_l = _weights(np.asarray(taps, np.float32).tobytes(), x.device)
+    m = -(-n // stride) if ceil else n // stride
+    y = flat.new_empty((rows, m))
     err = build.library().ofdm_banded_strided(
-        planes.data_ptr(), wt.data_ptr(), y.data_ptr(), rows, n, n_out,
-        len(w), stride, pad_l, 0, build.stream_ptr(planes.device))
+        flat.data_ptr(), w.data_ptr(), y.data_ptr(), rows, n, m, w.numel(),
+        stride, pad_l, build.stream_ptr(x.device))
     build.check(err, kernel)
     policy.count_launch(kernel)
-    return y
+    return _shaped(y, x)
 
 
-def _strided_cuda(x: torch.Tensor, taps, stride: int, kernel: str
-                  ) -> torch.Tensor:
-    planes, b = _planes(x, kernel)
-    return _merge(_strided_planes(planes, taps, stride, kernel), b, x)
+def _interp_launch(kernel: str, x: torch.Tensor, l: int, taps
+                   ) -> torch.Tensor:
+    """L-fold interpolation of every complex64 row of x [..., n]."""
+    if l < 1:
+        raise ValueError(f"{kernel}: need l >= 1, got {l}")
+    flat = _rows(x, kernel)
+    rows, n = flat.shape
+    g, nd, d_max = _branches(np.asarray(taps, np.float64).tobytes(), l,
+                             x.device)
+    y = flat.new_empty((rows, n * l))
+    err = build.library().ofdm_banded_interp(
+        flat.data_ptr(), g.data_ptr(), y.data_ptr(), rows, n, l, nd, d_max,
+        build.stream_ptr(x.device))
+    build.check(err, kernel)
+    policy.count_launch(kernel)
+    return _shaped(y, x)
 
 
 def _fir_cuda(x: torch.Tensor, taps) -> torch.Tensor:
-    return _strided_cuda(x, taps, 1, "banded_fir")
+    return _strided_launch("banded_fir", x, taps, 1, True)
 
 
 def _decim_cuda(x: torch.Tensor, m: int, taps) -> torch.Tensor:
-    if m < 1:
-        raise ValueError(f"banded_decim: need m >= 1, got {m}")
-    return _strided_cuda(x, taps, m, "banded_decim")
+    return _strided_launch("banded_decim", x, taps, m, True)
 
 
 def _interp_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
-    if l < 1:
-        raise ValueError(f"banded_interp: need l >= 1, got {l}")
-    planes, b = _planes(x, "banded_interp")
-    key = KF._f64_key(taps)
-    g, _, d_max = KF._branch_matrix(key, l)
-    n = planes.shape[1]
-    y = torch.empty((2 * b, n * l), dtype=torch.float32, device=x.device)
-    gt = T.on_device(KF._branch_matrix, (key, l), 0, x.device)
-    err = build.library().ofdm_banded_interp(
-        planes.data_ptr(), gt.data_ptr(), y.data_ptr(), 2 * b, n, l,
-        g.shape[1], d_max, 0, build.stream_ptr(x.device))
-    build.check(err, "banded_interp")
-    policy.count_launch("banded_interp")
-    return _merge(y, b, x)
+    return _interp_launch("banded_interp", x, l, taps)
 
 
-def _sc_rows(r: torch.Tensor, l: int) -> tuple[torch.Tensor, int]:
+def _sc_rows(r: torch.Tensor, l: int) -> int:
+    """nd = n - 2l + 1 of r [..., n] complex64, raising where nd < 1."""
     if r.dtype != torch.complex64 or r.dim() < 1:
         raise ValueError(f"banded_sc: need complex64 [..., n], got "
                          f"{r.dtype} {tuple(r.shape)}")
@@ -109,29 +136,23 @@ def _sc_rows(r: torch.Tensor, l: int) -> tuple[torch.Tensor, int]:
     if l < 1 or nd < 1:
         raise ValueError(f"banded_sc: need 1 <= l and 2l <= n, got l = {l}, "
                          f"n = {n}")
-    return r.reshape(-1, n), nd
+    return nd
 
 
 def _sc_cuda(r: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """One launch sums P's two planes (window l) and R's (window 2l, times
-    0.5); the lag products and energies are formed here, elementwise, as
-    the reference forms them outside its kernel."""
-    flat, nd = _sc_rows(r, l)
-    build.check_inputs("banded_sc", flat)
+    """One launch from r: P's window l of the lag products and R's window
+    2l of the energies (times 0.5), both formed in the kernel."""
+    nd = _sc_rows(r, l)
+    flat = _rows(r, "banded_sc")
     b, n = flat.shape
-    prod = torch.conj(flat[:, :-l]) * flat[:, l:]
-    s = torch.cat([prod.real, prod.imag]).contiguous()
-    e = (flat.abs() ** 2).contiguous()
-    p = torch.empty((2 * b, nd), dtype=torch.float32, device=r.device)
-    rr = torch.empty((b, nd), dtype=torch.float32, device=r.device)
+    p = flat.new_empty((b, nd))
+    rr = flat.new_empty((b, nd), dtype=torch.float32)
     err = build.library().ofdm_banded_sc(
-        s.data_ptr(), e.data_ptr(), p.data_ptr(), rr.data_ptr(), b, n, l,
+        flat.data_ptr(), p.data_ptr(), rr.data_ptr(), b, n, l,
         build.stream_ptr(r.device))
     build.check(err, "banded_sc")
     policy.count_launch("banded_sc")
-    lead = r.shape[:-1]
-    return (torch.complex(p[:b], p[b:]).reshape(lead + (nd,)),
-            rr.reshape(lead + (nd,)))
+    return _shaped(p, r), _shaped(rr, r)
 
 
 def _window_sum(x: torch.Tensor, win: int) -> torch.Tensor:

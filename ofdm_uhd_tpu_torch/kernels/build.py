@@ -30,7 +30,7 @@ SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
            "banded.cu", "deframe.cu")
 HEADERS = ("ofdm_kernels.h", "viterbi_group.cuh", "viterbi_window.cuh",
            "fir_strided.cuh", "fir_interp.cuh", "scfront_tile.cuh",
-           "scfront_split.cuh", "localize_warp.cuh")
+           "scfront_split.cuh", "localize_warp.cuh", "banded_body.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -70,12 +70,12 @@ _SIGNATURES = {
     # x, kern, y, rows, n, l, nd, d_max, stream
     "ofdm_shift_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # the banded tier: x, w, y, rows, n_in, n_out, nt, stride, pad_left,
-    # interleaved, stream
-    "ofdm_banded_strided": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, g, y, rows, n, l, nd, d_max, interleaved, stream
-    "ofdm_banded_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # s, e, p, rr, rows, n, l, stream
-    "ofdm_banded_sc": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # stream
+    "ofdm_banded_strided": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, g, y, rows, n, l, nd, d_max, stream
+    "ofdm_banded_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # r, p, rr, rows, n, l, stream
+    "ofdm_banded_sc": [_P, _P, _P, _I, _I, _I, _P],
     # capture, ds, out, caps, n, mf, frame_len, stream
     "ofdm_deframe": [_P, _P, _P, _I, _I, _I, _I, _P],
     # r, p, m, rows, n, l, stream
@@ -223,4 +223,6 @@ def stream_ptr(device) -> int:
     if getattr(_CURRENT, "index", None) != index or current != index:
         check(library().ofdm_set_device(index), "set device")
         _CURRENT.index = index
-    return torch.cuda.current_stream(device).cuda_stream
+    # the raw handle: no Stream object (host time a launch pays)
+    return torch._C._cuda_getCurrentRawStream(index)
+

@@ -127,24 +127,23 @@ OFDM_API int ofdm_shift_interp(const float2* x, const float* kern, float2* y,
                                void* stream);
 
 // The banded tier (banded.cu), float32 accuracy on the tensor cores
-// (3xTF32): rows of float32 (interleaved = 0) or complex64 read as float2
-// (interleaved = 1). Strided: x [rows, n_in] -> y [rows, n_out], y[r, i] =
-// sum_t w[t] * x[r, i*stride + t - pad_left] (w: the taps reversed),
-// zeros outside each row; interpolation: x [rows, n] -> y [rows, n * l],
-// y[r, k] = sum_d g[k % l, d - d_min] * x[r, k / l - d] over the branch
-// matrix g [l, nd] of d = d_max - nd + 1 .. d_max.
+// (3xTF32), complex64 rows read in place (any 8-byte aligned x). Strided:
+// x [rows, n_in] -> y [rows, n_out], y[r, i] = sum_t w[t] * x[r, i*stride
+// + t - pad_left] (w: the taps reversed), zeros outside each row;
+// interpolation: x [rows, n] -> y [rows, n * l], y[r, k] = sum_d g[k % l,
+// d - d_min] * x[r, k / l - d] over the branch matrix g [l, nd] of d =
+// d_max - nd + 1 .. d_max.
 OFDM_API int ofdm_banded_strided(const void* x, const float* w, void* y,
                                  int rows, int n_in, int n_out, int nt,
-                                 int stride, int pad_left, int interleaved,
-                                 void* stream);
+                                 int stride, int pad_left, void* stream);
 OFDM_API int ofdm_banded_interp(const void* x, const float* g, void* y,
                                 int rows, int n, int l, int nd, int d_max,
-                                int interleaved, void* stream);
-// The S&C window sums, direct, in one launch: s [2 rows, n - l] (the lag
-// products' re rows, then im rows), e [rows, n] (|r|^2) -> p [2 rows, nd]
-// (window l), rr [rows, nd] (0.5 x window 2l), nd = n - 2l + 1.
-OFDM_API int ofdm_banded_sc(const float* s, const float* e, float* p,
-                            float* rr, int rows, int n, int l, void* stream);
+                                void* stream);
+// The S&C window sums, direct, in one launch from r [rows, n] complex64:
+// p [rows, nd] complex64 (window l of conj(r[i]) r[i + l]), rr [rows, nd]
+// (0.5 x window 2l of |r|^2), nd = n - 2l + 1.
+OFDM_API int ofdm_banded_sc(const void* r, void* p, float* rr, int rows,
+                            int n, int l, void* stream);
 
 // Frame extraction by bulk copies (deframe.cu): capture [caps, n]
 // complex64, ds [caps, mf] i32 -> out [caps, mf, frame_len]: the samples

@@ -6,8 +6,9 @@ never routes. No user path
   shift   the shifted-FMA filter tier (K11): 'same' FIR, phase-split
           decimation, branch-row interpolation (csrc/shift.cu) and its S&C
           correlator (the sccorr kernel, counted as shift_sc)
-  fir_ilv the FIR family on the interleaved (re, im) layout (K13): csrc/
-          banded.cu's interleaved entry, float32 on the tensor cores
+  fir_ilv the FIR family on the interleaved (re, im) layout (K13): K8's
+          csrc/banded.cu on the complex64 rows, float32 on the tensor
+          cores
   deframe frame extraction by one bulk copy per frame (K12, csrc/
           deframe.cu), with zeros at negative offsets
 """

@@ -22,13 +22,13 @@ TPU's MXU: samples and coefficients rounded to bf16, products summed in
 float32, the function of the port's bf16 filter tier (kernels/fir.py,
 K7-bf16). Any other precision raises.
 
-A CUDA tensor launches csrc/banded.cu's interleaved entry (counted as
-ilv_fir, ilv_decim, ilv_interp): the kernel reads the complex64 rows in
-place as float2, where torch.view_as_real is the free bitcast the
-reference's TPU lacked, de-interleaves them in shared memory, runs the
-3xTF32 tensor-core core that K8 shares, and stores complex64. The
-reference's taps dilated by 2 (w2[0::2] = w) are its way of skipping the
-other component of an interleaved row; the kernel needs no zero taps. A
+A CUDA tensor launches csrc/banded.cu, K8's kernel (counted as ilv_fir,
+ilv_decim, ilv_interp): it reads the complex64 rows in place as float2,
+where torch.view_as_real is the free bitcast the reference's TPU lacked,
+de-interleaves them in shared memory, runs the 3xTF32 tensor-core body,
+and stores complex64. The reference's taps dilated by 2 (w2[0::2] = w)
+are its way of skipping the other component of an interleaved row; the
+kernel needs no zero taps. A
 CPU tensor, or any inside policy.plain_versions(), takes the port's exact
 float32 filters (kernels/fir.py decim_plain, interp_plain).
 
@@ -46,9 +46,9 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import build, policy
+from ..kernels import banded as KB
 from ..kernels import fir as KF
-from ..phy import tables as T
+from ..kernels import policy
 
 PRECISIONS = ("highest", "default")
 
@@ -71,47 +71,16 @@ def _unflatten(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y[0] if x.dim() == 1 else y.reshape(x.shape[:-1] + (y.shape[-1],))
 
 
-def _strided_cuda(x: torch.Tensor, taps, stride: int, kernel: str
-                  ) -> torch.Tensor:
-    flat = KF._rows(_flatten(x), kernel)
-    key, w, pad_l = KF._corr_weights(taps)
-    rows, n = flat.shape
-    n_out = n // stride
-    y = torch.empty((rows, n_out), dtype=torch.complex64, device=x.device)
-    wt = T.on_device(KF._reversed_taps, (key,), None, x.device)
-    err = build.library().ofdm_banded_strided(
-        flat.data_ptr(), wt.data_ptr(), y.data_ptr(), rows, n, n_out, len(w),
-        stride, pad_l, 1, build.stream_ptr(x.device))
-    build.check(err, kernel)
-    policy.count_launch(kernel)
-    return _unflatten(y, x)
-
-
 def _fir_cuda(x: torch.Tensor, taps) -> torch.Tensor:
-    return _strided_cuda(x, taps, 1, "ilv_fir")
+    return KB._strided_launch("ilv_fir", x, taps, 1, False)
 
 
 def _decim_cuda(x: torch.Tensor, m: int, taps) -> torch.Tensor:
-    if m < 1:
-        raise ValueError(f"ilv_decim: need m >= 1, got {m}")
-    return _strided_cuda(x, taps, m, "ilv_decim")
+    return KB._strided_launch("ilv_decim", x, taps, m, False)
 
 
 def _interp_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
-    if l < 1:
-        raise ValueError(f"ilv_interp: need l >= 1, got {l}")
-    flat = KF._rows(_flatten(x), "ilv_interp")
-    key = KF._f64_key(taps)
-    g, _, d_max = KF._branch_matrix(key, l)
-    rows, n = flat.shape
-    y = torch.empty((rows, n * l), dtype=torch.complex64, device=x.device)
-    gt = T.on_device(KF._branch_matrix, (key, l), 0, x.device)
-    err = build.library().ofdm_banded_interp(
-        flat.data_ptr(), gt.data_ptr(), y.data_ptr(), rows, n, l, g.shape[1],
-        d_max, 1, build.stream_ptr(x.device))
-    build.check(err, "ilv_interp")
-    policy.count_launch("ilv_interp")
-    return _unflatten(y, x)
+    return KB._interp_launch("ilv_interp", x, l, taps)
 
 
 def _fir_bf16_cuda(x: torch.Tensor, taps) -> torch.Tensor:

@@ -1091,10 +1091,14 @@ def test_ilv_default_kernels_close(dev, kind, f, shape):
 
 
 @pytest.mark.parametrize("l,shape", [(32, (9000,)), (128, (20480,)),
-                                     (48, (3, 6000)), (512, (2, 40000))])
+                                     (48, (3, 6000)), (512, (2, 40000)),
+                                     (1, (3, 6001)), (700, (2, 2500)),
+                                     (300, (1001,))])
 def test_banded_sc_kernel_close(dev, l, shape):
-    """K8's S&C window sums in one launch: P within 1e-5 of max|P|, R
-    within 1e-5 relative, against the direct window sums."""
+    """K8's S&C window sums in one launch from r: P within 1e-5 of max|P|,
+    R within 1e-5 relative, against the direct window sums; at l = 1 (two
+    samples a window of R) and at l > n / 4 (a halo of 2l beside few
+    outputs)."""
     x = torch.randn(shape, dtype=torch.complex64, generator=_gen(l),
                     device=dev)
     policy.reset_launches()
