@@ -144,8 +144,10 @@ findings on a line of its own:
       193- and 3-tap FIR, the 8x decimation, the S&C correlator at l = 128;
       the 8x interpolation over 2^17) and C4's decimation [8, 4,138,472]
       and TX interpolation [32, 16128] at full width, each kernel held
-      against its plain version, at C4 beside the exact K7 kernel on the
-      same input (the A/B of the two exact filter designs);
+      against its plain version, its in-kernel time in turns with its
+      library call's (conv1d, conv_transpose1d) and its wrapper's host
+      time a call, at C4 beside the exact K7 kernel on the same input (the
+      A/B of the two exact filter designs);
   tiers, the last three TPU kernels' counterparts, which no user path
       runs either: the banded tier K8 (kernels/banded.py: fir_banded,
       polyphase_decim_banded with ceil(n/m) outputs,
@@ -312,6 +314,7 @@ AXES_WORLD = 4
 REPS = 5
 REPS_STREAM = 2
 SLOW_S = 1.0            # a plain version slower than this is timed once
+HOST_REPS = 200         # calls a wrapper's host time is taken over
 REL_TOL = 1e-5          # FIR / FFT / S&C P: max error within 1e-5 * max|y|
 M_TOL = 1e-5            # S&C metric M: absolute (M lies in [0, ~1])
 R_TOL = 1e-5            # S&C R: relative, sample by sample
@@ -501,6 +504,21 @@ def device_ms(torch, fn, reps: int = 20) -> float | None:
     if host_ms >= spin.elapsed_time(start):
         return None
     return start.elapsed_time(end) / reps
+
+
+def host_us(torch, fn, reps: int = HOST_REPS) -> float:
+    """Host microseconds of one call of fn, over reps calls after a
+    warm-up with no synchronisation between them: the wrapper's work and
+    the launch's enqueue, not the device's."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(nbytes: float, ops: float, peak: float = F32_OPS
@@ -839,6 +857,8 @@ def log_kernels(label, res) -> None:
             + (f"  found {v['found']}" if "found" in v else "")
             + (f"  library in-kernel {v['library_device_ms']:.4f} ms"
                if v.get("library_device_ms") is not None else "")
+            + (f"  host {v['host_us']:.1f} us a call"
+               if "host_us" in v else "")
             + (f"  unscaled {v['library_unscaled_ms']:.4f} ms"
                if v.get("library_unscaled_ms") is not None else ""))
 
@@ -2195,7 +2215,9 @@ def run_shift(torch, device, c4_inputs) -> dict:
     baseband frames [32, 16128]). One counted run of the four functions at
     every shape (this phase's main path: every shift_* kernel launches, no
     other kernel does), then each kernel held against its plain version
-    with its bound, plain, library and in-kernel times; at C4 the exact K7
+    with its bound, plain, library and in-kernel times (where there is a
+    library call, its in-kernel time too, in turns with the kernel) and
+    its public wrapper's host time a call (host_us); at C4 the exact K7
     kernel on the same input beside it, in turns (K7, K11, K11, K7, each
     in-kernel); and the S&C energy formed as the TPU kernel forms it (re*re
     + im*im) against K9's |r|^2."""
@@ -2267,12 +2289,26 @@ def run_shift(torch, device, c4_inputs) -> dict:
             lambda: sync.sc_correlate_plain(x, l), x.shape,
             work_sc(1, SHIFT_N, l, metric=False), None),
     }
+    public = {   # key: the public wrapper's call, for its host time
+        "shift_fir_193": lambda: shift.fir_shift(x, taps),
+        "shift_fir_3": lambda: shift.fir_shift(x, taps3),
+        "shift_decim_c4": lambda: shift.polyphase_decim_shift(radio, m, taps),
+        "shift_decim": lambda: shift.polyphase_decim_shift(x, m, taps),
+        "shift_interp_c4": lambda: shift.polyphase_interp_shift(base, m,
+                                                                taps),
+        "shift_interp": lambda: shift.polyphase_interp_shift(xs, m, taps),
+        "shift_sc": lambda: shift.sc_correlate_shift(x, l),
+    }
     res = {}
     for key, (run_k, run_p, shape, work, library) in cases.items():
         close = sc_close if key == "shift_sc" else rel_close
         res[key] = held(torch, key, run_k, run_p, close, shape, work,
                         library)
-        res[key]["device_ms"] = device_ms(torch, run_k)
+        if library is None:
+            res[key]["device_ms"] = device_ms(torch, run_k)
+        else:
+            library_in_turns(torch, res[key], run_k, library)
+        res[key]["host_us"] = host_us(torch, public[key])
     log_kernels("shift", res)
     # the A/B at C4: the exact K7 kernel on the same input, in turns
     for key, k7 in (("shift_decim_c4",

@@ -30,7 +30,8 @@ SOURCES = ("binding.cu", "viterbi.cu", "fft.cu", "localize.cu", "extract.cu",
            "banded.cu", "deframe.cu")
 HEADERS = ("ofdm_kernels.h", "viterbi_group.cuh", "viterbi_window.cuh",
            "fir_strided.cuh", "fir_interp.cuh", "scfront_tile.cuh",
-           "scfront_split.cuh", "localize_warp.cuh", "banded_body.cuh")
+           "scfront_split.cuh", "localize_warp.cuh", "banded_body.cuh",
+           "shift_body.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = (ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -65,10 +66,12 @@ _SIGNATURES = {
     "ofdm_fir_bf16_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # the shifted-FMA tier: x, w, y, rows, n, nt, pad_left, stream
     "ofdm_shift_fir": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # x, kern, y, rows, n_in, n_out, m, nd, pad_left, stream
+    # x, w, y, rows, n_in, n_out, m, nt, pad_left, stream
     "ofdm_shift_decim": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, kern, y, rows, n, l, nd, d_max, stream
+    # x, g, y, rows, n, l, nd, d_max, stream
     "ofdm_shift_interp": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # kind, rows, n_in, n_out, nt, m, lead, out[8]
+    "ofdm_shift_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
     # the banded tier: x, w, y, rows, n_in, n_out, nt, stride, pad_left,
     # stream
     "ofdm_banded_strided": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

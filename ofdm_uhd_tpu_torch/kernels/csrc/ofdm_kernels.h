@@ -107,24 +107,32 @@ OFDM_API int ofdm_fir_bf16_interp(const float2* x, const float* g, float2* y,
                                   int rows, int n, int l, int nd, int d_max,
                                   void* stream);
 
-// The shifted-FMA tier (shift.cu), float32 planes, one fmaf per tap:
-// 'same' FIR, x [rows, n] -> y [rows, n], y[r, i] = sum_t w[t] *
-// x[r, i + t - pad_left] (w: the taps reversed), taps summed in ascending
-// order; M-fold decimation, x [rows, n_in] -> y [rows, n_out], y[r, i] =
-// sum_p sum_d kern[p, d] * x[r, (i + d)*m + p - pad_left] (kern [m, nd]:
-// kern[p, d] = w[d*m + p]), each phase summed over d, then the phases in
-// ascending order; L-fold interpolation, x [rows, n] -> y [rows, n * l],
-// y[r, i*l + q] = sum_e kern[q, e] * x[r, i + e - d_max] (kern [l, nd]:
-// the branch matrix, each branch reversed). Zeros outside each row.
-OFDM_API int ofdm_shift_fir(const float2* x, const float* w, float2* y,
+// The shifted-FMA tier (shift.cu, body shift_body.cuh), one float32 FMA
+// a tap, complex64 rows read in place (any 8-byte aligned x and y): 'same'
+// FIR, x [rows, n] -> y [rows, n], y[r, i] = sum_t w[t] * x[r, i + t -
+// pad_left] (w: the nt taps reversed), taps summed in ascending order;
+// M-fold decimation, x [rows, n_in] -> y [rows, n_out], y[r, i] = sum_p
+// sum_d w[d*m + p] * x[r, (i + d)*m + p - pad_left] (zero past nt), each
+// phase summed over d ascending, then the phases in ascending order;
+// L-fold interpolation, x [rows, n] -> y [rows, n * l], y[r, i*l + q] =
+// sum_e g[q, nd - 1 - e] * x[r, i + e - d_max] (g [l, nd]: the branch
+// matrix). Zeros outside each row.
+OFDM_API int ofdm_shift_fir(const void* x, const float* w, void* y,
                             int rows, int n, int nt, int pad_left,
                             void* stream);
-OFDM_API int ofdm_shift_decim(const float2* x, const float* kern, float2* y,
-                              int rows, int n_in, int n_out, int m, int nd,
+OFDM_API int ofdm_shift_decim(const void* x, const float* w, void* y,
+                              int rows, int n_in, int n_out, int m, int nt,
                               int pad_left, void* stream);
-OFDM_API int ofdm_shift_interp(const float2* x, const float* kern, float2* y,
+OFDM_API int ofdm_shift_interp(const void* x, const float* g, void* y,
                                int rows, int n, int l, int nd, int d_max,
                                void* stream);
+// The plan the launch of those arguments takes on the current device,
+// for measurement (kind 2: the interpolation, n_in = n, nt = nd, m = l,
+// lead = d_max; else the FIR or the decimation by m, lead = pad_left):
+// out[8] = tile, consumer warps, ring stages, blocks an SM, blocks, items,
+// shared memory bytes, pieces.
+OFDM_API int ofdm_shift_plan(int kind, int rows, int n_in, int n_out, int nt,
+                             int m, int lead, int* out);
 
 // The banded tier (banded.cu), float32 accuracy on the tensor cores
 // (3xTF32), complex64 rows read in place (any 8-byte aligned x). Strided:

@@ -1,6 +1,6 @@
 // The shifted-FMA filter tier: the 'same' FIR, phase-split M-fold
-// decimation and branch-row L-fold interpolation of complex rows, in
-// float32 planes, one weighted FMA per tap.
+// decimation and branch-row L-fold interpolation of complex64 rows read
+// in place, one float32 FMA a tap and component.
 //
 // Replaces ofdm_uhd_tpu/research/pallas_shift.py (K11):
 //   ofdm_shift_fir:    fir_shift_pallas (_fir_kernel, chunk rows) and
@@ -11,260 +11,193 @@
 // function in K9's order, and runs on ofdm_sc_correlate in scfront.cu.)
 //
 // The TPU kernels keep the signal as re and im planes, stage a tile plus
-// its halo in VMEM, and add one weighted FMA per tap over the tile. These
-// keep that layout: a block stages one row's tile of outputs plus the
-// nd - 1 samples of halo after it, as two float planes in shared memory,
-// and every tap is one fmaf per output and plane. The TPU split long
-// filters into 8 phases only because Mosaic's compile budget allowed about
-// 33 distinct lane shifts per kernel (pallas_shift.py:32-37, _MAX_OFFSETS);
-// CUDA has no such limit, so the FIR is the decimation's kernel at M = 1,
-// one phase of nt taps, at any tap count. The decimation keeps the phase
-// split, which is its layout: the tile is staged de-interleaved into M
-// phase planes P_p[j] = xp[j*M + p] (pallas_shift.py:359), and output i
-// sums P_p[i + d] over d < nd = ceil(nt / M) per phase, then the M phase
-// sums in ascending phase (pallas_shift.py:324-328). The FIR's taps are
-// summed in ascending order, as the TPU kernels sum them.
+// its halo in VMEM, and add one weighted FMA per tap over the tile. The
+// TPU split long filters into 8 phases only because Mosaic's compile
+// budget allowed about 33 distinct lane shifts per kernel (pallas_shift.py
+// :32-37, _MAX_OFFSETS); CUDA has no such limit, so the FIR is the phase
+// kind at M = 1, one phase of nt taps. The decimation keeps the phase
+// split, which is its layout (pallas_shift.py:359): output i sums P_p[i +
+// d] over d < nd = ceil(nt / M) per phase, then the M phase sums in
+// ascending phase (pallas_shift.py:324-328).
 //
-// Each thread keeps kR consecutive outputs in registers and a window of
-// kR input samples per plane: a tap costs one shared load per plane and
-// kR FMAs, and the window rotates by register renaming (the tap loop is
-// unrolled by kR). kR is odd, so the 32 lanes of a warp, kR words apart,
-// read 32 distinct banks; the taps are read by every lane at one address
-// (a broadcast). fir.cu's strided kernel, by contrast, reads interleaved
-// float2 at stride * 8 bytes between lanes (64 B at stride 8).
+// The design for this card (shift_body.cuh): a persistent grid of blocks
+// of consumer warps and a producer warp; the producer bulk-copies each
+// item's contiguous span (cp.async.bulk, complex64 as it lies) into a ring
+// of 2-3 stages on mbarriers (the decimation's span in two pieces), so the
+// next span arrives while the consumers sum; the decimation's consumers
+// split each piece once into float2 phase planes (no division a sample;
+// skewed plane strides), the FIR's and the interpolation's sum straight
+// from the stage; kR outputs a thread from a window in registers, the taps
+// a table row read at one address a warp; the outputs staged in shared
+// memory in sample order and written by bulk stores
+// (cp.async.bulk.global.shared::cta). The plan (shiftk::plan_*) takes 4
+// consumer warps a block where that gives every SM two items (else 2, 1),
+// the stages by the occupancy API.
 //
-// Bound on this card: memory for the decimation (C4's capture, 8 x
-// 4,138,472 samples in, 517,309 out a row: 265 MB for 1.6 G FMAs, 0.089
-// ms at 3.35 TB/s against 0.048 ms of float32 FMAs); shared-memory loads
-// and FMAs come next, at 2 (nd + kR - 1) / kR loads and 2 nd FMAs per
-// output and phase. Rows never leak: each row is filtered on its own,
-// with zeros before its start and past its end. Offsets are size_t.
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32): C4's decimation of
+// 8 x 4,138,472 samples by 8 with 193 taps moves 298 MB (0.089 ms) for 1.6
+// G FMAs (0.049 ms), bound by bytes; C4's TX interpolation [32, 16128] by
+// 8 moves 37 MB (0.011 ms), 33 MB of it outputs; the 193-tap FIR over 2^20
+// samples is bound by its 0.4 G FMAs (0.012 ms). Shared memory bounds the
+// decimation's tile: a staged output takes 64 bytes in the planes and 32
+// a stage. In-kernel on an NVIDIA H100 80GB HBM3 at 700.00 W, in turns with
+// the previous body (scripts/tiers_ab.py --phase shift; PERF.md §6): C4's
+// decimation 0.152 ms (0.231; K7's strided body 0.173 in the same turns),
+// its TX interpolation 0.021 (0.024), the 193-tap FIR at 2^20 0.0245
+// (0.0326). Rows never leak: each row is filtered on its own, zeros read
+// by index before its start and past its end.
+#include <algorithm>
+
 #include "ofdm_kernels.h"
+#include "shift_body.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;     // threads per block
-constexpr int kR = 5;             // consecutive outputs a thread (odd)
-constexpr int kTile = kThreads * kR;      // outputs a block (phase kernel)
-constexpr int kGroups = 64;       // interp: kR-input groups a block
-constexpr int kTileIn = kGroups * kR;     // interp: inputs a block
-constexpr size_t kMaxSmem = 227 * 1024;   // shared memory a block may use
+constexpr int kMaxWarps = 4;                 // consumer warps a block, most
+constexpr size_t kMaxSmem = 232448;          // a block's dynamic shared memory
+// consecutive outputs a thread (odd): the FIR, the decimation (m > 1),
+// the interpolation (inputs of one branch)
+constexpr int kRFir = 9, kRDecim = 5, kRInterp = 9;
 
-// Plane stride of the phase planes: whole 32-word rows plus a skew, so the
-// staging writes of one warp (lane j -> phase j % m, index j / m) fall in
-// distinct banks.
-int plane_stride(int len, int m) {
-    const int whole = (len + 31) / 32 * 32;
-    return whole + (m > 1 ? (32 + m - 1) / m : 0);
+template <int kKind, int R>
+__global__ void __launch_bounds__(32 * (kMaxWarps + 1))
+shift_kernel(const shiftk::Args a, const shiftk::Plan g) {
+    extern __shared__ float4 shift_smem[];
+    unsigned char* smem = reinterpret_cast<unsigned char*>(shift_smem);
+    shiftk::DevicePipe pipe{
+        reinterpret_cast<unsigned long long*>(smem + g.o_bars), g.stages};
+    const int consumers = g.consumers();
+    shiftk::shift_block<kKind, R>(
+        a, g, smem, blockIdx.x, gridDim.x, threadIdx.x, pipe,
+        [] { __syncthreads(); },
+        [consumers] {
+            asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+        });
 }
 
-// out[r, i] = sum_{p<m} sum_{d<nd} kern[p, d] * P_p[i + d], with
-// P_p[j] = xp[j*m + p] and xp = row r with pad_left zeros in front and
-// zeros past its end; i < n_out. kern is [m, nd] row-major.
-__global__ void __launch_bounds__(kThreads)
-shift_phase_kernel(const float2* __restrict__ x,
-                   const float* __restrict__ kern, float2* __restrict__ y,
-                   int n_in, int n_out, int m, int nd, int pad_left, int lp,
-                   int tiles) {
-    extern __shared__ float sm[];
-    float* ks = sm;                                // [m * nd]
-    float* pre = sm + ((m * nd + 1) & ~1);         // [m][lp], re plane
-    float* pim = pre + static_cast<size_t>(m) * lp;   // im plane
-    const int row = blockIdx.x / tiles;
-    const int o0 = (blockIdx.x - row * tiles) * kTile;
-    const int len = kTile + nd - 1;                // tile + halo, per phase
-    const long long first = static_cast<long long>(o0) * m - pad_left;
-    const float2* xr = x + static_cast<size_t>(row) * n_in;
-    for (int j = threadIdx.x; j < m * nd; j += kThreads) ks[j] = kern[j];
-    // coalesced reads of the span, de-interleaved into the phase planes
-    const int span = len * m;
-    for (int j = threadIdx.x; j < span; j += kThreads) {
-        const long long s = first + j;
-        const float2 v = (s >= 0 && s < n_in) ? xr[s]
-                                                : make_float2(0.0f, 0.0f);
-        const int i = j / m, p = j - i * m;
-        pre[p * lp + i] = v.x;
-        pim[p * lp + i] = v.y;
+// The blocks of an instance an SM holds at `threads` threads and `smem`
+// bytes of shared memory (the occupancy API, after the shared-memory
+// opt-in, set once an instance and device to the most a block may use);
+// 0 where the card refuses.
+template <int kKind, int R>
+int per_sm(int dev, int threads, int smem) {
+    static constexpr int kDevices = 64;
+    static bool opted[kDevices] = {};
+    if (dev < 0 || dev >= kDevices) return 0;
+    if (!opted[dev]) {
+        if (cudaFuncSetAttribute(shift_kernel<kKind, R>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kMaxSmem)) != cudaSuccess)
+            return 0;
+        opted[dev] = true;
     }
-    __syncthreads();
-    const int base = threadIdx.x * kR;             // first output, in tile
-    if (o0 + base >= n_out) return;
-    float yre[kR], yim[kR];
-#pragma unroll
-    for (int k = 0; k < kR; ++k) yre[k] = yim[k] = 0.0f;
-    for (int p = 0; p < m; ++p) {
-        const float* sre = pre + p * lp + base;
-        const float* sim = pim + p * lp + base;
-        const float* kp = ks + p * nd;
-        float are[kR], aim[kR];                    // this phase's sums
-        float wre[kR], wim[kR];    // window: P_p[base + d + k] in slot (d + k) % kR
-#pragma unroll
-        for (int k = 0; k < kR; ++k) {
-            are[k] = aim[k] = 0.0f;
-            if (k < kR - 1) {
-                wre[k] = sre[k];
-                wim[k] = sim[k];
-            }
-        }
-        for (int d0 = 0; d0 < nd; d0 += kR) {
-#pragma unroll
-            for (int u = 0; u < kR; ++u) {
-                const int d = d0 + u;
-                if (d < nd) {
-                    const int in = (u + kR - 1) % kR;
-                    wre[in] = sre[d + kR - 1];
-                    wim[in] = sim[d + kR - 1];
-                    const float c = kp[d];
-#pragma unroll
-                    for (int k = 0; k < kR; ++k) {
-                        are[k] = fmaf(c, wre[(u + k) % kR], are[k]);
-                        aim[k] = fmaf(c, wim[(u + k) % kR], aim[k]);
-                    }
-                }
-            }
-        }
-#pragma unroll
-        for (int k = 0; k < kR; ++k) {
-            yre[k] = __fadd_rn(yre[k], are[k]);
-            yim[k] = __fadd_rn(yim[k], aim[k]);
-        }
-    }
-    float2* yr = y + static_cast<size_t>(row) * n_out + o0 + base;
-#pragma unroll
-    for (int k = 0; k < kR; ++k)
-        if (o0 + base + k < n_out) yr[k] = make_float2(yre[k], yim[k]);
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, shift_kernel<kKind, R>, threads, smem) != cudaSuccess)
+        return 0;
+    return n;
 }
 
-// out[r, i*l + q] = sum_{e<nd} kern[q, e] * xp[i + e], xp = row r with
-// d_max zeros in front and zeros past its end; kern [l, nd] is the branch
-// matrix with each branch reversed. A (group, branch) pair takes kR
-// consecutive inputs of one branch; the pairs of a warp are the l branches
-// of consecutive groups, so a store writes runs of l consecutive outputs.
-__global__ void __launch_bounds__(kThreads)
-shift_interp_kernel(const float2* __restrict__ x,
-                    const float* __restrict__ kern, float2* __restrict__ y,
-                    int n, int l, int nd, int d_max, int kstride,
-                    int tiles) {
-    extern __shared__ float sm[];
-    float* ks = sm;                                // [l][kstride], odd
-    const int len = kTileIn + nd - 1;
-    float* xre = sm + ((l * kstride + 1) & ~1);    // [len]
-    float* xim = xre + len;
-    const int row = blockIdx.x / tiles;
-    const int i0 = (blockIdx.x - row * tiles) * kTileIn;
-    const float2* xr = x + static_cast<size_t>(row) * n;
-    for (int j = threadIdx.x; j < l * nd; j += kThreads) {
-        const int q = j / nd;
-        ks[q * kstride + (j - q * nd)] = kern[j];
-    }
-    for (int j = threadIdx.x; j < len; j += kThreads) {
-        const int s = i0 - d_max + j;
-        const float2 v = (s >= 0 && s < n) ? xr[s] : make_float2(0.0f, 0.0f);
-        xre[j] = v.x;
-        xim[j] = v.y;
-    }
-    __syncthreads();
-    const size_t n_out = static_cast<size_t>(n) * l;
-    float2* yr = y + static_cast<size_t>(row) * n_out;
-    for (int pair = threadIdx.x; pair < kGroups * l; pair += kThreads) {
-        const int g = pair / l, q = pair - g * l;
-        const int base = g * kR;
-        if (i0 + base >= n) break;        // pairs ascend with their group
-        const float* sre = xre + base;
-        const float* sim = xim + base;
-        const float* kq = ks + q * kstride;
-        float are[kR], aim[kR], wre[kR], wim[kR];
-#pragma unroll
-        for (int k = 0; k < kR; ++k) {
-            are[k] = aim[k] = 0.0f;
-            if (k < kR - 1) {
-                wre[k] = sre[k];
-                wim[k] = sim[k];
-            }
-        }
-        for (int e0 = 0; e0 < nd; e0 += kR) {
-#pragma unroll
-            for (int u = 0; u < kR; ++u) {
-                const int e = e0 + u;
-                if (e < nd) {
-                    const int in = (u + kR - 1) % kR;
-                    wre[in] = sre[e + kR - 1];
-                    wim[in] = sim[e + kR - 1];
-                    const float c = kq[e];
-#pragma unroll
-                    for (int k = 0; k < kR; ++k) {
-                        are[k] = fmaf(c, wre[(u + k) % kR], are[k]);
-                        aim[k] = fmaf(c, wim[(u + k) % kR], aim[k]);
-                    }
-                }
-            }
-        }
-#pragma unroll
-        for (int k = 0; k < kR; ++k) {
-            const size_t i = static_cast<size_t>(i0) + base + k;
-            if (i < static_cast<size_t>(n))
-                yr[i * l + q] = make_float2(are[k], aim[k]);
-        }
+// The current device and its SM count.
+cudaError_t card(int& dev, int& sms) {
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    return cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// The plan of a launch of kind `kind` on device dev of `sms` SMs: the FIR
+// and the decimation (nt weights, stride m, lead = pad_left) or the
+// interpolation (n_in = n, nt = nd, m = l, lead = d_max).
+bool make_plan(int kind, int rows, int n_in, int n_out, int nt, int m,
+               int lead, int dev, int sms, shiftk::Plan& g) {
+    using namespace shiftk;
+    switch (kind) {
+        case kFir:
+            return plan_phase(g, rows, n_in, n_out, nt, 1, lead, kRFir,
+                              kMaxWarps, sms, kMaxSmem, [dev](int t, int b) {
+                                  return per_sm<kFir, kRFir>(dev, t, b);
+                              });
+        case kDecim:
+            return plan_phase(g, rows, n_in, n_out, nt, m, lead, kRDecim,
+                              kMaxWarps, sms, kMaxSmem, [dev](int t, int b) {
+                                  return per_sm<kDecim, kRDecim>(dev, t, b);
+                              });
+        default:
+            return plan_interp(g, rows, n_in, m, nt, lead, kRInterp,
+                               kMaxWarps, sms, kMaxSmem, [dev](int t, int b) {
+                                   return per_sm<kInterp, kRInterp>(dev, t,
+                                                                    b);
+                               });
     }
 }
 
-// Dynamic shared memory above the default 48 KB needs the opt-in; above
-// what a block may use, the launch is refused.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-    if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(bytes));
-}
-
-int launch_phase(const float2* x, const float* kern, float2* y, int rows,
-                 int n_in, int n_out, int m, int nd, int pad_left,
-                 void* stream) {
-    if (rows <= 0 || n_out <= 0) return 0;
-    if (m < 1 || nd < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = (n_out + kTile - 1) / kTile;
-    const int lp = plane_stride(kTile + nd - 1, m);
-    const size_t smem = sizeof(float) * (((m * nd + 1) & ~1)
-                                         + 2 * static_cast<size_t>(m) * lp);
-    cudaError_t err = allow_smem(shift_phase_kernel, smem);
+// One launch of kind kKind: its plan made again only for other arguments
+// than the last launch of the kind on this host thread (a session's
+// launches repeat theirs), a grid of as many blocks as the card holds at
+// once, at most one an item.
+template <int kKind, int R>
+int launch(const void* x, const float* coef, void* y, int rows, int n_in,
+           int n_out, int nt, int m, int lead, void* stream) {
+    if (rows <= 0 || n_in <= 0 || n_out <= 0) return 0;
+    static thread_local int key[8] = {};
+    static thread_local bool ok = false;
+    static thread_local shiftk::Plan g;
+    int dev = 0, sms = 0;
+    cudaError_t err = card(dev, sms);
     if (err != cudaSuccess) return static_cast<int>(err);
-    shift_phase_kernel<<<rows * tiles, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-        x, kern, y, n_in, n_out, m, nd, pad_left, lp, tiles);
+    const int args[8] = {rows, n_in, n_out, nt, m, lead, dev, sms};
+    if (!std::equal(args, args + 8, key)) {
+        ok = make_plan(kKind, rows, n_in, n_out, nt, m, lead, dev, sms, g);
+        std::copy(args, args + 8, key);
+    }
+    shiftk::Args a{};
+    if (!ok || !shiftk::args_at(x, coef, y, a))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long fit = static_cast<long long>(sms) * g.per_sm;
+    const int blocks = static_cast<int>(g.items < fit ? g.items : fit);
+    shift_kernel<kKind, R><<<blocks, g.threads(), g.smem,
+                             static_cast<cudaStream_t>(stream)>>>(a, g);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-OFDM_API int ofdm_shift_fir(const float2* x, const float* w, float2* y,
-                            int rows, int n, int nt, int pad_left,
-                            void* stream) {
-    return launch_phase(x, w, y, rows, n, n, 1, nt, pad_left, stream);
+OFDM_API int ofdm_shift_fir(const void* x, const float* w, void* y, int rows,
+                            int n, int nt, int pad_left, void* stream) {
+    return launch<shiftk::kFir, kRFir>(x, w, y, rows, n, n, nt, 1, pad_left,
+                                       stream);
 }
 
-OFDM_API int ofdm_shift_decim(const float2* x, const float* kern, float2* y,
-                              int rows, int n_in, int n_out, int m, int nd,
+OFDM_API int ofdm_shift_decim(const void* x, const float* w, void* y,
+                              int rows, int n_in, int n_out, int m, int nt,
                               int pad_left, void* stream) {
-    return launch_phase(x, kern, y, rows, n_in, n_out, m, nd, pad_left,
-                        stream);
+    if (m == 1)
+        return launch<shiftk::kFir, kRFir>(x, w, y, rows, n_in, n_out, nt, 1,
+                                           pad_left, stream);
+    return launch<shiftk::kDecim, kRDecim>(x, w, y, rows, n_in, n_out, nt, m,
+                                           pad_left, stream);
 }
 
-OFDM_API int ofdm_shift_interp(const float2* x, const float* kern, float2* y,
+OFDM_API int ofdm_shift_interp(const void* x, const float* gm, void* y,
                                int rows, int n, int l, int nd, int d_max,
                                void* stream) {
-    if (rows <= 0 || n <= 0) return 0;
-    if (l < 1 || nd < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = (n + kTileIn - 1) / kTileIn;
-    const int kstride = nd | 1;
-    const size_t smem = sizeof(float) * (((l * kstride + 1) & ~1)
-                                         + 2 * static_cast<size_t>(
-                                             kTileIn + nd - 1));
-    cudaError_t err = allow_smem(shift_interp_kernel, smem);
+    return launch<shiftk::kInterp, kRInterp>(x, gm, y, rows, n, n * l, nd, l,
+                                             d_max, stream);
+}
+
+OFDM_API int ofdm_shift_plan(int kind, int rows, int n_in, int n_out, int nt,
+                             int m, int lead, int* out) {
+    int dev = 0, sms = 0;
+    cudaError_t err = card(dev, sms);
     if (err != cudaSuccess) return static_cast<int>(err);
-    shift_interp_kernel<<<rows * tiles, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        x, kern, y, n, l, nd, d_max, kstride, tiles);
-    return static_cast<int>(cudaGetLastError());
+    if (kind != shiftk::kInterp) kind = m > 1 ? shiftk::kDecim : shiftk::kFir;
+    shiftk::Plan g;
+    if (!make_plan(kind, rows, n_in, n_out, nt, m, lead, dev, sms, g))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long fit = static_cast<long long>(sms) * g.per_sm;
+    const int v[8] = {g.tile, g.warps, g.stages, g.per_sm,
+                      static_cast<int>(g.items < fit ? g.items : fit),
+                      static_cast<int>(g.items), g.smem, g.pieces};
+    std::copy(v, v + 8, out);
+    return 0;
 }

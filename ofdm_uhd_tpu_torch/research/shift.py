@@ -5,9 +5,9 @@ The reference keeps this tier as a measured A/B baseline beside its MXU
 filters and routes no user path to it; neither does the port. It computes
 the functions of kernels/fir.py's exact tier (the 'same' FIR, M-fold
 decimation, L-fold interpolation) and of kernels/sync.py's correlator in
-another layout: the signal as float32 (re, im) planes, a tile plus its
-halo on chip, one weighted FMA per tap, the decimation phase-split
-(csrc/shift.cu holds the kernels and their design).
+another layout: a tile plus its halo on chip, one weighted float32 FMA per
+tap and component, the decimation phase-split (csrc/shift.cu launches
+them, csrc/shift_body.cuh holds their design).
 
   fir_shift(x, taps)               fir_shift_pallas, _fir_shift_phased
   polyphase_decim_shift(x, m, taps)   polyphase_decim_shift_pallas
@@ -19,8 +19,13 @@ launches the kernel (counted as shift_fir, shift_decim, shift_interp,
 shift_sc), a CPU tensor, or any inside policy.plain_versions(), takes the
 plain version, which is the port's plain function of the same math
 (kernels/fir.py decim_plain and interp_plain, kernels/sync.py
-sc_correlate_plain). Coefficients are the reference's: the taps as float32
-reversed, the branch matrix from the float64 prototype times L.
+sc_correlate_plain). A CUDA tensor launches its kernel once on the
+complex64 rows as they lie, with nothing else on the device but the
+output's torch.empty. Coefficients are the reference's, on the device as
+kernels/banded.py caches them by the taps' bytes: the correlation weights
+(the float32 taps reversed), which the kernel reads as the per-phase taps
+w[d*m + p] itself, and the branch matrix from the float64 prototype times
+L, which it reverses by index.
 
 The S&C correlator is K9's function in K9's order (pairwise-doubling
 boxcars, P over l and R = 0.5 * the energy over 2l), so it runs on K9's
@@ -32,82 +37,53 @@ rounding (tests/test_torch_shift.py measures it).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from ..kernels import banded as KB
 from ..kernels import build, policy
 from ..kernels import fir as KF
 from ..kernels import sync as KS
-from ..phy import tables as T
 
 
-@functools.lru_cache(maxsize=32)
-def _phase_kernel(taps_key: tuple, m: int) -> np.ndarray:
-    """The decimation's per-phase taps [m, nd], nd = ceil(nt / m):
-    kern[p, d] = w[d*m + p], w = the taps reversed, zeros past nt
-    (pallas_shift.py:339-344)."""
-    w = KF._reversed_taps(taps_key)
-    nd = -(-len(w) // m)
-    padded = np.zeros(nd * m, np.float32)
-    padded[:len(w)] = w
-    return np.ascontiguousarray(padded.reshape(nd, m).T)
-
-
-@functools.lru_cache(maxsize=32)
-def _interp_kernel(taps_key: tuple, l: int) -> np.ndarray:
-    """The branch matrix with each branch reversed [l, nd]
-    (pallas_shift.py:409-411)."""
-    g = KF._branch_matrix(taps_key, l)[0]
-    return np.ascontiguousarray(g[:, ::-1])
-
-
-def _launch(kernel: str, flat: torch.Tensor, n_out: int, *args
-            ) -> torch.Tensor:
-    y = torch.empty((flat.shape[0], n_out), dtype=torch.complex64,
-                    device=flat.device)
-    entry = getattr(build.library(), "ofdm_" + kernel)
-    err = entry(flat.data_ptr(), args[0].data_ptr(), y.data_ptr(),
-                flat.shape[0], *args[1:], build.stream_ptr(flat.device))
+def _launch(kernel: str, x: torch.Tensor, flat: torch.Tensor, n_out: int,
+            coef: torch.Tensor, *args) -> torch.Tensor:
+    """One launch of ofdm_<kernel> on the rows `flat` [B, n] of x [..., n]
+    as they lie: [..., n_out]."""
+    y = flat.new_empty((flat.shape[0], n_out))
+    err = getattr(build.library(), "ofdm_" + kernel)(
+        flat.data_ptr(), coef.data_ptr(), y.data_ptr(), flat.shape[0],
+        *args, build.stream_ptr(x.device))
     build.check(err, kernel)
     policy.count_launch(kernel)
-    return y
+    return KB._shaped(y, x)
 
 
 def _fir_cuda(x: torch.Tensor, taps) -> torch.Tensor:
-    flat = KF._rows(x, "shift_fir")
-    key, w, pad_l = KF._corr_weights(taps)
-    wt = T.on_device(KF._reversed_taps, (key,), None, x.device)
+    flat = KB._rows(x, "shift_fir")
+    w, pad_l = KB._weights(np.asarray(taps, np.float32).tobytes(), x.device)
     n = flat.shape[1]
-    return _launch("shift_fir", flat, n, wt, n, len(w), pad_l).reshape(
-        x.shape)
+    return _launch("shift_fir", x, flat, n, w, n, w.numel(), pad_l)
 
 
 def _decim_cuda(x: torch.Tensor, m: int, taps) -> torch.Tensor:
-    flat = KF._rows(x, "shift_decim")
+    flat = KB._rows(x, "shift_decim")
     if m < 1:
         raise ValueError(f"shift_decim: need m >= 1, got {m}")
-    key, _, pad_l = KF._corr_weights(taps)
-    kern = T.on_device(_phase_kernel, (key, m), None, x.device)
+    w, pad_l = KB._weights(np.asarray(taps, np.float32).tobytes(), x.device)
     n_in = flat.shape[1]
-    n_out = n_in // m
-    y = _launch("shift_decim", flat, n_out, kern, n_in, n_out, m,
-                kern.shape[1], pad_l)
-    return y.reshape(x.shape[:-1] + (n_out,))
+    return _launch("shift_decim", x, flat, n_in // m, w, n_in, n_in // m, m,
+                   w.numel(), pad_l)
 
 
 def _interp_cuda(x: torch.Tensor, l: int, taps) -> torch.Tensor:
-    flat = KF._rows(x, "shift_interp")
+    flat = KB._rows(x, "shift_interp")
     if l < 1:
         raise ValueError(f"shift_interp: need l >= 1, got {l}")
-    key = KF._f64_key(taps)
-    d_max = KF._branch_matrix(key, l)[2]
-    kern = T.on_device(_interp_kernel, (key, l), None, x.device)
+    g, nd, d_max = KB._branches(np.asarray(taps, np.float64).tobytes(), l,
+                                x.device)
     n = flat.shape[1]
-    y = _launch("shift_interp", flat, n * l, kern, n, l, kern.shape[1],
-                d_max)
-    return y.reshape(x.shape[:-1] + (n * l,))
+    return _launch("shift_interp", x, flat, n * l, g, n, l, nd, d_max)
 
 
 def _sc_cuda(r: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tensor]:

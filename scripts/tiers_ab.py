@@ -1,21 +1,25 @@
 """chip_smoke.py's tiers phase (run_tiers: K8, K13, K13 at DEFAULT and
-K12 held against their plain versions and timed) of this checkout and,
-with --against DIR, of another checkout's (e.g. a parent commit unpacked
-with `git archive` into a directory .gitignore lists), in turns: DIR,
-this, this, DIR (--rounds 1: DIR, this). Each run is a process of its
-own that imports its checkout's chip_smoke.py and package, builds its
-kernels, and runs the phase on the same seeded inputs at the phase's
-shapes: C4's decimation input [8, 4,138,472] and TX frames [32, 16128],
-C3's captures [8, 4,436,068] with 8 x 1026 offsets (normal samples and
-uniform offsets from a seed-0 CUDA generator, not the C3 and C4 paths'
-own data); the session rows and the 2^20 signal are the phase's own.
+K12 held against their plain versions and timed) or, with --phase shift,
+its shift phase (run_shift: K11 held and timed, with the exact K7 beside
+it at C4), of this checkout and, with --against DIR, of another
+checkout's (e.g. a parent commit unpacked with `git archive` into a
+directory .gitignore lists), in turns: DIR, this, this, DIR (--rounds 1:
+DIR, this). Each run is a process of its own that imports its checkout's
+chip_smoke.py and package, builds its kernels, and runs the phase on the
+same seeded inputs at the phase's shapes: C4's decimation input [8,
+4,138,472] and TX frames [32, 16128], C3's captures [8, 4,436,068] with 8
+x 1026 offsets (normal samples and uniform offsets from a seed-0 CUDA
+generator, not the C3 and C4 paths' own data); the session rows and the
+2^20 signal are the phase's own.
 
-    python3 scripts/tiers_ab.py [--against DIR] [--rounds 1|2] [--out FILE]
+    python3 scripts/tiers_ab.py [--phase tiers|shift] [--against DIR]
+                                [--rounds 1|2] [--out FILE]
 
-Prints each run's log and, last, per case: events ms, in-kernel ms and
-the library call's in-kernel ms of every run, and the C4 and S&C turns
-(JSON in --out). Exits 1 if a run fails (a kernel outside its tolerance
-fails its run). Needs an NVIDIA GPU and nvcc, no JAX.
+Prints each run's log and, last, per case: events ms, in-kernel ms, the
+library call's in-kernel ms and the wrapper's host us a call of every
+run, and the C4 (and the tiers phase's S&C) turns (JSON in --out). Exits 1
+if a run fails (a kernel outside its tolerance fails its run). Needs an
+NVIDIA GPU and nvcc, no JAX.
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ def inputs(torch, frame_len: int):
     return (radio, base), (cap, ds.sort(dim=1).values)
 
 
-def worker(root: Path, out: Path) -> int:
-    """One run of root's tiers phase; its results as JSON into out."""
+def worker(root: Path, out: Path, phase: str) -> int:
+    """One run of root's tiers or shift phase; its results as JSON into
+    out."""
     sys.path.insert(0, str(root))
     import torch
     import chip_smoke
@@ -54,9 +59,18 @@ def worker(root: Path, out: Path) -> int:
     torch.cuda.set_device(0)
     build.library()
     c4, c3 = inputs(torch, config("c3").frame_len)
+    dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     try:
-        res = chip_smoke.run_tiers(torch, torch.device("cuda", 0), c4, c3)
+        if phase == "shift":
+            res = chip_smoke.run_shift(torch, dev, c4)
+            # the C4 rows' turns: K7, K11, K11, K7
+            res["ab"] = {k: {"K7": v["k7_device_ms"],
+                             "K11": v["device_ms_turns"]}
+                         for k, v in res["kernels"].items()
+                         if "k7_device_ms" in v}
+        else:
+            res = chip_smoke.run_tiers(torch, dev, c4, c3)
     except chip_smoke.SmokeFailure as e:
         print(f"tiers_ab: {root}: FAILED: {e}", flush=True)
         return 1
@@ -78,7 +92,8 @@ def prebuild(roots: list[Path]) -> None:
 
 
 def summary(runs: list[tuple[str, dict]]) -> dict:
-    """Per case and run: events ms, in-kernel ms, library in-kernel ms."""
+    """Per case and run: events ms, in-kernel ms, library in-kernel ms,
+    host us a call."""
     table = {}
     for label, r in runs:
         for key, v in r["kernels"].items():
@@ -87,6 +102,7 @@ def summary(runs: list[tuple[str, dict]]) -> dict:
                  "device_ms": v.get("device_ms"),
                  "library_ms": v.get("library_ms"),
                  "library_device_ms": v.get("library_device_ms"),
+                 "host_us": v.get("host_us"),
                  "bound_ms": v["bound_ms"], "max_abs_err": v["max_abs_err"]})
     return table
 
@@ -97,15 +113,17 @@ def fmt(x) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phase", choices=("tiers", "shift"), default="tiers",
+                    help="chip_smoke's phase to run (default: tiers)")
     ap.add_argument("--against", type=Path,
-                    help="another checkout whose tiers phase runs in turns")
+                    help="another checkout whose phase runs in turns")
     ap.add_argument("--rounds", type=int, default=2, choices=(1, 2))
     ap.add_argument("--out", type=Path, help="the results as JSON")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--result", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.worker.resolve(), args.result)
+        return worker(args.worker.resolve(), args.result, args.phase)
     import torch
     if not torch.cuda.is_available():
         print("tiers_ab: needs an NVIDIA GPU", file=sys.stderr)
@@ -120,14 +138,15 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    runs, tmp = [], REPO / "build" / "tiers_ab"
+    runs, tmp = [], REPO / "build" / "tiers_ab" / args.phase
     tmp.mkdir(parents=True, exist_ok=True)
     for i, (label, root) in enumerate(order):
         res = tmp / f"run{i}.json"
         print(f"tiers_ab: run {i}: {label} ({root})", flush=True)
         rc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--worker",
-             str(root), "--result", str(res)], cwd=root).returncode
+             str(root), "--result", str(res), "--phase", args.phase],
+            cwd=root).returncode
         if rc != 0:
             print(f"tiers_ab: run {i} ({label}) exited {rc}",
                   file=sys.stderr)
@@ -137,7 +156,8 @@ def main() -> int:
     for key, rows in table.items():
         print(f"tiers_ab: {key:20s} " + "  ".join(
             f"{r['run']} ev {fmt(r['ms'])} in {fmt(r['device_ms'])} "
-            f"lib {fmt(r['library_device_ms'])}" for r in rows)
+            f"lib {fmt(r['library_device_ms'])} host {fmt(r['host_us'])}"
+            for r in rows)
             + f"  bound {rows[0]['bound_ms']:.4f}", flush=True)
     for label, r in runs:
         for key, turns in r["ab"].items():

@@ -122,19 +122,34 @@ def test_sc_energy_forms_agree():
 
 
 def test_shift_kernel_tables():
-    """The per-phase taps and the reversed branch matrix the kernels take,
-    built as pallas_shift.py builds them."""
+    """The coefficients the kernels take, as pallas_shift.py builds its
+    tables: the correlation weights w (kernels/banded.py's cache), which
+    the decimation reads as the per-phase taps kern[p, d] = w[d*m + p]
+    (zero past nt), and the branch matrix, which the interpolation
+    reverses by index, kern[q, e] = g[q, nd - 1 - e]."""
+    from ofdm_uhd_tpu_torch.kernels import banded as KB
     taps = np.asarray(resample_filter(8, 1), np.float32)
-    key = tuple(taps.tolist())
-    kern = shift._phase_kernel(key, 8)
+    w, pad_l = KB._weights(taps.tobytes(), torch.device("cpu"))
+    assert pad_l == len(taps) - 1 - (len(taps) - 1) // 2
     k97 = taps[::-1]
     want = np.zeros((8, 25), np.float32)
     for t in range(len(taps)):
         want[t % 8, t // 8] = k97[t]
+    kern = np.zeros((8, 25), np.float32)
+    for p in range(8):
+        for d in range(25):
+            if d * 8 + p < len(taps):
+                kern[p, d] = w[d * 8 + p]
     np.testing.assert_array_equal(kern, want)
-    g = KF.branch_matrix(taps, 8)[0]
+    g, nd, d_max = KB._branches(np.asarray(taps, np.float64).tobytes(), 8,
+                                torch.device("cpu"))
+    g_ref, _, d_max_ref = PS._branch_matrix(tuple(taps.astype(np.float64)),
+                                            8)
+    assert (nd, d_max) == (g_ref.shape[1], d_max_ref)
+    g = g.numpy()
+    rev = np.array([[g[q, nd - 1 - e] for e in range(nd)] for q in range(8)])
     np.testing.assert_array_equal(
-        shift._interp_kernel(KF._f64_key(taps), 8), g[:, ::-1])
+        rev, np.ascontiguousarray(np.asarray(g_ref)[:, ::-1]))
 
 
 def test_shift_on_cpu_launches_no_kernel():
