@@ -84,6 +84,13 @@ findings on a line of its own:
       32 captures x 128 frames (gap 300, SNR 28 dB, CFO 0.8, timing offset
       100, sc16), built and decoded as c3_pallas, with the boxcar S&C
       correlator kernel (l = 32) and the whole-sequence Viterbi kernel;
+  variants, the reference's three restructured whole-sequence decoders
+      (research/viterbi_variants.py: state-major metrics, radix-4 steps,
+      both; viterbi_plain's bits in the port, which no path routes) on the
+      card, at C3's trellis length (64 decodable rows and 16 of tied
+      integer LLRs, 6912 steps) and on an odd batch (6911 steps, where the
+      radix-4 forms fall back to K4), once each: each one's bits equal to
+      K4's at every group size;
   c5_sharded, the shard/ layer on a virtual mesh (several mesh entries on
       the one card): C5's capture at the resident point over
       `StreamRx(spec, mesh=make_mesh(1, 4, [cuda:0] * 4))` (Cb 1,032,192,
@@ -218,7 +225,9 @@ findings on a line of its own:
               where one PyTorch call computes the same function, that
               call's time (library_ms: torch.fft.fft, conv1d,
               conv_transpose1d, on bf16 planes and weights for the bf16
-              tier; the port never calls them); the FFT kernels (K3
+              tier, and for K2 advanced indexing on an unfold view with
+              the offsets clamped inside the capture, also in-kernel in
+              turns with K2; the port never calls them); the FFT kernels (K3
               both ways, K5 RX and TX) also in-kernel, in turns with
               torch.fft's call (ortho; for K5 TX torch.fft.ifft without
               the prefix), and torch.fft's unscaled call beside them; C5
@@ -311,6 +320,15 @@ AXES_MICRO = 4                   # the stage axis's microbatches
 # (frame axis (4, 1), stage axis, the stream on (2, 2)); NCCL, one process
 # a card, on 2 and 4 cards where there are that many
 AXES_WORLD = 4
+# the variants phase: the reference's three restructured whole-sequence
+# decoders against K4 at C3's trellis length (K4 at C3 decodes rows of
+# 6912 steps): VARIANT_ROWS (decodable, tied) rows, and an odd batch
+# (decodable rows, tied rows, steps) for the radix-4 forms' fallback
+VARIANTS = ("viterbi_decode_smaj", "viterbi_decode_radix4",
+            "viterbi_decode_smaj_radix4")
+VARIANT_STEPS = 6912
+VARIANT_ROWS = (64, 16)
+VARIANT_ODD = (8, 8, 6911)
 REPS = 5
 REPS_STREAM = 2
 SLOW_S = 1.0            # a plain version slower than this is timed once
@@ -945,17 +963,35 @@ def phase_kernels(torch, spec, label, ins, names=C3_PATH) -> dict:
         return res
 
     def hold_extract():
-        # bit-exact copy; reads the in-capture part of each frame
+        # bit-exact copy; reads the in-capture part of each frame. Library:
+        # advanced indexing on an unfold view, the function where no
+        # offset runs past the capture (the offsets clamped to n - fl
+        # before the call; equal to the kernel's frames on the slots whose
+        # offset lies in [0, n - fl]), in-kernel in turns with K2
         fl, ds = spec.frame_len, ins["ds"]
+        rows_i = torch.arange(rows, device=cap.device)[:, None]
+        start = ds.long().clamp(0, n - fl)
+        inside = (ds >= 0) & (ds <= n - fl)
+
+        def gather():
+            return cap.unfold(-1, fl, 1)[rows_i, start]
 
         def close(k, p):
             return (bool(torch.equal(torch.view_as_real(k),
                                      torch.view_as_real(p))),
                     float((k - p).abs().max()))
-        return held(torch, "extract",
-                    lambda: extract._extract_cuda(cap, ds, fl),
-                    lambda: extract.extract_plain(cap, ds, fl), close,
-                    (ds.numel(), fl), work_extract(n, ds, fl))
+        res = held(torch, "extract",
+                   lambda: extract._extract_cuda(cap, ds, fl),
+                   lambda: extract.extract_plain(cap, ds, fl), close,
+                   (ds.numel(), fl), work_extract(n, ds, fl), gather)
+        same, err = close(gather()[inside],
+                          extract._extract_cuda(cap, ds, fl)[inside])
+        check(same, f"{label} extract: the unfold gather differs from K2 "
+              f"by {err} on the offsets inside the capture")
+        library_in_turns(torch, res,
+                         lambda: extract._extract_cuda(cap, ds, fl), gather)
+        res["library_slots"] = int(inside.sum())
+        return res
 
     def hold_fft():
         # forward on the RX windows and inverse on their grid: within 1e-5
@@ -2189,6 +2225,79 @@ def run_k4w_ab(torch, llr) -> dict:
     log(f"k4w_ab: ok  one counted launch of the warp body on "
         f"{list(llr.shape)}")
     return {"kernels": {}, "launches": launches}
+
+
+def variant_llrs(torch, device, rows, ties, steps, seed) -> tuple:
+    """([rows + ties, 2 steps] float32 LLRs on the card, the sent bits of
+    the first `rows`): `rows` decodable as scripts/r5_probe_vit.py makes
+    them (seeded bits through conv_encode, +-1 plus 0.45 Gaussian noise),
+    each row's last 6 bits zero, as a frame's tail, so that the trellis
+    ends in state 0 where the decoders trace back from; then `ties` rows
+    of integers in {-2, ..., 2}, whose path metrics tie often (a tie keeps
+    predecessor 0)."""
+    import numpy as np
+    from ofdm_uhd_tpu_torch.phy.bits import conv_encode
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, (rows, steps)).astype(np.uint8)
+    bits[:, -6:] = 0
+    clean = (1.0 - 2.0 * conv_encode(torch.from_numpy(bits)).numpy()
+             ).astype(np.float32)
+    noisy = clean + 0.45 * rng.normal(size=clean.shape).astype(np.float32)
+    tied = rng.integers(-2, 3, (ties, 2 * steps)).astype(np.float32)
+    llr = torch.from_numpy(np.concatenate([noisy, tied])).to(device)
+    return llr, bits
+
+
+def run_variants(torch, device) -> dict:
+    """The reference's three restructured whole-sequence decoders
+    (research/viterbi_variants.py: state-major, radix-4, both; in the port
+    viterbi_plain's bits, which no path routes) against K4 at every group
+    size: at C3's trellis length (VARIANT_STEPS), a batch of VARIANT_ROWS
+    decodable and tied rows, and an odd batch (VARIANT_ODD), where the
+    radix-4 forms fall back to kernels/viterbi.py viterbi, K4 on the card.
+    One counted run of each on both batches (its only launches: K4 for
+    each radix-4 form's fallback), every result equal to K4's bits at
+    G = 4, 8, 16 and 32. Untimed: K4 is timed against viterbi_plain on
+    every path that runs it."""
+    from ofdm_uhd_tpu_torch.kernels import policy, viterbi
+    from ofdm_uhd_tpu_torch.research import viterbi_variants
+    rows, ties = VARIANT_ROWS
+    even, sent = variant_llrs(torch, device, rows, ties, VARIANT_STEPS, 0)
+    odd, _ = variant_llrs(torch, device, *VARIANT_ODD, 1)
+    batches = {"even": even, "odd": odd}
+    torch.cuda.synchronize()
+    policy.reset_launches()
+    t0 = time.perf_counter()
+    got = {(name, key): getattr(viterbi_variants, name)(x)
+           for name in VARIANTS for key, x in batches.items()}
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = policy.launches()
+    fallbacks = sum("radix4" in name for name in VARIANTS)
+    check(launches["viterbi"] == fallbacks
+          and sum(launches.values()) == fallbacks,
+          f"variants: the counted run launched {launches}, not K4 once for "
+          "each radix-4 form's fallback at odd n")
+    for key, x in batches.items():
+        for g in viterbi.K4_GROUPS:
+            want = viterbi._viterbi_cuda(x, g)
+            for name in VARIANTS:
+                bad = int((got[(name, key)] != want).sum())
+                check(got[(name, key)].shape == want.shape and bad == 0,
+                      f"variants: {name} on the {key} batch "
+                      f"{list(x.shape)} differs from K4 at group {g} in "
+                      f"{bad} bits")
+    errors = int((got[(VARIANTS[0], "even")][:rows].cpu().numpy()
+                  != sent).sum())
+    check(errors <= 1e-3 * sent.size, f"variants: the decodable rows "
+          f"decode with {errors} bit errors in {sent.size}")
+    log(f"variants: ok  {', '.join(VARIANTS)} equal to K4's bits at groups "
+        f"{', '.join(map(str, viterbi.K4_GROUPS))} on {list(even.shape)} "
+        f"({rows} decodable rows, {errors} bit errors, and {ties} tied rows "
+        f"of {VARIANT_STEPS} steps) and {list(odd.shape)} (odd); the "
+        f"counted run {run_s:.1f} s, launches {nonzero(launches)}")
+    return {"kernels": {}, "launches": launches, "shape": list(even.shape),
+            "odd_shape": list(odd.shape), "counted_run_s": run_s}
 
 
 def run_c3_pallas(torch, config, device) -> dict:
@@ -4131,7 +4240,8 @@ def path_launches(paths) -> dict:
     """Launches per kernel of every counted main-path run: each path's RX
     slice (C5: its two operating points; c5_sharded: its halo-kernel run;
     files: its in-process cli.rx; bench: its in-process cli.bench runs,
-    their TX included; shift, tiers, k4w_ab: their counted runs) and the
+    their TX included; shift, tiers, k4w_ab, variants: their counted
+    runs) and the
     TX input builds of C4, c4_bf16, the 'pallas' paths and big_nsc."""
     out = {}
     for p, r in paths.items():
@@ -4222,6 +4332,7 @@ def main() -> int:
         c3_pallas = run_c3_pallas(torch, config, device)
         k4w_ab = run_k4w_ab(torch, c3_pallas.pop("llr"))
         c2_pallas = run_c2_pallas(torch, config, device)
+        variants = run_variants(torch, device)
         fir_inputs = c4.pop("fir_inputs")
         shift = run_shift(torch, device, fir_inputs)
         tiers = run_tiers(torch, device, fir_inputs, c3.pop("tier_inputs"))
@@ -4237,7 +4348,8 @@ def main() -> int:
              "axes_distributed": axes_distributed, "c3_pallas": c3_pallas,
              "c2_pallas": c2_pallas,
              "c4_bf16": c4_bf16, "shift": shift, "tiers": tiers,
-             "big_nsc": big_nsc, "k4w_ab": k4w_ab, "files": files,
+             "big_nsc": big_nsc, "k4w_ab": k4w_ab, "variants": variants,
+             "files": files,
              "bench": bench, "harness": harness}
     by_path = path_launches(paths)
     line = {"kernels": [kernel_entry(k, paths, by_path)

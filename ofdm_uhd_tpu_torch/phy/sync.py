@@ -241,15 +241,28 @@ def _int_cfo_tables(spec: WaveformSpec, search: int):
         np.float32)
 
 
-def integer_cfo(spec: WaveformSpec, frames: torch.Tensor, search: int = 4
-                ) -> torch.Tensor:
+def integer_cfo(spec: WaveformSpec, frames: torch.Tensor, search: int = 4,
+                eps_pre: torch.Tensor | None = None) -> torch.Tensor:
     """Integer CFO per frame [...] (float32) from preamble sym B by the
-    differential correlation over +-search bin shifts."""
+    differential correlation over +-search bin shifts.
+
+    eps_pre [...]: a fractional CFO to derotate the sym-B window by before
+    the search, and the window alone (n_sc samples, not the frame): the
+    caller then applies one ramp at eps_pre + k to the frame instead of
+    two. The window's phase is cfo_correct's float32 expression on the
+    window's own sample indices, so the window equals that slice of the
+    frames cfo_correct(frames, eps_pre) gives, and k the two-ramp k."""
     dev = frames.device
     bins = T.on_device(_int_cfo_tables, (spec, search), 0, dev)
     shifts = T.on_device(_int_cfo_tables, (spec, search), 1, dev)
     start = spec.sym_len + spec.cp
     win = frames[..., start:start + spec.n_sc]
+    if eps_pre is not None:
+        n = torch.arange(start, start + spec.n_sc, dtype=torch.float32,
+                         device=dev)
+        phase = T.f32_scalar(2.0 * np.pi, dev) * eps_pre[..., None] * n \
+            / spec.n_sc
+        win = win * torch.polar(torch.ones_like(phase), -phase)
     y = torch.fft.fft(win, norm="ortho").to(torch.complex64)   # not a kernel
     ys = y[..., bins]                                         # [..., S, n_occ]
     d = ys * T.on_device(T.frame_tables, (spec,), "sym_b_occ_conj", dev)

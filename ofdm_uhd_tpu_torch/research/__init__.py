@@ -1,6 +1,6 @@
-"""The counterpart of ofdm_uhd_tpu/research/: filter tiers and a frame
-extractor the reference keeps as measured A/B baselines or dead ends and
-never routes. No user path
+"""The counterpart of ofdm_uhd_tpu/research/: filter tiers, a frame
+extractor and Viterbi decoders the reference keeps as measured A/B
+baselines or dead ends and never routes. No user path
 (RxPipeline, TxPipeline, StreamRx, policy.choose) imports from here.
 
   shift   the shifted-FMA filter tier (K11): 'same' FIR, phase-split
@@ -11,4 +11,9 @@ never routes. No user path
           cores
   deframe frame extraction by one bulk copy per frame (K12, csrc/
           deframe.cu), with zeros at negative offsets
+  viterbi_variants
+          the whole-sequence Viterbi decode restructured three ways
+          (state-major metrics, radix-4 steps, both), plain PyTorch and
+          bit-exact with kernels/viterbi.py viterbi_plain; held on the
+          card against K4 at every group size
 """

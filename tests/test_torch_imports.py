@@ -27,7 +27,8 @@ def test_every_module_imports_without_jax():
     for m in ("kernels.viterbi", "kernels.halo", "shard.mesh",
               "shard.frame_parallel", "shard.stage_pipeline",
               "shard.time_parallel", "research.shift", "kernels.banded",
-              "research.fir_ilv", "research.deframe", "golden.sync",
+              "research.fir_ilv", "research.deframe",
+              "research.viterbi_variants", "golden.sync",
               "golden.chain", "metrics", "io.capture", "io.native",
               "cli.config", "cli.tx", "cli.rx", "cli.loopback",
               "cli.pod_rx", "cli.bench", "shard.collectives",
